@@ -1,0 +1,183 @@
+"""Build and load the port's CUDA kernels, and count their launches.
+
+All sources under ``csrc/`` compile with one ``nvcc`` call into one shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
+so the build takes seconds). The library lands in ``build/trackdlo_tpu_torch/``
+beside the package and is rebuilt only when a hash of the sources and flags
+changes. ``--use_fast_math`` is never passed: the voxel parity floors are
+bit-pinned to the plain version's IEEE float32 chain, and ``-fmad=false``
+keeps ``a*b+c`` from contracting into an FMA where the plain version rounds
+twice (kernels that want an FMA call ``fmaf`` explicitly).
+
+Every C entry point returns the ``cudaError_t`` of its launch; :func:`check`
+raises on a nonzero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "trackdlo_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C entry points and their argument types (pointers and the stream last as
+# c_void_p, so ctypes never truncates a 64-bit address).
+SIGNATURES = {
+    "trackdlo_em_loop": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # dyn..x_mask
+        _I, _I,  # m, n
+        _F, _F, _F, _F, _F, _F, _F, _I,  # muf k_vis tau lam lle alpha tol max_iter
+        _P, _P,  # y_out, stats
+        _P,  # stream
+    ],
+    "trackdlo_visibility": [
+        _P, _P, _P, _P, _P,  # y, x, x_mask, proj, coord
+        _I, _I, _I, _I,  # m, n, img_rows, img_cols
+        _F, _F, _F,  # tau_vis, w_half, d_vis
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs
+        _P,
+    ],
+    "trackdlo_walks": [
+        _P, _P, _P,  # guides, seglens, ints
+        _I, _I, _F,  # n_walks, m, eps
+        _P, _P,  # pos, valid
+        _P,
+    ],
+    "trackdlo_cell_sums": [
+        _P, _P, _P,  # rgb, depth, occ
+        _I, _I, _I,  # h, w, cell_px
+        _P, _I,  # hsv bands, n_bands
+        _F, _F, _F, _F,  # fx fy cx cy
+        _F, _F, _F, _F, _I,  # kx ky k_zq kz z_from_mm
+        _P,  # out
+        _P,
+    ],
+    "trackdlo_compact": [
+        _P, _P, _P, _P, _P,  # xs, ys, zs, counts, kept
+        _I, _I, _I,  # n_channels, n_per, cap_per
+        _P, _P, _P,  # pts, cnt, valid
+        _P,
+    ],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds: float | None = None
+
+# Launch counters: each kernel wrapper adds one where it launches its kernel.
+launch_counts = {"cell_sums": 0, "compact": 0, "visibility": 0, "walks": 0, "em_loop": 0}
+
+
+def count_launch(name: str) -> None:
+    launch_counts[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    from trackdlo_tpu_torch.device import nvcc_path
+
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels if the library for the current sources is
+    missing; returns its path."""
+    global build_seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"libtrackdlo_{_source_hash()}.so"
+    if out.exists():
+        return out
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", str(tmp)]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    cmd += [str(p) for p in _sources()]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    if verbose or res.returncode != 0:
+        print(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def require_cuda(name: str, tensors: dict, dtypes: dict | None = None):
+    """The one CUDA device of ``tensors``; raises unless each is a contiguous
+    CUDA tensor of its dtype (``dtypes[key]``, float32 by default)."""
+    import torch
+
+    dev = None
+    for key, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {key} must be a CUDA tensor, got {t.device}")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{name}: tensors on different devices")
+        dev = t.device
+        want = (dtypes or {}).get(key, torch.float32)
+        if t.dtype != want:
+            raise ValueError(f"{name}: {key} must be {want}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    return dev
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {code}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

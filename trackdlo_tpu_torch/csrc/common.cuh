@@ -1,0 +1,26 @@
+// Shared helpers for the trackdlo_tpu_torch kernels.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define TD_FULL_MASK 0xffffffffu
+
+// Fixed-order warp tree reductions: the result in lane 0 is the same on
+// every run (no atomics anywhere in this library).
+__device__ __forceinline__ float td_warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(TD_FULL_MASK, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float td_warp_min(float v) {
+  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_down_sync(TD_FULL_MASK, v, off));
+  return v;
+}
+
+// Every lane gets the lowest index among lanes holding `hit`, or 1e9f.
+__device__ __forceinline__ float td_warp_first(bool hit, float idx) {
+  float v = hit ? idx : 1e9f;
+  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(TD_FULL_MASK, v, off));
+  return v;
+}
