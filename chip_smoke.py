@@ -8,17 +8,28 @@ Run from the repository root on a machine with a CUDA GPU:
 Phases, in order (any failure exits nonzero and prints no result line):
 
 1. toolchain: the card's name and power limit, torch's CUDA version, nvcc;
-2. build: compile the five CUDA kernels from ``trackdlo_tpu_torch/csrc``;
+2. build: compile the eight CUDA kernels from ``trackdlo_tpu_torch/csrc``,
+   one ``nvcc`` per source, all started together;
 3. check: each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path (720p frame, M=45, the live cloud capacity);
+   shapes of the main paths (720p frames, M=45, the live cloud capacity, 16
+   streams for the batched E-step), the Gauss-Jordan solve against float64,
+   and the per-iteration EM against kernel E and its plain version;
 4. closed loop: ``Tracker.step`` over 30 occluded frames against the float64
    oracle, with the kernels' launch counts;
-5. timing: the per-frame step (CUDA events, median of 100 frames) and each
-   kernel beside its plain version.
+5. batch: the batched step over 16 streams in cohorts of 8 for 30 frames,
+   each frame held against the single-stream step from the same state and
+   against a lockstep batch of 16, streams 0 and 15 against the oracle, the
+   exact lockstep launch count; then ``Tracker.step`` with
+   ``solver="lstsq"`` (the single-stream per-iteration route) against the
+   oracle;
+6. timing: the per-frame single step and the batched step (CUDA events) and
+   each kernel beside its plain version and, for the solve, beside
+   ``torch.linalg.solve``.
 
-The last two lines of standard output are the card line and a JSON object
-``{"ok": true, "device": {...}}``; the line before them holds the kernels'
-JSON record. Details go to ``chiprun_out/chip_smoke.json``.
+Every path is driven with the launch counters set to 0 just before it and
+read just after. The last two lines of standard output are the card line
+and a JSON object ``{"ok": true, "device": {...}}``; the line before them
+holds the kernels' JSON record. Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -48,15 +59,98 @@ BOUNDS = {
     "em3_lle_max_m": 1e-6,
     "em3_priors_gate_max_m": 1e-6,
     "closed_loop_mean_mm": 1.0,
+    # The batched slice. The solve against float64 and the batched EM
+    # against the single stream are the JAX package's own bounds
+    # (perf/tpu_kernel_numerics.py); the kernel against its plain version
+    # on the same systems: each within 2e-8 of float64, so within 4e-8.
+    "gj_solve_vs_f64_max": 2e-8,
+    "gj_solve_vs_plain_max": 4e-8,
+    # E-step: elements outside rtol 2e-4, atol 1e-6 (tests/test_pallas.py's
+    # E-step bound); shortest_sq must be equal where it is defined.
+    "estep_outside_tol": 0,
+    "estep_short_mismatch": 0,
+    "em10_batched_vs_single_max_m": 2e-6,
+    "em3_periter_plain_max_m": 1e-6,
+    "em3_periter_lle_max_m": 1e-6,
+    "em3_periter_priors_gate_max_m": 1e-6,
+    # Per frame from one state. At the live profile the step is sensitive:
+    # its own output moves by up to ~5 mm when its input nodes move by 1e-7 m
+    # (float32 rounding of the coordinates), through the EM passes' exit
+    # iterations. The batched step (per-iteration EM) and the single step
+    # (kernel E) are two float32 realisations of the same loop, so the median
+    # stream-frame is held at the open-loop step bound of
+    # tests/test_torch_tracker.py, and the batched-vs-single distance at its
+    # median, p90 and p99 to at most twice the single step's distance from
+    # itself under that nudge. The pre-registration pass's guide nodes are
+    # held to the same rule.
+    "batched_vs_single_median_m": 5e-4,
+    "batched_vs_single_over_nudged": 2.0,
+    "batched_guides_vs_single_over_nudged": 2.0,
+    "batched_closed_loop_s0_mean_mm": 1.0,
+    "batched_closed_loop_s15_mean_mm": 1.0,
+    # Cohorts of 8 against one lockstep batch of 16: bit-equal y and sigma2.
+    "cohort_vs_lockstep_max": 0.0,
+    "batched_launch_mismatch": 0,
+    "lstsq_closed_loop_mean_mm": 1.0,
 }
-EXPECTED_LAUNCHES = {"cell_sums": 30, "compact": 30, "visibility": 30, "walks": 30, "em_loop": 60}
+N_STREAMS, COHORT = 16, 8
+EXPECTED_LAUNCHES = {"cell_sums": 30, "compact": 30, "visibility": 30, "walks": 30, "em_loop": 60,
+                     "estep": 0, "estep_batch": 0, "gj_solve": 0}
 KERNELS = {
     "cell_sums": ("trackdlo_tpu_torch/csrc/cell_sums.cu", "trackdlo_tpu/ops/preprocess_kernel.py:470"),
     "compact": ("trackdlo_tpu_torch/csrc/compact.cu", "trackdlo_tpu/ops/preprocess_kernel.py:617"),
     "visibility": ("trackdlo_tpu_torch/csrc/visibility.cu", "trackdlo_tpu/ops/visibility_kernel.py:292"),
     "walks": ("trackdlo_tpu_torch/csrc/walks.cu", "trackdlo_tpu/ops/pallas_kernels.py:1685"),
     "em_loop": ("trackdlo_tpu_torch/csrc/em_loop.cu", "trackdlo_tpu/ops/pallas_kernels.py:1441"),
+    "estep": ("trackdlo_tpu_torch/csrc/estep.cu", "trackdlo_tpu/ops/pallas_kernels.py:728"),
+    "estep_batch": ("trackdlo_tpu_torch/csrc/estep.cu", "trackdlo_tpu/ops/pallas_kernels.py:942"),
+    "gj_solve": ("trackdlo_tpu_torch/csrc/gj_solve.cu", "trackdlo_tpu/ops/pallas_kernels.py:1112"),
 }
+# The path whose run gives each kernel's launch count in the kernels line.
+LAUNCH_PATH = {"estep": "lstsq", "estep_batch": "batched", "gj_solve": "batched"}
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory and
+# float32 outside the tensor cores. A kernel's bound is the larger of its
+# bytes (each input read once, each output written once) over the first and
+# its operations over the second.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# Operation counts per unit of work (adds, multiplies, compares, exp and
+# sqrt each one operation), read off the kernels' code:
+OPS_PER_PIXEL = 45         # kernel P: HSV test, deprojection, floors, sums
+OPS_SWEEP_PAIR = 9         # squared distance and min, per (node, point)
+OPS_ESTEP_PAIR = 30        # both E-step passes and the P1/PX sums, per (node, point)
+OPS_WALK_STEP_SEG = 40     # kernel W: one sphere-segment test
+
+
+def gj_solve_ops(m: int) -> int:
+    """The least work of kernel G's function for one system: the LU
+    factorisation and the inverse (2 m^3), the solve for three right-hand
+    sides (2 m^2 3) and three refinement steps (two m x m x 3 products
+    each)."""
+    return 2 * m ** 3 + 2 * m * m * 3 + 3 * 2 * 2 * m * m * 3
+
+
+def em_mstep_ops(m: int) -> int:
+    """Kernel E's M-step per iteration: the solve, then T = Y0 + G W."""
+    return gj_solve_ops(m) + 2 * m * m * 3
+
+
+def quantile_ratio(got, ref) -> float:
+    """The largest ratio of ``got`` to ``ref`` at the median, p90 and p99
+    (0 over 0 reads 1)."""
+    import numpy as np
+
+    ratios = []
+    for q in (0.5, 0.9, 0.99):
+        g, r = float(np.quantile(got, q)), float(np.quantile(ref, q))
+        ratios.append(1.0 if g == r == 0.0 else (g / r if r > 0 else float("inf")))
+    return max(ratios)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
 def log(msg: str) -> None:
@@ -76,8 +170,8 @@ class Smoke:
         import numpy as np
         import torch
 
-        from trackdlo_tpu.config import CameraIntrinsics, live_params
-        from trackdlo_tpu.io.sequence import SyntheticRope, render_frame
+        from trackdlo_tpu_torch.config import CameraIntrinsics, live_params
+        from trackdlo_tpu_torch.io.sequence import SyntheticRope, render_frame
 
         self.np, self.torch = np, torch
         self.params = live_params()
@@ -90,7 +184,9 @@ class Smoke:
         self.metrics: dict = {}
         self.kernel_err: dict = {}
         self.launches: dict = {}
+        self.path_launches: dict = {}
         self.times: dict = {}
+        self.bounds_ms: dict = {}
         self.failures: list[str] = []
 
     # -- helpers -----------------------------------------------------------
@@ -117,9 +213,10 @@ class Smoke:
             torch.from_numpy(occ != 0).to(self.dev),
         )
 
-    def time_pair(self, name, kernel_fn, plain_fn, n_kernel=50, n_plain=5):
-        """ms per call of the kernel and of its plain version, measured in
-        turns (plain, kernel, kernel, plain) with CUDA events."""
+    def time_pair(self, name, kernel_fn, plain_fn, n_kernel=50, n_plain=5, library_fn=None):
+        """ms per call of the kernel, of its plain version and of the library
+        call (if any), measured in turns (plain, kernel, kernel, plain) with
+        CUDA events."""
         torch = self.torch
 
         def run(fn, n):
@@ -138,9 +235,26 @@ class Smoke:
         k1 = run(kernel_fn, n_kernel)
         k2 = run(kernel_fn, n_kernel)
         p2 = run(plain_fn, n_plain)
-        self.times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                            "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
-        log(f"  {name:12s} kernel {self.times[name]['ms']:.4f} ms   plain {self.times[name]['plain_ms']:.4f} ms")
+        rec = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+               "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2], "library_ms": None}
+        if library_fn is not None:
+            rec["library_ms"] = run(library_fn, n_kernel)
+        self.times[name] = rec
+        lib = f"   library {rec['library_ms']:.4f} ms" if library_fn is not None else ""
+        log(f"  {name:12s} kernel {rec['ms']:.4f} ms   plain {rec['plain_ms']:.4f} ms{lib}"
+            f"   bound {self.bounds_ms[name][0]:.6f} ms ({self.bounds_ms[name][1]})")
+
+    def count_path(self, path: str, fn):
+        """Run ``fn`` with every launch counter at 0; keep the counts."""
+        from trackdlo_tpu_torch import _build
+
+        self.torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        out = fn()
+        self.torch.cuda.synchronize()
+        self.path_launches[path] = dict(_build.launch_counts)
+        log(f"  launches in the {path} run: {self.path_launches[path]}")
+        return out
 
     # -- phase 3: kernels against their plain versions ----------------------
     def check_preprocess(self):
@@ -314,11 +428,230 @@ class Smoke:
             err = max(err, e)
         self.kernel_err["em_loop"] = err
 
+    def check_gj(self):
+        """Kernel G: the (8, 48, 48) SPD systems of perf/tpu_kernel_numerics.py
+        (seed 0) against float64 and the plain version; one live
+        pre-registration M-step system (the worst-conditioned iterate of the
+        first frame's pass), kernel against plain, relative error reported;
+        the system and both solutions go to chiprun_out/gj_prereg_system.npz
+        (the CPU tests hold them against the JAX package's own solve)."""
+        np, torch = self.np, self.torch
+        from trackdlo_tpu_torch.ops.hopper_kernels import (
+            gauss_jordan_solve_batched, gauss_jordan_solve_batched_plain,
+        )
+
+        rng = np.random.default_rng(0)
+        a_np = rng.standard_normal((8, 48, 48)).astype(np.float32)
+        a_np = a_np @ a_np.transpose(0, 2, 1) + 48 * np.eye(48, dtype=np.float32)
+        b_np = rng.standard_normal((8, 48, 3)).astype(np.float32)
+        w64 = np.linalg.solve(a_np.astype(np.float64), b_np.astype(np.float64))
+        a, b = torch.from_numpy(a_np).to(self.dev), torch.from_numpy(b_np).to(self.dev)
+        wk = gauss_jordan_solve_batched(a, b)
+        wp = gauss_jordan_solve_batched_plain(a, b)
+        wk_np, wp_np = wk.cpu().numpy(), wp.cpu().numpy()
+        self.metrics["gj_plain_vs_f64_max"] = float(np.abs(wp_np - w64).max())
+        log(f"  plain (torch.linalg.solve) vs float64: {self.metrics['gj_plain_vs_f64_max']!r}")
+        self.bound("gj_solve_vs_f64_max", float(np.abs(wk_np - w64).max()))
+        self.bound("gj_solve_vs_plain_max", float(np.abs(wk_np - wp_np).max()))
+        self.kernel_err["gj_solve"] = self.metrics["gj_solve_vs_plain_max"]
+        self.gj_spd = (torch.cat([a, a]), torch.cat([b, b]))  # (16, 48, 48) for the timing
+
+        a_l, b_l = self.prereg_system()
+        cond = float(np.linalg.cond(a_l.double().cpu().numpy()))
+        wk = gauss_jordan_solve_batched(a_l[None], b_l[None])[0]
+        wp = gauss_jordan_solve_batched_plain(a_l[None], b_l[None])[0]
+        w64 = np.linalg.solve(a_l.double().cpu().numpy(), b_l.double().cpu().numpy())
+        scale = float(np.abs(w64).max())
+        self.metrics.update(
+            gj_live_prereg_cond=cond,
+            gj_live_prereg_kernel_vs_plain_rel=float((wk - wp).abs().max()) / float(wp.abs().max()),
+            gj_live_prereg_kernel_vs_f64_rel=float(np.abs(wk.cpu().numpy() - w64).max()) / scale,
+            gj_live_prereg_plain_vs_f64_rel=float(np.abs(wp.cpu().numpy() - w64).max()) / scale,
+        )
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        np.savez(os.path.join(ROOT, "chiprun_out", "gj_prereg_system.npz"),
+                 a=a_l.cpu().numpy(), b=b_l.cpu().numpy(), w_kernel=wk.cpu().numpy(),
+                 w_plain=wp.cpu().numpy())
+        log(f"  live pre-registration system: cond {cond:.3g}, kernel vs plain relative "
+            f"{self.metrics['gj_live_prereg_kernel_vs_plain_rel']:.3g}; against float64: kernel "
+            f"{self.metrics['gj_live_prereg_kernel_vs_f64_rel']:.3g}, plain "
+            f"{self.metrics['gj_live_prereg_plain_vs_f64_rel']:.3g}")
+
+    def prereg_system(self):
+        """The pre-registration M-step system of the first live frame with
+        the largest condition number over the pass's iterations."""
+        np, torch = self.np, self.torch
+        from trackdlo_tpu_torch.ops.cpd_lle import (
+            CpdParams, em_iteration, em_staging, estep_scalars, mstep_system,
+        )
+        from trackdlo_tpu_torch.ops.hopper_kernels import (
+            fused_estep_packed_batch, gauss_jordan_solve_batched,
+        )
+        from trackdlo_tpu_torch.ops.visibility_kernel import fused_visibility
+
+        p, intr, m = self.params, self.intr, self.params.M
+        y = torch.as_tensor(self.rope.nodes(0.0, m), dtype=torch.float32, device=self.dev)
+        vis = fused_visibility(*self.v_args)
+        nm = torch.arange(m, device=self.dev) < vis.vis_ext_count
+        guides = torch.where(nm[:, None], y[vis.vis_ext_idx], 0.0)
+        params = CpdParams(beta=p.beta_pre_proc, lam=p.lambda_pre_proc, lle_weight=p.lle_weight,
+                           mu=p.mu, max_iter=p.max_iter, tol=p.tol, include_lle=True,
+                           prune_radius=p.prune_radius,
+                           visibility_threshold=p.visibility_threshold)
+        st = em_staging(self.cloud.points[None], self.cloud.mask[None], guides[None], nm[None],
+                        torch.tensor([p.sigma2_init], device=self.dev), params,
+                        point_min_sq=vis.point_min_sq_ext[None])
+        yb, s2 = st.args[1], st.args[0][:, 0]
+        best = (-1.0, None)
+        for _ in range(p.max_iter):
+            scal = estep_scalars(st.args[0], s2, params)
+            p1, px, _, _ = fused_estep_packed_batch(scal, yb, st.args[2], st.args[3],
+                                                    torch.ones_like(st.args[3]), st.args[9],
+                                                    st.args[10], two_phase=True)
+            a, b = mstep_system(st, p1, px, s2, params)
+            cond = float(np.linalg.cond(a[0].double().cpu().numpy()))
+            if cond > best[0]:
+                best = (cond, (a[0].clone(), b[0].clone()))
+            t, s2, delta = em_iteration(st, yb, s2, params, fused_estep_packed_batch,
+                                        gauss_jordan_solve_batched)
+            yb = t
+            if float(delta[0]) < p.tol:
+                break
+        return best[1]
+
+    def batch_em_inputs(self, n_streams=N_STREAMS):
+        """B streams of EM inputs at the live shapes: each stream's cloud from
+        its own frame (odd streams occluded), its nodes, mixed visibility
+        gates; streams 14 and 15 with 3 and 2 valid nodes (the anchor
+        fallbacks' edge)."""
+        torch = self.torch
+        from trackdlo_tpu_torch.ops.preprocess import compact_parity_channels
+        from trackdlo_tpu_torch.ops.preprocess_kernel import cell_sums
+
+        p, m = self.params, self.params.M
+        frames = [self.frame(1 / 15.0 + 0.01 * b, occlude=b % 2 == 1) for b in range(n_streams)]
+        rgb, depth, occ = (torch.stack(f) for f in zip(*(self.to_dev(*f) for f in frames)))
+        pc = compact_parity_channels(*cell_sums(rgb, depth, occ, *self.p_args[3:]), p.max_points,
+                                     p.downsample_leaf_size, p.candidate_cap(), inputs_are_sums=True)
+        y = torch.stack([torch.as_tensor(self.rope.nodes(0.01 * b, m), dtype=torch.float32)
+                         for b in range(n_streams)]).to(self.dev)
+        nm = torch.ones((n_streams, m), dtype=torch.bool, device=self.dev)
+        if n_streams >= 16:
+            nm[14, 3:] = False
+            nm[15, 2:] = False
+            y = torch.where(nm[..., None], y, 0.0)
+        vc = torch.tensor([30 if b % 2 == 0 else m for b in range(n_streams)], device=self.dev)
+        return pc, y, nm, vc
+
+    def check_estep(self):
+        """Kernel S against its plain version: 16 streams (B7) and each stream
+        alone (B6), gates mixed, all off, and both phase modes."""
+        torch = self.torch
+        from trackdlo_tpu_torch.ops.cpd_lle import CpdParams, em_staging, estep_scalars
+        from trackdlo_tpu_torch.ops.hopper_kernels import (
+            fused_estep_packed, fused_estep_packed_batch, fused_estep_packed_batch_plain,
+            fused_estep_packed_plain,
+        )
+
+        p = self.params
+        pc, y, nm, vc = self.batch_em_inputs()
+        params = CpdParams(beta=p.beta, lam=p.lam, lle_weight=p.lle_weight, mu=p.mu,
+                           max_iter=3, tol=0.0, include_lle=False, k_vis=p.k_vis,
+                           visibility_threshold=p.visibility_threshold, use_visibility=True)
+        s2 = torch.linspace(5e-4, 2e-3, N_STREAMS, device=self.dev)
+        st = em_staging(pc.points, pc.mask, y, nm, s2, params, visible_count=vc)
+        scal = estep_scalars(st.args[0], s2, params)
+        coord, nmf, x, xm = st.args[2], st.args[3], st.args[9], st.args[10]
+        pv = torch.rand(nmf.shape, generator=torch.Generator().manual_seed(0)).to(self.dev) * nmf
+        pv = pv / pv.sum(dim=1, keepdim=True)
+        log(f"  gates on: {int((scal[:, 3] > 0).sum())} of {N_STREAMS} streams; points per stream "
+            f"{[int(v) for v in st.n_count.tolist()]}")
+        outside, short_mis, err = 0, 0, 0.0
+
+        def compare(got, ref, defined):
+            nonlocal outside, short_mis, err
+            for g, r in zip(got[:3], ref[:3]):
+                outside += int((~((g - r).abs() <= 1e-6 + 2e-4 * r.abs())).sum())
+                err = max(err, float((g - r).abs().max()))
+            short_mis += int((got[3] != ref[3]).sum()) if defined else 0
+
+        for case, gate in (("mixed", None), ("all_off", 0.0)):
+            sc = scal.clone()
+            if gate is not None:
+                sc[:, 3] = gate
+            for two_phase in (True, False):
+                args = (sc, y, coord, nmf, pv, x, xm)
+                got = fused_estep_packed_batch(*args, two_phase=two_phase)
+                ref = fused_estep_packed_batch_plain(*args, two_phase=two_phase)
+                compare(got, ref, True)
+                if not two_phase or gate is not None:
+                    sentinel = bool((got[3] == 1e5).all())
+                    if not sentinel:
+                        self.failures.append(f"estep_sentinel_{case}")
+                for b in (0, 1, 15):
+                    one = tuple(a[b] for a in args)
+                    compare(fused_estep_packed(*one, two_phase=two_phase),
+                            fused_estep_packed_plain(*one, two_phase=two_phase), True)
+                log(f"  {case:8s} two_phase={two_phase!s:5s}: outside tolerance so far {outside}, "
+                    f"shortest_sq mismatches {short_mis}")
+        self.bound("estep_outside_tol", outside)
+        self.bound("estep_short_mismatch", short_mis)
+        self.kernel_err["estep"] = self.kernel_err["estep_batch"] = err
+        self.s_args = (scal, y, coord, nmf, pv, x, xm)
+        self.s_n_valid = st.n_count
+
+    def check_em_periter(self):
+        """The per-iteration EM: 10 iterations (tol 0) of 4 copies of one
+        stream through kernels S and G against kernel E on that stream, and
+        3 iterations of 4 streams, kernels against plain versions."""
+        torch = self.torch
+        from trackdlo_tpu_torch.ops.cpd_lle import (
+            CpdParams, cpd_lle, cpd_lle_batched, em_loop_lockstep, em_staging,
+        )
+        from trackdlo_tpu_torch.ops.hopper_kernels import (
+            fused_estep_packed_batch, fused_estep_packed_batch_plain, gauss_jordan_solve_batched,
+            gauss_jordan_solve_batched_plain,
+        )
+
+        p, m = self.params, self.params.M
+        nodes = torch.as_tensor(self.rope.nodes(0.0, m), dtype=torch.float32, device=self.dev)
+        nm = torch.ones(m, dtype=torch.bool, device=self.dev)
+        base = dict(beta=p.beta, lam=p.lam, lle_weight=p.lle_weight, mu=p.mu, max_iter=10,
+                    tol=0.0, include_lle=False, k_vis=p.k_vis,
+                    visibility_threshold=p.visibility_threshold, use_visibility=True)
+        vc = torch.tensor(30, device=self.dev)
+        s2 = torch.tensor(0.001, device=self.dev)
+        single = cpd_lle(self.cloud.points, self.cloud.mask, nodes, nm, s2, CpdParams(**base),
+                         visible_count=vc)
+        rep = lambda a: a.unsqueeze(0).expand(4, *a.shape).contiguous()
+        batched = cpd_lle_batched(rep(self.cloud.points), rep(self.cloud.mask), rep(nodes), rep(nm),
+                                  rep(s2), CpdParams(**base), visible_count=rep(vc))
+        self.bound("em10_batched_vs_single_max_m", float((batched.y - single.y[None]).abs().max()))
+
+        pc, y, _, vcs = self.batch_em_inputs(4)
+        nm4 = torch.ones((4, m), dtype=torch.bool, device=self.dev)
+        s2_4 = torch.full((4,), 0.001, device=self.dev)
+        short = dict(base, max_iter=3)
+        for key, extra, kw in (
+            ("em3_periter_plain_max_m", {}, {}),
+            ("em3_periter_lle_max_m", {"include_lle": True}, {}),
+            ("em3_periter_priors_gate_max_m", {"use_priors": True, "alpha": p.alpha},
+             {"prior_pos": y + 0.004, "prior_mask": (torch.arange(m, device=self.dev) < 12).expand(4, m)}),
+        ):
+            params = CpdParams(**{**short, **extra})
+            st = em_staging(pc.points, pc.mask, y, nm4, s2_4, params, visible_count=vcs, **kw)
+            yk, sk, ik, _ = em_loop_lockstep(st, params, fused_estep_packed_batch,
+                                             gauss_jordan_solve_batched)
+            yp, sp, ip, _ = em_loop_lockstep(st, params, fused_estep_packed_batch_plain,
+                                             gauss_jordan_solve_batched_plain)
+            if not torch.equal(ik, ip):
+                self.failures.append(f"{key}_iterations")
+            self.bound(key, float((yk - yp).abs().max()))
+
     # -- phase 4: closed loop against the oracle -----------------------------
     def closed_loop(self):
         np, torch = self.np, self.torch
-        from trackdlo_tpu.oracle.pipeline import init_state as oracle_init, step_frame
-        from trackdlo_tpu_torch import _build
+        from trackdlo_tpu_torch.oracle.pipeline import init_state as oracle_init, step_frame
         from trackdlo_tpu_torch.models.trackdlo import Tracker
 
         p, intr, m = self.params, self.intr, self.params.M
@@ -327,17 +660,18 @@ class Smoke:
         o_state = oracle_init(self.rope.nodes(0.0, m), p)
         frames = [self.frame(i / 15.0, occlude=10 <= i <= 20) for i in range(1, self.frames + 1)]
         ys, states, iters, npts = [], [], [], []
-        torch.cuda.synchronize()
-        _build.reset_launch_counts()
-        for rgb, depth, occ in frames:
-            state, out = tracker.step(state, rgb, depth, occ)
-            ys.append(state.y)
-            states.append(out.occlusion_state)
-            iters.append(out.iterations)
-            npts.append(out.n_points)
-        torch.cuda.synchronize()
-        self.launches = dict(_build.launch_counts)
-        log(f"  launches in the {self.frames}-frame run: {self.launches}")
+
+        def run():
+            nonlocal state
+            for rgb, depth, occ in frames:
+                state, out = tracker.step(state, rgb, depth, occ)
+                ys.append(state.y)
+                states.append(out.occlusion_state)
+                iters.append(out.iterations)
+                npts.append(out.n_points)
+
+        self.count_path("single", run)
+        self.launches = self.path_launches["single"]
         for k, want in EXPECTED_LAUNCHES.items():
             want = want * self.frames // 30
             if self.launches.get(k) != want:
@@ -367,12 +701,230 @@ class Smoke:
             self.failures.append("occlusion_states")
         self.tracker, self.state, self.frames_data = tracker, state, frames
 
-    # -- phase 5: timing --------------------------------------------------------
+    # -- phase 5: the batched step and the per-iteration route ---------------
+    def batch_frames(self, i: int):
+        """Frame i of the 16 streams: stream b at phase offset 0.01·b, odd
+        streams occluded at columns 500:800 on frames 10-20."""
+        np = self.np
+        fr = [self.frame(i / 15.0 + 0.01 * b, occlude=b % 2 == 1 and 10 <= i <= 20)
+              for b in range(N_STREAMS)]
+        return tuple(np.stack(f) for f in zip(*fr))
+
+    def batched_loop(self):
+        np, torch = self.np, self.torch
+        from trackdlo_tpu_torch.models.trackdlo import TrackerState
+        from trackdlo_tpu_torch.oracle.pipeline import init_state as oracle_init, step_frame
+        from trackdlo_tpu_torch.parallel import build_batched_step_fn
+
+        p, intr, m = self.params, self.intr, self.params.M
+        fn_c8 = build_batched_step_fn(p, intr, cohort_size=COHORT, device=self.dev)
+        fn_lock = build_batched_step_fn(p, intr, device=self.dev)
+        init = [self.rope.nodes(0.01 * b, m) for b in range(N_STREAMS)]
+        state = TrackerState(*(torch.stack(f) for f in zip(*(
+            self.tracker.init_from_nodes(n) for n in init))))
+        frames = [self.batch_frames(i) for i in range(1, self.frames + 1)]
+        befores, outs = [], []
+
+        def run():
+            nonlocal state
+            for rgb, depth, occ in frames:
+                befores.append(state)
+                state, out = fn_c8(state, rgb, depth, occ)
+                outs.append(out)
+
+        self.count_path("batched", run)
+        got = self.path_launches["batched"]
+        n_cohorts = N_STREAMS // COHORT
+        want = {k: 0 for k in got}
+        for k in ("cell_sums", "compact", "visibility", "walks"):
+            want[k] = n_cohorts * self.frames
+        trips = 0
+        for out in outs:
+            for c in range(n_cohorts):
+                sl = slice(c * COHORT, (c + 1) * COHORT)
+                trips += int(out.guide_iterations[sl].max()) + int(out.iterations[sl].max())
+        want["estep_batch"] = want["gj_solve"] = trips
+        mismatch = sum(abs(got[k] - want[k]) for k in want)
+        log(f"  expected launches: {want}")
+        self.bound("batched_launch_mismatch", mismatch)
+
+        # Each frame from the same state: the single-stream step and a
+        # lockstep batch of 16.
+        lock_err = 0.0
+        dy, dg, it_main, it_guide, dy_pert, dg_pert, trips_pert = [], [], [], [], [], [], []
+        nudge = torch.from_numpy(np.random.default_rng(0).normal(0, 1e-7, (m, 3)).astype(np.float32))
+        nudge = nudge.to(self.dev)
+        for (rgb, depth, occ), before, out in zip(frames, befores, outs):
+            s_lock, _ = fn_lock(before, rgb, depth, occ)
+            lock_err = max(lock_err, float((s_lock.y - out.y).abs().max()),
+                           float((s_lock.sigma2 - out.sigma2).abs().max()))
+            for b in range(N_STREAMS):
+                one = TrackerState(*(v[b] for v in before))
+                s1, o1 = self.tracker.step(one, rgb[b], depth[b], occ[b])
+                # The single step against itself, its input nodes moved by
+                # ~1e-7 m: the step's own sensitivity.
+                s2, o2 = self.tracker.step(one._replace(y=one.y + nudge), rgb[b], depth[b], occ[b])
+                dy_pert.append(float((s1.y - s2.y).abs().max()))
+                dg_pert.append(float((o1.guide_nodes - o2.guide_nodes).abs().max()))
+                trips_pert.append(int(o1.iterations) != int(o2.iterations)
+                                  or int(o1.guide_iterations) != int(o2.guide_iterations))
+                dy.append(float((s1.y - out.y[b]).abs().max()))
+                dg.append(float((o1.guide_nodes - out.guide_nodes[b]).abs().max()))
+                it_main.append(int(o1.iterations) - int(out.iterations[b]))
+                it_guide.append(int(o1.guide_iterations) - int(out.guide_iterations[b]))
+        dy_a, dg_a = np.array(dy), np.array(dg)
+        over = dy_a > BOUNDS["batched_vs_single_median_m"]
+        same_trips = (np.array(it_main) == 0) & (np.array(it_guide) == 0)
+        self.metrics.update(
+            batched_vs_single_per_stream_frame_m=dy, batched_vs_single_guides_m=dg,
+            batched_vs_single_main_trip_delta=it_main, batched_vs_single_guide_trip_delta=it_guide,
+            batched_vs_single_quantiles_m={q: float(np.quantile(dy_a, q)) for q in (0.5, 0.9, 0.99)},
+        )
+        log(f"  batched vs single, {len(dy)} stream-frames: median {np.median(dy_a):.3g} m, p90 "
+            f"{np.quantile(dy_a, 0.9):.3g}, p99 {np.quantile(dy_a, 0.99):.3g}, max {dy_a.max():.3g}; "
+            f"{int(over.sum())} above {BOUNDS['batched_vs_single_median_m']}, of which "
+            f"{int((over & ~same_trips).sum())} with another EM trip count; "
+            f"{int((same_trips).sum())} stream-frames with equal trips, max there "
+            f"{dy_a[same_trips].max() if same_trips.any() else float('nan'):.3g} m; guides: median "
+            f"{np.median(dg_a):.3g} m, max {dg_a.max():.3g}")
+        dp, dgp = np.array(dy_pert), np.array(dg_pert)
+        log(f"  single vs single with its input moved by 1e-7 m: median {np.median(dp):.3g} m, p90 "
+            f"{np.quantile(dp, 0.9):.3g}, p99 {np.quantile(dp, 0.99):.3g}, max {dp.max():.3g}; "
+            f"{int(np.sum(trips_pert))} of {len(dp)} with another EM trip count; guides: median "
+            f"{np.median(dgp):.3g} m, p90 {np.quantile(dgp, 0.9):.3g}, p99 "
+            f"{np.quantile(dgp, 0.99):.3g}, max {dgp.max():.3g}")
+        self.metrics.update(single_vs_nudged_per_stream_frame_m=dy_pert,
+                            single_vs_nudged_guides_m=dg_pert,
+                            single_vs_nudged_trip_changed=trips_pert,
+                            batched_guides_vs_single_quantiles_m={
+                                q: float(np.quantile(dg_a, q)) for q in (0.5, 0.9, 0.99)},
+                            single_vs_nudged_guides_quantiles_m={
+                                q: float(np.quantile(dgp, q)) for q in (0.5, 0.9, 0.99)})
+        self.bound("batched_vs_single_median_m", float(np.median(dy_a)))
+        self.bound("batched_vs_single_over_nudged", quantile_ratio(dy_a, dp))
+        self.bound("batched_guides_vs_single_over_nudged", quantile_ratio(dg_a, dgp))
+        self.bound("cohort_vs_lockstep_max", lock_err)
+
+        for b in (0, N_STREAMS - 1):
+            o_state = oracle_init(init[b], p)
+            dev_mm = []
+            for (rgb, depth, occ), out in zip(frames, outs):
+                o_state, _, _ = step_frame(o_state, rgb[b], depth[b], p, intr, occ[b])
+                y = out.y[b].cpu().numpy()
+                if not np.isfinite(y).all():
+                    self.failures.append("batched_closed_loop_finite")
+                dev_mm.append(1000 * float(np.linalg.norm(y - o_state.y, axis=1).mean()))
+            self.metrics[f"batched_closed_loop_s{b}_per_frame_mm"] = dev_mm
+            self.bound(f"batched_closed_loop_s{b}_mean_mm", statistics.fmean(dev_mm))
+        seen = sorted({int(v) for v in torch.stack([o.occlusion_state for o in outs]).flatten().tolist()})
+        self.metrics.update(
+            batched_occlusion_states_seen=seen,
+            batched_guide_iterations=[o.guide_iterations.tolist() for o in outs],
+            batched_main_iterations=[o.iterations.tolist() for o in outs],
+        )
+        log(f"  occlusion states seen across the streams: {seen}")
+        log(f"  main-EM iterations, frame 1: {outs[0].iterations.tolist()}")
+        if len(seen) < 2:
+            self.failures.append("batched_occlusion_states")
+        self.batch_fns = (fn_c8, fn_lock)
+        self.batch_state, self.batch_frames_data = state, frames
+
+    def lstsq_loop(self, n_frames: int = 10):
+        np = self.np
+        import dataclasses
+
+        from trackdlo_tpu_torch.models.trackdlo import Tracker
+        from trackdlo_tpu_torch.oracle.pipeline import init_state as oracle_init, step_frame
+
+        p = dataclasses.replace(self.params, solver="lstsq")
+        intr, m = self.intr, p.M
+        tracker = Tracker(p, intr, device=self.dev)
+        state = tracker.init_from_nodes(self.rope.nodes(0.0, m))
+        ys = []
+
+        def run():
+            nonlocal state
+            for rgb, depth, occ in self.frames_data[:n_frames]:
+                state, _ = tracker.step(state, rgb, depth, occ)
+                ys.append(state.y)
+
+        self.count_path("lstsq", run)
+        if self.path_launches["lstsq"]["estep"] == 0 or self.path_launches["lstsq"]["em_loop"] != 0:
+            self.failures.append("lstsq_launches")
+        o_state = oracle_init(self.rope.nodes(0.0, m), p)
+        dev_mm = []
+        for (rgb, depth, occ), y in zip(self.frames_data[:n_frames], ys):
+            o_state, _, _ = step_frame(o_state, rgb, depth, p, intr, occ)
+            dev_mm.append(1000 * float(np.linalg.norm(y.cpu().numpy() - o_state.y, axis=1).mean()))
+        self.metrics["lstsq_closed_loop_per_frame_mm"] = dev_mm
+        self.bound("lstsq_closed_loop_mean_mm", statistics.fmean(dev_mm))
+        self.lstsq_state = (tracker, state)
+
+    # -- phase 6: timing --------------------------------------------------------
+    def step_times(self, key, step, frames, n):
+        """Median and p90 of CUDA events around ``step`` over ``n`` calls."""
+        np, torch = self.np, self.torch
+        ev_ms, wall_ms = [], []
+        for i in range(n):
+            args = frames[i % len(frames)]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            step(*args)
+            end.record()
+            end.synchronize()
+            wall_ms.append(1000 * (time.perf_counter() - t0))
+            ev_ms.append(start.elapsed_time(end))
+        rec = {"median_ms": statistics.median(ev_ms), "p90_ms": float(np.percentile(ev_ms, 90)),
+               "wall_median_ms": statistics.median(wall_ms), "calls": n}
+        self.times[key] = rec
+        return rec
+
+    def kernel_bounds(self):
+        """Each kernel's least time on the card for the inputs it is timed on."""
+        p, m = self.params, self.params.M
+        rgb = self.p_args[0]
+        h, w = rgb.shape[:2]
+        n_cells = self.c_args[3].shape[-1]
+        self.bounds_ms["cell_sums"] = bound(h * w * 6 + 4 * 8 * n_cells * 4, h * w * OPS_PER_PIXEL)
+        rows, n_per = self.c_args[3].shape
+        cap = self.c_args[5]
+        self.bounds_ms["compact"] = bound(rows * n_per * 17 + rows * cap * 17, rows * n_per * 4)
+        x, xm = self.v_args[1], self.v_args[2]
+        n, n_valid = x.shape[0], int(xm.sum())
+        self.bounds_ms["visibility"] = bound(n * 21 + m * 32 + 48,
+                                             2 * OPS_SWEEP_PAIR * m * n_valid + 20 * m * m)
+        gw = self.w_args[0]
+        nw, mw = gw.shape[:2]
+        self.bounds_ms["walks"] = bound(nw * (mw * 12 + (mw - 1) * 4 + 20 + mw * 13),
+                                        nw * (mw - 1) * (mw - 1) * OPS_WALK_STEP_SEG)
+        st = self.e_stage
+        it = int(self.e_iters)
+        nv = int(st.n_count)
+        self.bounds_ms["em_loop"] = bound(
+            n * 16 + 3 * m * m * 4 + 6 * m * 12 + 16 + m * 12 + 16,
+            it * ((OPS_SWEEP_PAIR + OPS_ESTEP_PAIR) * m * nv + em_mstep_ops(m)))
+        scal, y = self.s_args[0], self.s_args[1]
+        bsz, n_b = y.shape[0], self.s_args[5].shape[1]
+        per_stream_bytes = 32 + n_b * 16 + m * 12 * 2 + m * 4 * 5 + 8
+        nv_all = [int(v) for v in self.s_n_valid.tolist()]
+        sweep = OPS_SWEEP_PAIR if bool((scal[:, 3] > 0).any()) else 0
+        self.bounds_ms["estep_batch"] = bound(
+            bsz * per_stream_bytes, sum((sweep + OPS_ESTEP_PAIR) * m * v for v in nv_all))
+        sweep0 = OPS_SWEEP_PAIR if bool(scal[0, 3] > 0) else 0
+        self.bounds_ms["estep"] = bound(per_stream_bytes, (sweep0 + OPS_ESTEP_PAIR) * m * nv_all[0])
+        a = self.g_args[0]
+        ns, mg = a.shape[:2]
+        self.bounds_ms["gj_solve"] = bound(ns * (mg * mg + 2 * mg * 3) * 4, ns * gj_solve_ops(mg))
+
     def timing(self):
         np, torch = self.np, self.torch
         from trackdlo_tpu_torch.ops.cpd_lle import CpdParams, em_staging
         from trackdlo_tpu_torch.ops.hopper_kernels import (
-            fused_em_loop, fused_em_loop_plain, pursuit_walks, pursuit_walks_plain,
+            fused_em_loop, fused_em_loop_plain, fused_estep_packed, fused_estep_packed_batch,
+            fused_estep_packed_batch_plain, fused_estep_packed_plain, gauss_jordan_solve_batched,
+            gauss_jordan_solve_batched_plain, pursuit_walks, pursuit_walks_plain,
         )
         from trackdlo_tpu_torch.ops.preprocess import (
             cell_sums_plain, compact_channels, compact_channels_plain,
@@ -386,32 +938,35 @@ class Smoke:
             rgb, depth, occ = frames[i % len(frames)]
             state, _ = tracker.step(state, rgb, depth, occ)
         torch.cuda.synchronize()
-        ev_ms, wall_ms = [], []
-        for i in range(self.timing_frames):
-            rgb, depth, occ = frames[i % len(frames)]
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            state, out = tracker.step(state, rgb, depth, occ)
-            end.record()
-            end.synchronize()
-            wall_ms.append(1000 * (time.perf_counter() - t0))
-            ev_ms.append(start.elapsed_time(end))
-        self.times["step"] = {
-            "median_ms": statistics.median(ev_ms), "p90_ms": float(np.percentile(ev_ms, 90)),
-            "wall_median_ms": statistics.median(wall_ms), "frames": self.timing_frames,
-        }
-        log(f"  Tracker.step per frame: median {self.times['step']['median_ms']:.3f} ms "
-            f"(p90 {self.times['step']['p90_ms']:.3f}, host wall median {self.times['step']['wall_median_ms']:.3f})")
+        holder = {"s": state}
+
+        def single(rgb, depth, occ):
+            holder["s"], _ = tracker.step(holder["s"], rgb, depth, occ)
+
+        rec = self.step_times("step", single, frames, self.timing_frames)
+        log(f"  Tracker.step per frame: median {rec['median_ms']:.3f} ms "
+            f"(p90 {rec['p90_ms']:.3f}, host wall median {rec['wall_median_ms']:.3f})")
+
+        fn_c8, fn_lock = self.batch_fns
+        bframes = self.batch_frames_data
+        for key, fn, b in (("batched_b16_c8", fn_c8, N_STREAMS), ("batched_b8_lockstep", fn_lock, 8)):
+            holder["b"] = type(self.batch_state)(*(v[:b] for v in self.batch_state))
+            fr = [tuple(a[:b] for a in f) for f in bframes]
+
+            def batched(rgb, depth, occ, fn=fn):
+                holder["b"], _ = fn(holder["b"], rgb, depth, occ)
+
+            for f in fr[:3]:
+                batched(*f)
+            torch.cuda.synchronize()
+            rec = self.step_times(key, batched, fr, 30)
+            rec["streams"] = b
+            rec["stream_frames_per_s"] = b / (rec["median_ms"] / 1e3)
+            log(f"  {key}: per frame set median {rec['median_ms']:.3f} ms (p90 {rec['p90_ms']:.3f}, "
+                f"host wall median {rec['wall_median_ms']:.3f}), {rec['stream_frames_per_s']:.1f} "
+                f"stream-frames/s")
 
         p = self.params
-        self.time_pair("cell_sums", lambda: cell_sums(*self.p_args), lambda: cell_sums_plain(*self.p_args))
-        self.time_pair("compact", lambda: compact_channels(*self.c_args),
-                       lambda: compact_channels_plain(*self.c_args))
-        self.time_pair("visibility", lambda: fused_visibility(*self.v_args),
-                       lambda: compute_visibility(*self.v_args))
-        self.time_pair("walks", lambda: pursuit_walks(*self.w_args), lambda: pursuit_walks_plain(*self.w_args))
         m = p.M
         nodes = torch.as_tensor(self.rope.nodes(0.0, m), dtype=torch.float32, device=self.dev)
         st = em_staging(
@@ -422,20 +977,52 @@ class Smoke:
                       visibility_threshold=p.visibility_threshold, use_visibility=True),
             visible_count=torch.tensor(30, device=self.dev),
         )
+        self.e_stage = st
+        self.e_iters = fused_em_loop(*st.args, **st.kwargs)[1][1]
+        # Kernel G at the batched main path's shape: the 8 systems of one
+        # cohort's M-step (the live pre-registration system, then the SPD
+        # systems), and at (16, 48, 48).
+        a_l, b_l = self.prereg_system()
+        self.g_args = (a_l.expand(COHORT, m, m).contiguous(), b_l.expand(COHORT, m, 3).contiguous())
+        self.kernel_bounds()
+        self.time_pair("cell_sums", lambda: cell_sums(*self.p_args), lambda: cell_sums_plain(*self.p_args))
+        self.time_pair("compact", lambda: compact_channels(*self.c_args),
+                       lambda: compact_channels_plain(*self.c_args))
+        self.time_pair("visibility", lambda: fused_visibility(*self.v_args),
+                       lambda: compute_visibility(*self.v_args))
+        self.time_pair("walks", lambda: pursuit_walks(*self.w_args), lambda: pursuit_walks_plain(*self.w_args))
         self.time_pair("em_loop", lambda: fused_em_loop(*st.args, **st.kwargs),
                        lambda: fused_em_loop_plain(*st.args, **st.kwargs), n_kernel=20, n_plain=3)
         self.times["em_loop"]["note"] = "10 iterations (tol=0), main-pass configuration with the gate on"
+        sa = self.s_args
+        one = tuple(a[0] for a in sa)
+        self.time_pair("estep", lambda: fused_estep_packed(*one, two_phase=True),
+                       lambda: fused_estep_packed_plain(*one, two_phase=True))
+        self.time_pair("estep_batch", lambda: fused_estep_packed_batch(*sa, two_phase=True),
+                       lambda: fused_estep_packed_batch_plain(*sa, two_phase=True), n_plain=3)
+        self.times["estep_batch"]["note"] = f"{sa[1].shape[0]} streams, gates mixed, two phases"
+        ga = self.g_args
+        self.time_pair("gj_solve", lambda: gauss_jordan_solve_batched(*ga),
+                       lambda: gauss_jordan_solve_batched_plain(*ga),
+                       library_fn=lambda: torch.linalg.solve(*ga))
+        self.times["gj_solve"]["note"] = f"{ga[0].shape[0]} systems of {m} x {m}, 3 right-hand sides"
+        spd = self.gj_spd
+        self.bounds_ms["gj_solve_b16_m48"] = bound(16 * (48 * 48 + 6 * 48) * 4, 16 * gj_solve_ops(48))
+        self.time_pair("gj_solve_b16_m48", lambda: gauss_jordan_solve_batched(*spd),
+                       lambda: gauss_jordan_solve_batched_plain(*spd),
+                       library_fn=lambda: torch.linalg.solve(*spd))
 
 
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="check,loop,timing",
-                    help="comma list of check,loop,timing (toolchain and build always run); "
-                         "anything but all three prints no result line")
+    ap.add_argument("--phases", default="check,loop,batch,timing",
+                    help="comma list of check,loop,batch,timing (toolchain and build always run); "
+                         "anything but all four prints no result line")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    everything = {"check", "loop", "batch", "timing"}
 
     try:
         import torch
@@ -454,6 +1041,7 @@ def main() -> int:
         print(f"chip_smoke: the port package is missing beside this script ({e})", file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"[1] card: {card}")
     probe = toolchain_probe()
@@ -467,26 +1055,47 @@ def main() -> int:
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
 
     smoke = Smoke()
+    phase_s = {}
     if "check" in phases:
         log("[3] kernels against their plain versions on the card")
+        t0 = time.perf_counter()
         smoke.check_preprocess()
         smoke.check_visibility()
         smoke.check_walks()
         smoke.check_em()
+        smoke.check_gj()
+        smoke.check_estep()
+        smoke.check_em_periter()
         torch.cuda.synchronize()
+        phase_s["check"] = time.perf_counter() - t0
     if "loop" in phases:
         log(f"[4] closed loop: {smoke.frames} frames against the float64 oracle")
+        t0 = time.perf_counter()
         smoke.closed_loop()
-    if "timing" in phases and "loop" in phases and "check" in phases:
-        log(f"[5] timing on {card}")
+        phase_s["loop"] = time.perf_counter() - t0
+    if "batch" in phases and "loop" in phases and "check" in phases:
+        log(f"[5] batched step: {N_STREAMS} streams in cohorts of {COHORT}, {smoke.frames} frames; "
+            "then the lstsq route")
+        t0 = time.perf_counter()
+        smoke.batched_loop()
+        smoke.lstsq_loop()
+        phase_s["batch"] = time.perf_counter() - t0
+    if phases >= everything:
+        log(f"[6] timing on {card}")
+        t0 = time.perf_counter()
         smoke.timing()
+        phase_s["timing"] = time.perf_counter() - t0
+    phase_s["total"] = time.perf_counter() - t_start
+    log(f"    seconds per phase: { {k: round(v, 1) for k, v in phase_s.items()} }")
 
-    if "jax" in sys.modules:
-        smoke.failures.append("jax_imported")
+    if any(k == "jax" or k.startswith(("jax.", "trackdlo_tpu.")) or k == "trackdlo_tpu"
+           for k in sys.modules):
+        smoke.failures.append("jax_or_jax_package_imported")
     record = {
         "card": card, "toolchain": probe, "metrics": smoke.metrics, "bounds": BOUNDS,
-        "launches": smoke.launches, "times": smoke.times, "failures": smoke.failures,
-        "phases": sorted(phases),
+        "launches": smoke.launches, "path_launches": smoke.path_launches, "times": smoke.times,
+        "bounds_ms": smoke.bounds_ms, "failures": smoke.failures, "phases": sorted(phases),
+        "phase_seconds": phase_s,
     }
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -494,15 +1103,21 @@ def main() -> int:
     if smoke.failures:
         log(f"FAILED: {smoke.failures}")
         return 1
-    if phases != {"check", "loop", "timing"}:
+    if not phases >= everything:
         log("partial run: no result line")
         return 0
     kernels = []
     for name, (src, replaces) in KERNELS.items():
+        launches = smoke.path_launches[LAUNCH_PATH.get(name, "single")][name]
+        if launches <= 0:
+            log(f"FAILED: kernel {name} was not launched on its path")
+            return 1
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": smoke.launches[name], "max_abs_err": smoke.kernel_err[name],
+            "launches": launches, "max_abs_err": smoke.kernel_err[name],
             "ms": smoke.times[name]["ms"], "plain_ms": smoke.times[name]["plain_ms"],
+            "bound_ms": smoke.bounds_ms[name][0], "bound_by": smoke.bounds_ms[name][1],
+            "library_ms": smoke.times[name]["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from trackdlo_tpu.config import live_params
-from trackdlo_tpu.io.sequence import SyntheticRope
+from trackdlo_tpu_torch.config import live_params
+from trackdlo_tpu_torch.io.sequence import SyntheticRope
 from trackdlo_tpu_torch.ops import cpd_lle as tc
 from trackdlo_tpu_torch.ops.hopper_kernels import fused_em_loop, fused_em_loop_plain
 
@@ -163,7 +163,7 @@ def test_to_convergence_matches_jax():
         assert np.abs(got.y.numpy() - np.asarray(ref.y)).max() <= 1e-5
 
 
-@pytest.mark.parametrize("change", [{"solver": "lstsq"}, {"use_fused_mstep": True},
+@pytest.mark.parametrize("change", [{"use_geodesic_redistance": False}, {"use_fused_mstep": True},
                                     {"kernel": "gaussian_geodesic"}])
 def test_unported_options_raise(change):
     y, x, xm = _inputs(8)
@@ -180,11 +180,12 @@ def test_cpd_params_have_no_kernel_switch():
 
 
 def test_return_deltas_raises():
+    """return_deltas is ported; on the point-sharded EM (not ported) it raises."""
     y, x, xm = _inputs(8)
     t = torch.from_numpy
     with pytest.raises(NotImplementedError):
         tc.cpd_lle(t(x), t(xm), t(y), torch.ones(M, dtype=torch.bool), torch.tensor(1e-3),
-                   tc.CpdParams(**_base()), return_deltas=True)
+                   tc.CpdParams(**_base()), axis_name="model", return_deltas=True)
 
 
 def test_wrapper_takes_plain_version_on_cpu():

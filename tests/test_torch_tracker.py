@@ -18,7 +18,7 @@ import torch
 from trackdlo_tpu.config import CameraIntrinsics, live_params
 from trackdlo_tpu.io.sequence import SyntheticRope, render_frame
 from trackdlo_tpu_torch.convert import state_from_numpy, state_to_numpy
-from trackdlo_tpu_torch.models.trackdlo import Tracker
+from trackdlo_tpu_torch.models.trackdlo import Tracker, init_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LIVE = CameraIntrinsics()
@@ -59,7 +59,8 @@ def test_step_matches_jax_frame_by_frame(jax_route):
     for i in range(1, 6):
         rgb, depth = render_frame(rope, i / 15.0, intr, rope_pixel_radius=3)
         occ = _occlusion(intr, i, (2, 3))
-        ts = state_from_numpy(np.asarray(js.y), np.asarray(js.sigma2), np.asarray(js.geodesic_coord))
+        ts = state_from_numpy(np.asarray(js.y), np.asarray(js.sigma2), np.asarray(js.geodesic_coord),
+                              device="cpu")
         js, jo = jt.step(js, rgb, depth, occ)
         ts, to = tt.step(ts, rgb, depth, occ)
         assert int(to.n_points) == int(jo.n_points)
@@ -82,7 +83,8 @@ def test_step_from_points_matches_jax():
     jt = JaxTracker(params, intr)
     tt = Tracker(params, intr, device="cpu")
     js = jt.init_from_nodes(rope.nodes(0.0, params.M))
-    ts = state_from_numpy(np.asarray(js.y), np.asarray(js.sigma2), np.asarray(js.geodesic_coord))
+    ts = state_from_numpy(np.asarray(js.y), np.asarray(js.sigma2), np.asarray(js.geodesic_coord),
+                          device="cpu")
     js, jo = jt.step_from_points(js, pts)
     ts, to = tt.step_from_points(ts, pts)
     assert int(to.n_points) == int(jo.n_points) == 300
@@ -116,18 +118,29 @@ def test_closed_loop_tracks_the_float64_oracle():
 
 
 def test_port_never_imports_jax():
+    """The port's single and batched steps, the oracle and the initialiser,
+    through the port's own copies: neither jax nor trackdlo_tpu is loaded."""
     code = (
         "import sys, numpy as np\n"
-        "from trackdlo_tpu.config import CameraIntrinsics, live_params\n"
-        "from trackdlo_tpu.io.sequence import SyntheticRope, render_frame\n"
+        "from trackdlo_tpu_torch.config import CameraIntrinsics, live_params\n"
+        "from trackdlo_tpu_torch.io.sequence import SyntheticRope, render_frame\n"
+        "from trackdlo_tpu_torch.oracle.pipeline import init_state, step_frame\n"
+        "from trackdlo_tpu_torch.parallel import build_batched_step_fn, replicate_state\n"
         "import trackdlo_tpu_torch.models.trackdlo as m, trackdlo_tpu_torch.convert\n"
+        "import trackdlo_tpu_torch.models.multi, trackdlo_tpu_torch.dlo_init\n"
         "intr = CameraIntrinsics(fx=120., fy=120., cx=80., cy=60., width=160, height=120)\n"
-        "p = live_params(max_points=256, downsample_cell_px=4)\n"
+        "p = live_params(max_points=256, downsample_cell_px=4, dlo_pixel_width=5)\n"
         "t = m.Tracker(p, intr, device='cpu')\n"
         "s = t.init_from_nodes(SyntheticRope().nodes(0.0, p.M))\n"
         "rgb, depth = render_frame(SyntheticRope(), 1 / 15.0, intr, rope_pixel_radius=3)\n"
         "t.step(s, rgb, depth)\n"
-        "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
+        "step_frame(init_state(SyntheticRope().nodes(0.0, p.M), p), rgb, depth, p, intr)\n"
+        "fn = build_batched_step_fn(p, intr, device='cpu')\n"
+        "fn(replicate_state(s, 2), np.stack([rgb, rgb]), np.stack([depth, depth]),\n"
+        "   np.ones((2, 120, 160), bool))\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "             or k == 'trackdlo_tpu' or k.startswith('trackdlo_tpu.'))\n"
+        "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
@@ -140,6 +153,18 @@ def test_cuda_device_without_gpu_raises():
         pytest.skip("a GPU is present: nothing to refuse")
     with pytest.raises(RuntimeError):
         Tracker(SMALL_PARAMS, SMALL, device="cuda")
+
+
+def test_default_device_is_the_card():
+    """No device named: the card, never the CPU on its own."""
+    if torch.cuda.is_available():
+        assert Tracker(SMALL_PARAMS, SMALL).device.type == "cuda"
+        return
+    for make in (lambda: Tracker(SMALL_PARAMS, SMALL),
+                 lambda: init_state(SyntheticRope().nodes(0.0, SMALL_PARAMS.M), SMALL_PARAMS),
+                 lambda: state_from_numpy(np.zeros((3, 3)), np.float32(1e-3), np.zeros(3))):
+        with pytest.raises(RuntimeError):
+            make()
 
 
 def test_construction_sets_full_fp32():
@@ -180,6 +205,6 @@ def test_init_from_frame_uses_the_shared_initialiser():
 def test_state_round_trips_through_numpy():
     tracker = Tracker(SMALL_PARAMS, SMALL, device="cpu")
     state = tracker.init_from_nodes(SyntheticRope().nodes(0.3, SMALL_PARAMS.M))
-    back = state_from_numpy(*state_to_numpy(state))
+    back = state_from_numpy(*state_to_numpy(state), device="cpu")
     for a, b in zip(state, back):
         assert torch.equal(a, b)

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-All sources under ``csrc/`` compile with one ``nvcc`` call into one shared
+Each source under ``csrc/`` compiles with its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links the objects into one shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
 so the build takes seconds). The library lands in ``build/trackdlo_tpu_torch/``
 beside the package and is rebuilt only when a hash of the sources and flags
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 import time
@@ -29,7 +31,7 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "trackdlo_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -48,7 +50,7 @@ SIGNATURES = {
     ],
     "trackdlo_visibility": [
         _P, _P, _P, _P, _P,  # y, x, x_mask, proj, coord
-        _I, _I, _I, _I,  # m, n, img_rows, img_cols
+        _I, _I, _I, _I, _I,  # n_streams, m, n, img_rows, img_cols
         _F, _F, _F,  # tau_vis, w_half, d_vis
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs
         _P,
@@ -61,7 +63,7 @@ SIGNATURES = {
     ],
     "trackdlo_cell_sums": [
         _P, _P, _P,  # rgb, depth, occ
-        _I, _I, _I,  # h, w, cell_px
+        _I, _I, _I, _I,  # n_streams, h, w, cell_px
         _P, _I,  # hsv bands, n_bands
         _F, _F, _F, _F,  # fx fy cx cy
         _F, _F, _F, _F, _I,  # kx ky k_zq kz z_from_mm
@@ -74,6 +76,18 @@ SIGNATURES = {
         _P, _P, _P,  # pts, cnt, valid
         _P,
     ],
+    "trackdlo_estep": [
+        _P, _P, _P, _P, _P, _P, _P,  # scal, y, coord, nm, pv, x, x_mask
+        _I, _I, _I, _I,  # n_streams, m, n, two_phase
+        _P, _P, _P, _P,  # p1, px, stats, short_sq
+        _P,
+    ],
+    "trackdlo_gj_solve": [
+        _P, _P,  # a, b
+        _I, _I,  # n_systems, m
+        _P,  # w
+        _P,
+    ],
 }
 
 _lock = threading.Lock()
@@ -81,7 +95,10 @@ _lib = None
 build_seconds: float | None = None
 
 # Launch counters: each kernel wrapper adds one where it launches its kernel.
-launch_counts = {"cell_sums": 0, "compact": 0, "visibility": 0, "walks": 0, "em_loop": 0}
+launch_counts = {
+    "cell_sums": 0, "compact": 0, "visibility": 0, "walks": 0, "em_loop": 0,
+    "estep": 0, "estep_batch": 0, "gj_solve": 0,
+}
 
 
 def count_launch(name: str) -> None:
@@ -114,6 +131,21 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _run_all(cmds: list[list[str]], verbose: bool) -> None:
+    """Run the commands side by side; raise with the output of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if verbose or proc.returncode != 0:
+            print(out, end="")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels if the library for the current sources is
     missing; returns its path."""
@@ -122,18 +154,21 @@ def build(verbose: bool = False) -> Path:
     out = BUILD_DIR / f"libtrackdlo_{_source_hash()}.so"
     if out.exists():
         return out
+    obj_dir = BUILD_DIR / f"obj_{out.stem}.{os.getpid()}"
+    obj_dir.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas=-v"] if verbose else []
+    objs = [obj_dir / f"{p.stem}.o" for p in _sources()]
+    compiles = [[nvcc, *ptxas, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-c", str(p), "-o", str(o)]
+                for p, o in zip(_sources(), objs)]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", str(tmp)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    cmd += [str(p) for p in _sources()]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        _run_all(compiles, verbose)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]], verbose)
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
-    if verbose or res.returncode != 0:
-        print(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}")
     os.replace(tmp, out)
     return out
 

@@ -1,9 +1,11 @@
 """State exchange between the JAX package and the port.
 
-The tracker has no learned weights (its parameters are the shared
-``TrackerParams``); what crosses between the packages is the tracker state.
-Both sides see it as numpy arrays: ``trackdlo_tpu.models.trackdlo.TrackerState``
-fields converted with ``np.asarray``.
+The tracker has no learned weights (its parameters are ``TrackerParams``,
+the same fields in both packages); what crosses between the packages is the
+tracker state. Both sides see it as numpy arrays:
+``trackdlo_tpu.models.trackdlo.TrackerState`` fields converted with
+``np.asarray``. A batched state (``replicate_state``, the batched step) has a
+leading stream axis on every field and converts the same way.
 """
 
 from __future__ import annotations
@@ -11,12 +13,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from trackdlo_tpu_torch.device import resolve_device
 from trackdlo_tpu_torch.models.trackdlo import TrackerState
 
 
-def state_from_numpy(y, sigma2, geodesic_coord, device="cpu") -> TrackerState:
-    """The port's TrackerState from numpy arrays (float32 copies on
-    ``device``; the inputs may be read-only views of JAX buffers)."""
+def state_from_numpy(y, sigma2, geodesic_coord, device=None) -> TrackerState:
+    """The port's TrackerState from numpy arrays: float32 copies on
+    ``device`` (the CUDA card unless the caller names the CPU). The inputs
+    may be read-only views of JAX buffers, and may carry a leading stream
+    axis: y (B, M, 3), sigma2 (B,), geodesic_coord (B, M)."""
+    device = resolve_device(device)
     return TrackerState(
         y=torch.tensor(np.asarray(y, np.float32), device=device),
         sigma2=torch.tensor(np.asarray(sigma2, np.float32), device=device),

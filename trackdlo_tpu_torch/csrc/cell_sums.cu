@@ -9,11 +9,12 @@
 // dozen float ops.
 //
 // Design: one warp per image cell (cell_px² pixels; 121 at 720p), reading
-// the frame in place (no planar copies). Each lane tests its pixels (the
+// the frame in place (no planar copies); the grid's second axis is the
+// stream, so B frames of a batch take one launch. Each lane tests its pixels (the
 // division-free HSV in-range predicate, occlusion, depth > 0), deprojects
 // them and assigns the bit-pinned voxel parity channel bx·4+by·2+bz, then
 // keeps 8 channels x (Σx, Σy, Σz, count) in registers. A fixed shuffle tree
-// reduces them and lane 0 writes raw sums in the (4, 8, n_rows·n_cols)
+// reduces them and lane 0 writes raw sums in the (4, B, 8, n_rows·n_cols)
 // raster layout. No float atomics, so the sums are identical run to run.
 // The floors use the host-computed float32 constants and multiply-only
 // chains of the plain version; with -fmad=false nothing contracts.
@@ -54,6 +55,11 @@ __global__ void cell_sums_kernel(const uint8_t* __restrict__ rgb,
   const int cell = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (cell >= n_cells) return;  // warp-uniform
+  const int stream = blockIdx.y, n_streams = gridDim.y;
+  const size_t frame = (size_t)stream * h * w;
+  rgb += frame * 3;
+  depth += frame;
+  occ += frame;
   const int cr = cell / n_cols, cc = cell % n_cols;
 
   float acc[8][4];
@@ -101,22 +107,23 @@ __global__ void cell_sums_kernel(const uint8_t* __restrict__ rgb,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const float s = td_warp_sum(acc[c][q]);
-      if (lane == 0) out[((size_t)q * 8 + c) * n_cells + cell] = s;
+      if (lane == 0) out[(((size_t)q * n_streams + stream) * 8 + c) * n_cells + cell] = s;
     }
 }
 
 }  // namespace
 
 extern "C" int trackdlo_cell_sums(const uint8_t* rgb, const uint16_t* depth,
-                                  const uint8_t* occ, int h, int w, int cell_px,
+                                  const uint8_t* occ, int n_streams, int h, int w, int cell_px,
                                   const float* bands, int n_bands, float fx,
                                   float fy, float cx, float cy, float kx, float ky,
                                   float k_zq, float kz, int z_from_mm, float* out,
                                   void* stream) {
-  if (h <= 0 || w <= 0 || cell_px <= 0 || n_bands <= 0) return (int)cudaErrorInvalidValue;
+  if (n_streams <= 0 || n_streams > 65535 || h <= 0 || w <= 0 || cell_px <= 0 || n_bands <= 0)
+    return (int)cudaErrorInvalidValue;
   const int n_cells = ((h + cell_px - 1) / cell_px) * ((w + cell_px - 1) / cell_px);
   const int blocks = (n_cells + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  cell_sums_kernel<<<blocks, 32 * WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+  cell_sums_kernel<<<dim3(blocks, n_streams), 32 * WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
       rgb, depth, occ, h, w, cell_px, bands, n_bands, fx, fy, cx, cy, kx, ky,
       k_zq, kz, z_from_mm, out);
   return (int)cudaGetLastError();

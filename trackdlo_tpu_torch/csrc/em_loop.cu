@@ -17,9 +17,10 @@
 // shared memory, where one warp per (node, quantity) sums them in a fixed
 // lane order and a shuffle tree; per-point sums use a fixed-order block tree.
 // No float atomics, so results are identical run to run. The M-step builds
-// [A | I | B] in shared memory and runs the equilibrated Gauss-Jordan solve
-// with partial pivoting, the inverse and three refinement steps.
-#include "common.cuh"
+// A and B in shared memory and runs the equilibrated Gauss-Jordan solve with
+// partial pivoting, the inverse and three refinement steps (gj.cuh, the
+// device code kernel G runs too).
+#include "gj.cuh"
 
 namespace {
 
@@ -56,18 +57,15 @@ struct Smem {
   float p[MMAX * CHUNK];    // memberships of the current chunk
   float xs[CHUNK * 3];      // the chunk's points
   float acc[MMAX * 4];      // per node: P1, PX0, PX1, PX2
-  float aug[MMAX * (2 * MMAX + 3)];  // [A/e | I | B/e]
-  float a[MMAX * MMAX];     // A before equilibration (refinement residuals)
-  float inv[MMAX * MMAX];
-  float b[MMAX * 3], w[MMAX * 3], r[MMAX * 3], t[MMAX * 3];
-  float e[MMAX], factor[MMAX], diag[MMAX], used[MMAX];
-  int perm[MMAX];
+  float a[MMAX * MMAX];     // the M-step system A w = B
+  float b[MMAX * 3], w[MMAX * 3], t[MMAX * 3];
+  td::GjSmem gj;
   float red[THREADS], red2[THREADS];
   float wmin[NWARPS * MMAX];
   float s2, delta;
-  int it, done, converged, ridx;
-  float pivot;
+  int it, done, converged;
 };
+static_assert(MMAX == td::GJ_MMAX, "kernel E and the shared solve differ in MMAX");
 
 __device__ __forceinline__ float sq_dist(const float* y, int j, float x0, float x1, float x2) {
   float d0 = y[j * 3 + 0] - x0, d1 = y[j * 3 + 1] - x1, d2 = y[j * 3 + 2] - x2;
@@ -91,7 +89,6 @@ __global__ void __launch_bounds__(THREADS, 1) em_loop_kernel(EmArgs A) {
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m = A.m, n = A.n;
-  const int width = 2 * m + 3;
 
   for (int k = tid; k < m * 3; k += THREADS) {
     S.y0[k] = A.y0[k];
@@ -297,93 +294,7 @@ __global__ void __launch_bounds__(THREADS, 1) em_loop_kernel(EmArgs A) {
       S.b[k] = v * S.nm[r];
     }
     __syncthreads();
-    // Power-of-two row equilibration from the exponent bits.
-    if (tid < m) {
-      float d = 0.0f;
-      for (int c = 0; c < m; ++c) d = fmaxf(d, fabsf(S.a[tid * m + c]));
-      if (!(d > 0.0f)) d = 1.0f;
-      const int ebits = (__float_as_int(d) >> 23) & 255;
-      S.e[tid] = __int_as_float((ebits + 1) << 23);
-      S.used[tid] = 0.0f;
-    }
-    __syncthreads();
-    for (int k = tid; k < m * width; k += THREADS) {
-      const int r = k / width, c = k % width;
-      float v;
-      if (c < m) v = S.a[r * m + c] / S.e[r];
-      else if (c < 2 * m) v = (c - m == r) ? 1.0f : 0.0f;
-      else v = S.b[r * 3 + c - 2 * m] / S.e[r];
-      S.aug[k] = v;
-    }
-    __syncthreads();
-    // Gauss-Jordan with partial pivoting over unused rows (ties -> lowest
-    // row), no row swaps: pivot rows are recorded in perm.
-    for (int k = 0; k < m; ++k) {
-      if (warp == 0) {
-        float bv = -2.0f;
-        int br = m;
-        for (int r = lane; r < m; r += 32) {
-          float cand = S.used[r] > 0.0f ? -1.0f : fabsf(S.aug[r * width + k]);
-          if (cand > bv) {
-            bv = cand;
-            br = r;
-          }
-        }
-        for (int off = 16; off > 0; off >>= 1) {
-          float ov = __shfl_down_sync(TD_FULL_MASK, bv, off);
-          int orow = __shfl_down_sync(TD_FULL_MASK, br, off);
-          if (ov > bv || (ov == bv && orow < br)) {
-            bv = ov;
-            br = orow;
-          }
-        }
-        if (lane == 0) {
-          S.ridx = br;
-          S.pivot = S.aug[br * width + k];
-        }
-      }
-      __syncthreads();
-      const int ridx = S.ridx;
-      const float pv = S.pivot;
-      const float pv_safe = pv == 0.0f ? 1.0f : pv;
-      if (tid < m) S.factor[tid] = tid == ridx ? 0.0f : S.aug[tid * width + k] / pv_safe;
-      __syncthreads();
-      for (int q = tid; q < m * width; q += THREADS) {
-        const int r = q / width, c = q % width;
-        if (r != ridx) S.aug[q] = S.aug[q] - S.factor[r] * S.aug[ridx * width + c];
-      }
-      if (tid == 0) {
-        S.used[ridx] = 1.0f;
-        S.perm[k] = ridx;
-        S.diag[k] = pv;
-      }
-      __syncthreads();
-    }
-    for (int q = tid; q < m * (m + 3); q += THREADS) {
-      const int k = q / (m + 3), c = q % (m + 3);
-      const float dg = fabsf(S.diag[k]) < 1e-30f ? 1.0f : S.diag[k];
-      const int pr = S.perm[k];
-      if (c < m) S.inv[k * m + c] = S.aug[pr * width + m + c] / dg;
-      else S.w[k * 3 + c - m] = S.aug[pr * width + 2 * m + c - m] / dg;
-    }
-    __syncthreads();
-    // Three refinement steps: w += inv (B - A w) (residual in FMA form).
-    for (int step = 0; step < 3; ++step) {
-      for (int q = tid; q < m * 3; q += THREADS) {
-        const int r = q / 3, d = q % 3;
-        float acc = 0.0f;
-        for (int j = 0; j < m; ++j) acc = fmaf(S.a[r * m + j], S.w[j * 3 + d], acc);
-        S.r[q] = (S.b[q] - acc) / S.e[r];
-      }
-      __syncthreads();
-      for (int q = tid; q < m * 3; q += THREADS) {
-        const int r = q / 3, d = q % 3;
-        float acc = 0.0f;
-        for (int j = 0; j < m; ++j) acc = fmaf(S.inv[r * m + j], S.r[j * 3 + d], acc);
-        S.w[q] = S.w[q] + acc;
-      }
-      __syncthreads();
-    }
+    td::gj_solve<THREADS, td::GjScale::kExponentBits>(m, S.a, S.b, S.w, S.gj);
     // T = Y0 + G W (inactive rows stay at Y0).
     for (int q = tid; q < m * 3; q += THREADS) {
       const int r = q / 3, d = q % 3;

@@ -8,7 +8,8 @@
 // coverage, gap fill, prefix packs) is O(M²) on 45 nodes. As plain tensor
 // code it is ~60 small launches.
 //
-// Design: one CTA of 512 threads. A first sweep over the points gives each
+// Design: one CTA of 512 threads per stream (B streams of a batch take one
+// launch, one CTA each). A first sweep over the points gives each
 // node's nearest valid point (warp min trees, then a min over warps). The
 // node-space logic then runs in shared memory with one thread per node or
 // edge: stable edge ranks by counting (ties by index), painter's coverage in
@@ -45,6 +46,20 @@ __global__ void __launch_bounds__(THREADS, 1) visibility_kernel(
   __shared__ int rank[MMAX];
   __shared__ uint8_t vis[MMAX], ext[MMAX];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t sm = (size_t)blockIdx.x * m, sn = (size_t)blockIdx.x * n;
+  y_in += sm * 3;
+  coord_in += sm;
+  x += sn * 3;
+  xm += sn;
+  visible_out += sm;
+  extended_out += sm;
+  not_occ_out += sm;
+  shortest_out += sm;
+  vis_idx += sm;
+  ext_idx += sm;
+  counts += (size_t)blockIdx.x * 2;
+  pmin_all += sn;
+  pmin_ext += sn;
 
   for (int k = tid; k < m * 3; k += THREADS) y[k] = y_in[k];
   for (int k = tid; k < m; k += THREADS) coord[k] = coord_in[k];
@@ -166,12 +181,13 @@ __global__ void __launch_bounds__(THREADS, 1) visibility_kernel(
 
 extern "C" int trackdlo_visibility(
     const float* y, const float* x, const uint8_t* xm, const float* proj,
-    const float* coord, int m, int n, int img_rows, int img_cols,
+    const float* coord, int n_streams, int m, int n, int img_rows, int img_cols,
     float tau_vis, float w_half, float d_vis, uint8_t* visible,
     uint8_t* extended, uint8_t* not_occ, float* shortest, int* vis_idx,
     int* ext_idx, int* counts, float* pmin_all, float* pmin_ext, void* stream) {
-  if (m < 2 || m > MMAX || n < 0) return (int)cudaErrorInvalidValue;
-  visibility_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
+  if (m < 2 || m > MMAX || n < 0 || n_streams < 0) return (int)cudaErrorInvalidValue;
+  if (n_streams == 0) return 0;
+  visibility_kernel<<<n_streams, THREADS, 0, (cudaStream_t)stream>>>(
       y, x, xm, proj, coord, m, n, img_rows, img_cols, tau_vis, w_half, d_vis,
       visible, extended, not_occ, shortest, vis_idx, ext_idx, counts, pmin_all,
       pmin_ext);

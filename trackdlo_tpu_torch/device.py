@@ -9,11 +9,10 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` → CUDA when available, else CPU. An explicit CUDA device with
-    no GPU raises; it never silently becomes the CPU."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
+    """``None`` → the CUDA card. The CPU only where the caller names it
+    (``device="cpu"``); a CUDA device with no GPU raises, it never silently
+    becomes the CPU."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not available")
     if dev.type not in ("cuda", "cpu"):

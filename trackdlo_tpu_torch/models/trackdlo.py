@@ -5,7 +5,8 @@ runs: preprocessing (kernel P, compaction with kernel C, voxel snap) → visibil
 (kernel V) → pre-registration EM over the extended-visible guide nodes
 (kernel E) → occlusion dispatch and prior walks (kernel W) → main EM
 (kernel E). Every stage stays on the tracker's device; nothing is read back
-to the host inside a step.
+to the host inside a step. The same stages run over a leading stream axis in
+the batched step (:mod:`trackdlo_tpu_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -15,9 +16,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from trackdlo_tpu.config import CameraIntrinsics, TrackerParams
+from trackdlo_tpu_torch.config import CameraIntrinsics, TrackerParams
 from trackdlo_tpu_torch.device import resolve_device, set_full_fp32
-from trackdlo_tpu_torch.ops.cpd_lle import CpdParams, cpd_lle
+from trackdlo_tpu_torch.ops.cpd_lle import CpdParams, cpd_lle, cpd_lle_batched
 from trackdlo_tpu_torch.ops.kernels import geodesic_coords
 from trackdlo_tpu_torch.ops.preprocess import (
     PointCloud,
@@ -51,11 +52,13 @@ class StepOutputs(NamedTuple):
     n_points: torch.Tensor
     converged: torch.Tensor
     iterations: torch.Tensor
+    guide_iterations: torch.Tensor  # the pre-registration pass's EM iterations
 
 
-def init_state(init_nodes, params: TrackerParams, device="cpu") -> TrackerState:
-    """State from initial nodes: rest arc lengths and the initial σ²."""
-    y = torch.tensor(np.asarray(init_nodes, np.float32), device=device)
+def init_state(init_nodes, params: TrackerParams, device=None) -> TrackerState:
+    """State from initial nodes: rest arc lengths and the initial σ², on
+    ``device`` (the CUDA card unless the caller names the CPU)."""
+    y = torch.tensor(np.asarray(init_nodes, np.float32), device=resolve_device(device))
     return TrackerState(
         y=y,
         sigma2=torch.tensor(params.sigma2_init, dtype=torch.float32, device=y.device),
@@ -63,10 +66,26 @@ def init_state(init_nodes, params: TrackerParams, device="cpu") -> TrackerState:
     )
 
 
+def host_to_device(a, device: torch.device) -> torch.Tensor:
+    """A frame (numpy or tensor) on ``device``; u16 depth travels as its
+    bits in int16 (the kernels read them as u16), through pinned memory to
+    a CUDA device."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, non_blocking=True)
+    arr = np.ascontiguousarray(a)
+    if arr.dtype == np.uint16:
+        arr = arr.view(np.int16)
+    t = torch.from_numpy(arr)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def preprocess_for_step(rgb, depth, occlusion_mask, *, params: TrackerParams,
                         intr: CameraIntrinsics, cell_px: int) -> PointCloud:
     """Parity-split preprocessing: kernel P's raw cell sums, then kernel C's
-    compaction, divide-after-pack and the channel-batched voxel snap."""
+    compaction, divide-after-pack and the channel-batched voxel snap. Frames
+    with a leading stream axis give a batched cloud."""
     if not (params.parity_split and params.exact_voxels):
         raise NotImplementedError("only the parity-split voxel preprocessing is ported")
     voxel_leaf = params.downsample_leaf_size
@@ -82,18 +101,23 @@ def preprocess_for_step(rgb, depth, occlusion_mask, *, params: TrackerParams,
 
 def _track_from_points(state: TrackerState, pc: PointCloud, proj: torch.Tensor, *,
                        params: TrackerParams, intr: CameraIntrinsics):
-    """Visibility → pre-registration → priors → main EM on a prepared cloud."""
+    """Visibility → pre-registration → priors → main EM on a prepared cloud;
+    a state and cloud with a leading stream axis run every stage batched
+    (the EM passes through :func:`cpd_lle_batched`)."""
     m = params.num_of_nodes
     dev = state.y.device
+    lead = state.y.shape[:-2]
+    em = cpd_lle_batched if lead else cpd_lle
     vis = fused_visibility(
         state.y, pc.points, pc.mask, proj, state.geodesic_coord,
         intr.height, intr.width, params.visibility_threshold,
         params.dlo_pixel_width, params.d_vis,
     )
     iota = torch.arange(m, device=dev)
-    guide_node_mask = iota < vis.vis_ext_count
-    guide0 = torch.where(guide_node_mask[:, None], state.y[vis.vis_ext_idx], 0.0)
-    pre = cpd_lle(
+    guide_node_mask = iota < vis.vis_ext_count[..., None]
+    picked = state.y.gather(-2, vis.vis_ext_idx[..., None].expand(*lead, m, 3))
+    guide0 = torch.where(guide_node_mask[..., None], picked, 0.0)
+    pre = em(
         pc.points, pc.mask, guide0, guide_node_mask, state.sigma2,
         CpdParams(
             beta=params.beta_pre_proc, lam=params.lambda_pre_proc,
@@ -108,8 +132,9 @@ def _track_from_points(state: TrackerState, pc: PointCloud, proj: torch.Tensor, 
         state.y, state.geodesic_coord, guide_nodes, vis.vis_ext_idx,
         vis.vis_ext_count, vis.vis_idx, vis.vis_count,
     )
-    main = cpd_lle(
-        pc.points, pc.mask, state.y, torch.ones(m, dtype=torch.bool, device=dev), state.sigma2,
+    main = em(
+        pc.points, pc.mask, state.y, torch.ones((*lead, m), dtype=torch.bool, device=dev),
+        state.sigma2,
         CpdParams(
             beta=params.beta, lam=params.lam, lle_weight=params.lle_weight,
             mu=params.mu, max_iter=params.max_iter, tol=params.tol,
@@ -140,6 +165,7 @@ def _track_from_points(state: TrackerState, pc: PointCloud, proj: torch.Tensor, 
         n_points=pc.count,
         converged=main.converged,
         iterations=main.iterations,
+        guide_iterations=pre.iterations,
     )
     return new_state, outputs
 
@@ -178,23 +204,12 @@ class Tracker:
         return init_state(nodes, self.params, self.device)
 
     def init_from_frame(self, rgb, depth) -> TrackerState:
-        """First-frame initialisation through the shared skeleton + spline
-        fit (falling back to cold-start registration)."""
-        from trackdlo_tpu.dlo_init import initialize_nodes
+        """First-frame initialisation through the skeleton + spline fit
+        (falling back to cold-start registration)."""
+        from trackdlo_tpu_torch.dlo_init import initialize_nodes
 
         nodes = initialize_nodes(np.asarray(rgb), np.asarray(depth), self.params, self.intrinsics)
         return self.init_from_nodes(nodes)
-
-    def _to_device(self, a) -> torch.Tensor:
-        if isinstance(a, torch.Tensor):
-            return a.to(self.device, non_blocking=True)
-        arr = np.ascontiguousarray(a)
-        if arr.dtype == np.uint16:
-            arr = arr.view(np.int16)  # u16 bits; the kernels read them as u16
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        return t
 
     def step(self, state: TrackerState, rgb, depth, occlusion_mask=None):
         """One tracking update: rgb (H, W, 3) u8, depth (H, W) u16 mm, an
@@ -213,11 +228,11 @@ class Tracker:
                 self._full_occ = torch.ones((h, w), dtype=torch.bool, device=self.device)
             occ = self._full_occ
         else:
-            occ = self._to_device(occlusion_mask) != 0
+            occ = host_to_device(occlusion_mask, self.device) != 0
             if occ.ndim == 3:
                 occ = occ.any(dim=-1)
         pc = preprocess_for_step(
-            self._to_device(rgb), self._to_device(depth), occ.contiguous(),
+            host_to_device(rgb, self.device), host_to_device(depth, self.device), occ.contiguous(),
             params=self.params, intr=self.intrinsics, cell_px=self.cell_px,
         )
         return _track_from_points(state, pc, self._proj, params=self.params, intr=self.intrinsics)

@@ -1,26 +1,40 @@
 """The CPD/MCT EM registration pass.
 
-Counterpart of trackdlo_tpu/ops/cpd_lle.py, product route: prune by the
-visibility pass's per-point minima, build the MCT kernel G (and the LLE
-HG/HY0, the prior rows JG and the prior displacement), set the visibility
-gate, then run the whole tolerance loop in one call of kernel E
-(:func:`trackdlo_tpu_torch.ops.hopper_kernels.fused_em_loop`). Data-dependent
-scalars (v_count, n_count, σ², the gate) stay on the device and reach the
-kernel as one small buffer.
+Counterpart of trackdlo_tpu/ops/cpd_lle.py: prune by the visibility pass's
+per-point minima, build the MCT kernel G (and the LLE HG/HY0, the prior rows
+JG and the prior displacement), set the visibility gate, then iterate. Three
+routes, as in the JAX package:
 
-Only the ``"lu"`` solver with the MCT-geodesic E-step is ported; the other
-solvers, ``return_deltas``, ``axis_name`` and ``use_fused_mstep`` raise
-``NotImplementedError``.
+- one stream, solver ``"lu"``: the whole tolerance loop in one call of
+  kernel E (:func:`trackdlo_tpu_torch.ops.hopper_kernels.fused_em_loop`);
+- one stream, any other solver or ``return_deltas``: the per-iteration loop,
+  each iteration one launch of the E-step kernel for one stream (B6), the
+  M-step assembly in torch and the chosen solve;
+- B ≥ 2 streams (:func:`cpd_lle_batched`, the counterpart of
+  ``jax.vmap(cpd_lle)``): the per-iteration loop over a leading stream axis,
+  each iteration one launch of the batched E-step (B7) and one of the
+  batched Gauss-Jordan solve (B8), in lockstep as ``lax.while_loop`` runs
+  under ``vmap``. A batch of one takes kernel E.
+
+Data-dependent scalars (v_count, n_count, σ², the gate) stay on the device.
+The lockstep loop reads one flag per iteration to learn whether any stream
+is still active. ``axis_name``, ``use_fused_mstep`` and the prototype E-step
+variants raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
-from trackdlo_tpu_torch.ops.hopper_kernels import fused_em_loop
+from trackdlo_tpu_torch.ops.hopper_kernels import (
+    fused_em_loop,
+    fused_estep_packed,
+    fused_estep_packed_batch,
+    gauss_jordan_solve_batched,
+)
 from trackdlo_tpu_torch.ops.kernels import (
     lle_regularizer,
     masked_geodesic_coords,
@@ -29,13 +43,14 @@ from trackdlo_tpu_torch.ops.kernels import (
 )
 
 _BIG = 1e5
+_TWO_PI = 6.283185307179586
 
 
 @dataclasses.dataclass(frozen=True)
 class CpdParams:
     """Hyperparameters of one EM pass: the fields of the JAX CpdParams but
-    ``use_pallas``; here the tensors' device alone picks kernel E (CUDA) or
-    its plain version (CPU)."""
+    ``use_pallas``; here the tensors' device alone picks the kernels (CUDA)
+    or their plain versions (CPU)."""
 
     beta: float
     lam: float
@@ -63,24 +78,23 @@ class CpdResult(NamedTuple):
     iterations: torch.Tensor
 
 
-def _check_ported(params: CpdParams, axis_name, return_deltas) -> None:
-    if params.solver != "lu":
-        raise NotImplementedError(f"solver {params.solver!r} is not ported yet")
+def _check_ported(params: CpdParams, axis_name) -> None:
+    if params.solver not in _SOLVE:
+        raise ValueError(f"unknown solver {params.solver!r}")
     if params.use_fused_mstep:
         raise NotImplementedError("use_fused_mstep is not ported yet")
     if params.kernel != "mct_geodesic" or not params.use_geodesic_redistance:
         raise NotImplementedError("only the MCT-geodesic E-step is ported")
     if axis_name is not None:
         raise NotImplementedError("point-axis sharding is not ported yet")
-    if return_deltas:
-        raise NotImplementedError("return_deltas is not ported yet")
 
 
 class EmStaging(NamedTuple):
-    """Kernel E's inputs for one pass: positional tensors, keyword
-    constants, the pruned point count and the starting σ²."""
+    """The EM loop's inputs for one pass (a leading stream axis on every
+    tensor when batched): positional tensors, keyword constants, the pruned
+    point count and the starting σ²."""
 
-    args: tuple
+    args: tuple  # dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm
     kwargs: dict
     n_count: torch.Tensor
     sigma2: torch.Tensor
@@ -89,29 +103,29 @@ class EmStaging(NamedTuple):
 def em_staging(x, x_mask, y, node_mask, sigma2, params: CpdParams, prior_pos=None,
                prior_mask=None, visible_count=None, point_min_sq=None) -> EmStaging:
     """Prune, build G/HG/HY0/JG/prior displacement and the gate: every
-    iteration-invariant input of the EM loop."""
+    iteration-invariant input of the EM loop. Every tensor may carry the
+    same leading stream axis (x (B, N, 3), y (B, M, 3), sigma2 (B,), …)."""
     dt, dev = y.dtype, y.device
-    m = y.shape[0]
     zero = torch.zeros((), dtype=dt, device=dev)
     sigma2 = torch.as_tensor(sigma2, dtype=dt, device=dev)
-    v_count = node_mask.to(dt).sum()
+    v_count = node_mask.to(dt).sum(dim=-1)
     y0 = y
 
     sq_d0 = None
     if point_min_sq is None:
         sq_d0 = pairwise_sq_dists(y0, x)
-        point_min_sq = torch.where(node_mask[:, None], sq_d0, _BIG).amin(dim=0)
+        point_min_sq = torch.where(node_mask[..., :, None], sq_d0, _BIG).amin(dim=-2)
     x_mask = x_mask & (point_min_sq < params.prune_radius**2)
-    n_count = x_mask.to(dt).sum()
+    n_count = x_mask.to(dt).sum(dim=-1)
     n_safe = torch.clamp_min(n_count, 1.0)
 
     node_coord = masked_geodesic_coords(y0, node_mask)
-    node_dis = torch.abs(node_coord[:, None] - node_coord[None, :])
-    pair_mask = node_mask[:, None] & node_mask[None, :]
+    node_dis = torch.abs(node_coord[..., :, None] - node_coord[..., None, :])
+    pair_mask = node_mask[..., :, None] & node_mask[..., None, :]
     g = torch.where(pair_mask, mct_kernel(node_dis, params.beta), zero)
 
-    zeros_mm = torch.zeros((m, m), dtype=dt, device=dev)
-    zeros_m3 = torch.zeros((m, 3), dtype=dt, device=dev)
+    zeros_mm = torch.zeros_like(g)
+    zeros_m3 = torch.zeros_like(y0)
     if params.include_lle:
         h = lle_regularizer(y0, node_mask)
         hg, hy0 = h @ g, h @ y0
@@ -119,8 +133,8 @@ def em_staging(x, x_mask, y, node_mask, sigma2, params: CpdParams, prior_pos=Non
         hg, hy0 = zeros_mm, zeros_m3
     if params.use_priors:
         active = prior_mask & node_mask
-        jg = torch.where(active[:, None], g, zero)
-        prior_disp = torch.where(active[:, None], prior_pos - y0, zero)
+        jg = torch.where(active[..., :, None], g, zero)
+        prior_disp = torch.where(active[..., :, None], prior_pos - y0, zero)
     else:
         jg, prior_disp = zeros_mm, zeros_m3
 
@@ -129,15 +143,15 @@ def em_staging(x, x_mask, y, node_mask, sigma2, params: CpdParams, prior_pos=Non
         vc = visible_count.to(dt)
         gate = (vc != v_count) & (vc > 0)
     else:
-        gate = torch.zeros((), dtype=torch.bool, device=dev)
+        gate = torch.zeros(v_count.shape, dtype=torch.bool, device=dev)
 
     if sq_d0 is not None:
         # sigma2 == 0: start from the mean squared node-point distance.
-        masked = torch.where(x_mask[None, :] & node_mask[:, None], sq_d0, zero)
-        s2_init = masked.sum() / (3 * torch.clamp_min(v_count, 1.0) * n_safe)
+        masked = torch.where(x_mask[..., None, :] & node_mask[..., :, None], sq_d0, zero)
+        s2_init = masked.sum(dim=(-2, -1)) / (3 * torch.clamp_min(v_count, 1.0) * n_safe)
         sigma2 = torch.where(sigma2 == 0, s2_init, sigma2)
 
-    dyn = torch.stack([sigma2, v_count, n_safe, gate.to(dt)])
+    dyn = torch.stack(torch.broadcast_tensors(sigma2, v_count, n_safe, gate.to(dt)), dim=-1)
     args = tuple(
         t.contiguous()
         for t in (dyn, y0, node_coord, node_mask.to(dt), g, hg, hy0, jg, prior_disp,
@@ -156,6 +170,154 @@ def em_staging(x, x_mask, y, node_mask, sigma2, params: CpdParams, prior_pos=Non
     return EmStaging(args, kwargs, n_count, sigma2)
 
 
+# ---------------------------------------------------------------------------
+# The per-iteration EM over a leading stream axis.
+# ---------------------------------------------------------------------------
+
+
+def estep_scalars(dyn, s2, params: CpdParams):
+    """(B, 8) E-step scalars per stream: sigma2, c_plain, c_vis, gate,
+    v_count, k_vis, tau_vis, 0 (the JAX package's ``estep_scalars``)."""
+    v_count, n_safe, gate = dyn[:, 1], dyn[:, 2], dyn[:, 3]
+    c_base = (_TWO_PI * s2) ** 1.5 * params.mu / (1 - params.mu)
+    c = c_base * v_count / n_safe
+    c_vis = c_base / n_safe
+    full = lambda v: torch.full_like(s2, v)
+    return torch.stack(
+        [s2, c, c_vis, gate, v_count, full(params.k_vis), full(params.visibility_threshold),
+         full(0.0)], dim=1,
+    )
+
+
+def mstep_system(st: EmStaging, p1, px, s2, params: CpdParams):
+    """The M-step system A w = B of every stream: (B, m, m) and (B, m, 3),
+    identity rows and zero right-hand sides for inactive nodes."""
+    _, y0, _, nm, g, hg, hy0, jg, pd, _, _ = st.args
+    m = y0.shape[-2]
+    node = nm > 0
+    eye = torch.eye(m, dtype=y0.dtype, device=y0.device)
+    s2c = s2[:, None, None]
+    a = p1[:, :, None] * g + params.lam * s2c * eye
+    b = px - p1[:, :, None] * y0
+    if params.include_lle:
+        a = a + s2c * params.lle_weight * hg
+        b = b - s2c * params.lle_weight * hy0
+    if params.use_priors:
+        a = a + params.alpha * jg
+        b = b + params.alpha * pd
+    a = torch.where(node[:, :, None] & node[:, None, :], a, eye)
+    b = torch.where(node[:, :, None], b, 0.0)
+    return a.contiguous(), b.contiguous()
+
+
+def em_iteration(st: EmStaging, y, s2, params: CpdParams, estep: Callable, solve: Callable):
+    """One EM iteration of every stream: the E-step, the M-step system and
+    its solve, T = Y0 + G·W, the σ² update (floored at 1e-10) and the mean
+    node move. Returns (t (B, m, 3), sigma2 (B,), delta (B,))."""
+    dyn, y0, coord, nm, g, _, _, _, _, x, xm = st.args
+    scal = estep_scalars(dyn, s2, params)
+    p1, px, stats, _ = estep(scal, y.contiguous(), coord, nm, torch.ones_like(nm), x, xm,
+                             two_phase=True)
+    a, b = mstep_system(st, p1, px, s2, params)
+    w = solve(a, b)
+    t = y0 + g @ w
+    tr_pxtt = (px * t).sum(dim=(1, 2))
+    tr_tt = (p1[:, :, None] * t * t).sum(dim=(1, 2))
+    s2_new = (stats[:, 1] - 2 * tr_pxtt + tr_tt) / (stats[:, 0] * 3)
+    s2_new = torch.clamp_min(s2_new, 1e-10)
+    move = torch.where(nm > 0, torch.linalg.norm(y - t, dim=2), 0.0).sum(dim=1)
+    delta = move / torch.clamp_min(dyn[:, 1], 1.0)
+    return t, s2_new, delta
+
+
+def em_loop_lockstep(st: EmStaging, params: CpdParams, estep: Callable, solve: Callable):
+    """The tolerance loop of B streams in lockstep, as ``lax.while_loop``
+    runs under ``vmap``: it goes on while any stream is active (not yet
+    converged and below max_iter); a stream that is not active is frozen by
+    select, so its y, σ², iteration count and ``converged`` stay as they
+    were. One flag per iteration crosses to the host. Returns (y, sigma2,
+    iterations int32, converged), each with the leading stream axis."""
+    y = st.args[1]
+    s2 = st.args[0][:, 0]
+    bsz = y.shape[0]
+    dev = y.device
+    it = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    done = torch.zeros(bsz, dtype=torch.bool, device=dev)
+    converged = torch.ones(bsz, dtype=torch.bool, device=dev)
+    while True:
+        active = ~done & (it < params.max_iter)
+        if not bool(active.any()):
+            break
+        t, s2_new, delta = em_iteration(st, y, s2, params, estep, solve)
+        new_done = delta < params.tol
+        y = torch.where(active[:, None, None], t, y)
+        s2 = torch.where(active, s2_new, s2)
+        converged = torch.where(active, new_done | (it + 1 < params.max_iter), converged)
+        done = torch.where(active, new_done, done)
+        it = it + active.to(torch.int32)
+    return y, s2, it, converged
+
+
+def _solve_qr(a, b):
+    """Householder-QR solve (the reference's orthogonal-decomposition
+    solve); an exactly zero diagonal of R becomes the smallest normal
+    float32, anything larger passes untouched."""
+    q, r = torch.linalg.qr(a)
+    diag = torch.diagonal(r, dim1=-2, dim2=-1)
+    safe = torch.where(diag == 0, torch.full_like(diag, 1.1754944e-38), diag)
+    r = r + torch.diag_embed(safe - diag)
+    return torch.linalg.solve_triangular(r, q.mT @ b, upper=True)
+
+
+def _solve_normal_cholesky(a, b):
+    ata = a.mT @ a
+    atb = a.mT @ b
+    return torch.cholesky_solve(atb, torch.linalg.cholesky(ata))
+
+
+def _solve_svd(a, b, rcond: float = 1e-12):
+    """The SVD min-norm solve with a relative cutoff of ``rcond``."""
+    u, s, vh = torch.linalg.svd(a)
+    keep = s >= rcond * s[..., :1]
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, 1.0), 0.0)
+    return vh.mT @ (s_inv[..., None] * (u.mT @ b))
+
+
+_SOLVE = {
+    "lu": gauss_jordan_solve_batched,
+    "lstsq": _solve_qr,
+    "normal_cholesky": _solve_normal_cholesky,
+    "svd_lstsq": _solve_svd,
+    "xla_lu": torch.linalg.solve,
+}
+
+
+def _estep_one_stream(scal, y, coord, nm, pv, x, xm, *, two_phase):
+    out = fused_estep_packed(scal[0], y[0], coord[0], nm[0], pv[0], x[0], xm[0],
+                             two_phase=two_phase)
+    return tuple(o[None] for o in out)
+
+
+def _per_iteration_single(st: EmStaging, params: CpdParams, return_deltas: bool):
+    """The single-stream per-iteration route (solvers other than ``"lu"``,
+    ``return_deltas``): the lockstep loop over a batch of one, or with
+    ``return_deltas`` all max_iter iterations unconditionally."""
+    st1 = EmStaging(tuple(a[None] for a in st.args), st.kwargs, st.n_count, st.sigma2)
+    solve = _SOLVE[params.solver]
+    if not return_deltas:
+        y, s2, it, converged = em_loop_lockstep(st1, params, _estep_one_stream, solve)
+        return y[0], s2[0], it[0], converged[0], None
+    y, s2 = st1.args[1], st1.args[0][:, 0]
+    deltas = []
+    for _ in range(params.max_iter):
+        y, s2, delta = em_iteration(st1, y, s2, params, _estep_one_stream, solve)
+        deltas.append(delta[0])
+    dev = y.device
+    deltas = torch.stack(deltas) if deltas else torch.zeros(0, dtype=y.dtype, device=dev)
+    return (y[0], s2[0], torch.tensor(params.max_iter, dtype=torch.int32, device=dev),
+            torch.ones((), dtype=torch.bool, device=dev), deltas)
+
+
 def cpd_lle(
     x: torch.Tensor,
     x_mask: torch.Tensor,
@@ -169,21 +331,68 @@ def cpd_lle(
     axis_name: str | None = None,
     point_min_sq: torch.Tensor | None = None,
     return_deltas: bool = False,
-) -> CpdResult:
+):
     """EM registration of the masked node chain ``y`` (M, 3) to the masked
     cloud ``x`` (N, 3). ``point_min_sq`` (N,), when given, is each point's
     min squared distance to the valid nodes (from the visibility pass) and
-    requires ``sigma2 > 0``."""
-    _check_ported(params, axis_name, return_deltas)
+    requires ``sigma2 > 0``. With ``return_deltas`` every one of the
+    max_iter iterations runs and the result is ``(CpdResult, deltas
+    (max_iter,))``, each iteration's mean node move."""
+    _check_ported(params, axis_name)
     st = em_staging(x, x_mask, y, node_mask, sigma2, params, prior_pos, prior_mask,
                     visible_count, point_min_sq)
-    y_out, stats = fused_em_loop(*st.args, **st.kwargs)
-    sigma2 = st.sigma2
+    deltas = None
+    if params.solver == "lu" and not return_deltas:
+        y_out, stats = fused_em_loop(*st.args, **st.kwargs)
+        s2_out, iters, converged = stats[0], stats[1].to(torch.int32), stats[2] > 0
+    else:
+        y_out, s2_out, iters, converged, deltas = _per_iteration_single(st, params, return_deltas)
     # Degenerate input: no valid point at all leaves the state unchanged.
     any_points = st.n_count > 0
-    return CpdResult(
+    res = CpdResult(
         y=torch.where(any_points, y_out, y),
-        sigma2=torch.where(any_points, stats[0], sigma2),
-        converged=stats[2] > 0,
-        iterations=stats[1].to(torch.int32),
+        sigma2=torch.where(any_points, s2_out, st.sigma2),
+        converged=converged,
+        iterations=iters,
+    )
+    return (res, deltas) if return_deltas else res
+
+
+def cpd_lle_batched(
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    y: torch.Tensor,
+    node_mask: torch.Tensor,
+    sigma2: torch.Tensor,
+    params: CpdParams,
+    prior_pos: torch.Tensor | None = None,
+    prior_mask: torch.Tensor | None = None,
+    visible_count: torch.Tensor | None = None,
+    point_min_sq: torch.Tensor | None = None,
+) -> CpdResult:
+    """:func:`cpd_lle` of B streams, every argument and result with a
+    leading stream axis (the counterpart of ``jax.vmap(cpd_lle)``). B ≥ 2
+    runs the lockstep per-iteration loop (batched E-step, batched
+    Gauss-Jordan solve; solver ``"lu"``, or the named solver for the
+    diagnostic ones); B = 1 takes kernel E, as the JAX package's axis-size-1
+    rule does."""
+    _check_ported(params, None)
+    bsz = y.shape[0]
+    if bsz == 1:
+        one = lambda a: None if a is None else a[0]
+        res = cpd_lle(one(x), one(x_mask), one(y), one(node_mask), one(sigma2), params,
+                      one(prior_pos), one(prior_mask), one(visible_count),
+                      point_min_sq=one(point_min_sq))
+        return CpdResult(*(v[None] for v in res))
+    st = em_staging(x, x_mask, y, node_mask, sigma2, params, prior_pos, prior_mask,
+                    visible_count, point_min_sq)
+    y_out, s2_out, iters, converged = em_loop_lockstep(
+        st, params, fused_estep_packed_batch, _SOLVE[params.solver]
+    )
+    any_points = st.n_count > 0
+    return CpdResult(
+        y=torch.where(any_points[:, None, None], y_out, y),
+        sigma2=torch.where(any_points, s2_out, st.sigma2),
+        converged=converged,
+        iterations=iters,
     )

@@ -1,8 +1,10 @@
-"""The EM-loop and prior-walk kernels, each beside its plain PyTorch version.
+"""The EM and prior-walk kernels, each beside its plain PyTorch version.
 
-Counterpart of trackdlo_tpu/ops/pallas_kernels.py for the two of its
-kernels on the main path: ``fused_em_loop`` (kernel E, csrc/em_loop.cu) and
-``pursuit_walks_fused`` (kernel W, csrc/walks.cu).
+Counterpart of trackdlo_tpu/ops/pallas_kernels.py for five of its kernels:
+``fused_em_loop`` (kernel E, csrc/em_loop.cu), ``pursuit_walks_fused``
+(kernel W, csrc/walks.cu), ``fused_estep_packed_batch`` and
+``fused_estep_packed`` (kernel S, csrc/estep.cu, launched for B streams or
+for one) and ``gauss_jordan_solve_batched`` (kernel G, csrc/gj_solve.cu).
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel (or raises).
@@ -285,3 +287,182 @@ def pursuit_walks(guides, seglens, ints, eps: float = 1e-4):
     _build.count_launch("walks")
     return pos, valid.bool()
 
+
+
+# ---------------------------------------------------------------------------
+# Kernel S: the streamed E-step of B streams (B6 unbatched, B7 batched).
+# ---------------------------------------------------------------------------
+
+
+def fused_estep_packed_batch_plain(scal, y, coord, nm, pv, x, xm, *, two_phase: bool):
+    """The batched E-step in plain tensor ops; same contract as
+    :func:`fused_estep_packed_batch`. Rows are padded to a multiple of 8
+    with zero rows, as the TPU kernel's are: the anchor row select reads
+    them (and gives 0 outside them)."""
+    bsz, m, _ = y.shape
+    dt, dev = y.dtype, y.device
+    m_pad = (m + 7) // 8 * 8
+    zero = torch.zeros((), dtype=dt, device=dev)
+    pad = m_pad - m
+    if pad:
+        y = torch.nn.functional.pad(y, (0, 0, 0, pad))
+        coord, nm, pv = (torch.nn.functional.pad(a, (0, pad)) for a in (coord, nm, pv))
+    s2, c_plain, c_vis, gate, v_count, k_vis, tau_vis = (
+        scal[:, k, None, None] for k in range(7)
+    )
+    vi = v_count.to(torch.int64)
+    node = (nm > 0)[:, :, None]
+    pair = node & (xm > 0)[:, None, :]
+    d = y[:, :, None, :] - x[:, None, :, :]
+    sq = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]  # (B, m_pad, n)
+
+    short = torch.full((bsz, m_pad), _BIG, dtype=dt, device=dev)
+    if two_phase:
+        if bool((scal[:, 3] > 0).any()):
+            short = torch.where(pair, sq, _BIG).amin(dim=2)
+        shortest = torch.sqrt(short)
+        shortest = torch.where(shortest <= tau_vis[:, :, 0], zero, shortest)
+        pv = torch.where(nm > 0, torch.exp(-k_vis[:, :, 0] * shortest), zero)
+        pv = pv / torch.clamp_min(pv.sum(dim=1, keepdim=True), 1e-30)
+
+    neg_half_inv_s2 = -0.5 / s2
+    p = torch.where(pair, torch.exp(sq * neg_half_inv_s2), zero)
+    p = p / (p.sum(dim=1, keepdim=True) + c_plain)
+    rows = torch.arange(m_pad, device=dev)[None, :, None]
+    masked = torch.where(pair, p, -1.0)
+    mx = masked.amax(dim=1, keepdim=True)
+    mp = torch.where(masked == mx, rows, m_pad).amin(dim=1)  # (B, n)
+
+    def select(vals, idx):  # vals (B, m_pad, n), idx (B, n): 0 outside [0, m_pad)
+        inside = (idx >= 0) & (idx < m_pad)
+        got = vals.gather(1, idx.clamp(0, m_pad - 1)[:, None, :])[:, 0]
+        return torch.where(inside, got, zero)
+
+    v2 = vi[:, :, 0]
+    cand1 = torch.where(mp - 1 == -1, 2, mp - 1)
+    cand2 = torch.where(mp + 1 == v2, v2 - 3, mp + 1)
+    nxt = torch.where(select(sq, cand1) < select(sq, cand2), cand1, cand2)
+    lo = torch.minimum(mp, nxt)
+    hi = torch.maximum(mp, nxt)
+    d_lo = torch.sqrt(select(sq, lo))
+    d_hi = torch.sqrt(select(sq, hi))
+    coord_b = coord[:, :, None].expand_as(sq)
+    c_lo = select(coord_b, lo)
+    c_hi = select(coord_b, hi)
+    below = torch.abs(coord[:, :, None] - c_lo[:, None, :]) + d_lo[:, None, :]
+    above = torch.abs(coord[:, :, None] - c_hi[:, None, :]) + d_hi[:, None, :]
+    lo_b, hi_b = lo[:, None, :], hi[:, None, :]
+    geo = torch.where(
+        rows < lo_b, below * below,
+        torch.where(rows >= hi_b, above * above,
+                    torch.where(rows == lo_b, (d_lo * d_lo)[:, None, :], zero)),
+    )
+    p = torch.where(pair, torch.exp(geo * neg_half_inv_s2), zero)
+    p = p * (1.0 + gate * (pv[:, :, None] - 1.0))
+    c_eff = c_plain + gate * (c_vis - c_plain)
+    p = p / (p.sum(dim=1, keepdim=True) + c_eff)
+    p = torch.where(pair, p, zero)
+
+    p1 = p.sum(dim=2)
+    px = torch.stack([(p * x[:, None, :, k]).sum(dim=2) for k in range(3)], dim=-1)
+    pt1 = p.sum(dim=1)
+    xsq = x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1] + x[..., 2] * x[..., 2]
+    stats = torch.stack([pt1.sum(dim=1), (pt1 * xsq).sum(dim=1)], dim=-1)
+    return p1[:, :m], px[:, :m], stats, short[:, :m]
+
+
+def _estep_launch(name, scal, y, coord, nm, pv, x, xm, two_phase):
+    dev = _build.require_cuda(
+        name, dict(scal=scal, y=y, coord=coord, nm=nm, pv=pv, x=x, xm=xm)
+    )
+    bsz, m, _ = y.shape
+    n = x.shape[1]
+    if not 1 <= m <= 48:
+        raise ValueError(f"{name}: m={m} outside [1, 48]")
+    if tuple(scal.shape) != (bsz, 8) or tuple(x.shape) != (bsz, n, 3) or tuple(xm.shape) != (bsz, n):
+        raise ValueError(f"{name}: scal/x/xm shapes do not match y")
+    if any(tuple(a.shape) != (bsz, m) for a in (coord, nm, pv)):
+        raise ValueError(f"{name}: coord/nm/pv must be ({bsz}, {m})")
+    p1 = torch.empty((bsz, m), dtype=_F32, device=dev)
+    px = torch.empty((bsz, m, 3), dtype=_F32, device=dev)
+    stats = torch.empty((bsz, 2), dtype=_F32, device=dev)
+    short = torch.empty((bsz, m), dtype=_F32, device=dev)
+    code = _build.lib().trackdlo_estep(
+        scal.data_ptr(), y.data_ptr(), coord.data_ptr(), nm.data_ptr(), pv.data_ptr(),
+        x.data_ptr(), xm.data_ptr(), bsz, m, n, int(bool(two_phase)),
+        p1.data_ptr(), px.data_ptr(), stats.data_ptr(), short.data_ptr(), _build.stream_ptr(dev),
+    )
+    _build.check(code, "trackdlo_estep")
+    return p1, px, stats, short
+
+
+def fused_estep_packed_batch(scal, y, coord, nm, pv, x, xm, *, two_phase: bool):
+    """The E-step of B streams in one launch (kernel S).
+
+    ``scal`` (B, 8) per stream: sigma2, c_plain, c_vis, visibility gate,
+    v_count, k_vis, tau_vis, unused; ``y`` (B, m, 3); ``coord``/``nm``/``pv``
+    (B, m) geodesic coordinates, 0/1 node mask and, without ``two_phase``,
+    the visibility weights; ``x`` (B, n, 3) and ``xm`` (B, n) 0/1 points.
+    Returns (p1 (B, m), px (B, m, 3), stats (B, 2) = Np, tr(XᵀdPt1X),
+    shortest_sq (B, m)). ``shortest_sq`` holds the 1e5 sentinel unless
+    ``two_phase`` and some stream's gate is on."""
+    if y.device.type == "cpu":
+        return fused_estep_packed_batch_plain(scal, y, coord, nm, pv, x, xm, two_phase=two_phase)
+    out = _estep_launch("fused_estep_packed_batch", scal, y, coord, nm, pv, x, xm, two_phase)
+    _build.count_launch("estep_batch")
+    return out
+
+
+def fused_estep_packed_plain(scal, y, coord, nm, pv, x, xm, *, two_phase: bool):
+    """:func:`fused_estep_packed`'s plain version: the batched one for one stream."""
+    out = fused_estep_packed_batch_plain(
+        scal[None], y[None], coord[None], nm[None], pv[None], x[None], xm[None],
+        two_phase=two_phase,
+    )
+    return tuple(o[0] for o in out)
+
+
+def fused_estep_packed(scal, y, coord, nm, pv, x, xm, *, two_phase: bool):
+    """The E-step of one stream (kernel S launched for one stream): the
+    arguments and results of :func:`fused_estep_packed_batch` without the
+    stream axis."""
+    if y.device.type == "cpu":
+        return fused_estep_packed_plain(scal, y, coord, nm, pv, x, xm, two_phase=two_phase)
+    out = _estep_launch(
+        "fused_estep_packed", *(a.unsqueeze(0) for a in (scal, y, coord, nm, pv, x, xm)), two_phase
+    )
+    _build.count_launch("estep")
+    return tuple(o[0] for o in out)
+
+
+# ---------------------------------------------------------------------------
+# Kernel G: B equilibrated Gauss-Jordan solves.
+# ---------------------------------------------------------------------------
+
+
+def gauss_jordan_solve_batched_plain(a, b):
+    """Kernel G's plain version: a direct solve (the JAX package's route off
+    the TPU, ``jnp.linalg.solve``)."""
+    return torch.linalg.solve(a, b)
+
+
+def gauss_jordan_solve_batched(a, b):
+    """Solve a[i] @ w[i] = b[i] for (B, m, m) ``a`` and (B, m, 3) ``b`` in
+    one launch (kernel G): power-of-two row equilibration, Gauss-Jordan with
+    partial pivoting, the inverse and three refinement steps. Returns w
+    (B, m, 3)."""
+    if a.device.type == "cpu":
+        return gauss_jordan_solve_batched_plain(a, b)
+    dev = _build.require_cuda("gauss_jordan_solve_batched", dict(a=a, b=b))
+    n_sys, m, _ = a.shape
+    if not 1 <= m <= 48:
+        raise ValueError(f"gauss_jordan_solve_batched: m={m} outside [1, 48]")
+    if tuple(a.shape) != (n_sys, m, m) or tuple(b.shape) != (n_sys, m, 3):
+        raise ValueError("gauss_jordan_solve_batched: a must be (B, m, m) and b (B, m, 3)")
+    w = torch.empty((n_sys, m, 3), dtype=_F32, device=dev)
+    code = _build.lib().trackdlo_gj_solve(
+        a.data_ptr(), b.data_ptr(), n_sys, m, w.data_ptr(), _build.stream_ptr(dev)
+    )
+    _build.check(code, "trackdlo_gj_solve")
+    _build.count_launch("gj_solve")
+    return w

@@ -16,6 +16,10 @@ of ``preprocess_frame``). After it:
 - the voxel snap pins knife-edge voxel indices to the channel parity and sums
   each sorted, contiguous segment in order (``torch.segment_reduce``), never
   with float atomics.
+
+Under a stream batch (the batched step) the cell sums carry a leading stream
+axis, the B·8 channel rows compact in one launch of kernel C and snap
+together (every step is row-local), and the cap thins each stream alone.
 """
 
 from __future__ import annotations
@@ -131,7 +135,13 @@ def cell_sums_plain(rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower,
                     hsv_upper, multi_color_dlo, cell_px, voxel_leaf):
     """Raw (Σx, Σy, Σz, count) per (parity channel, image cell): four
     (8, n_rows·n_cols) float32 tensors in raster order, channel index
-    bx·4 + by·2 + bz."""
+    bx·4 + by·2 + bz. Frames with a leading stream axis (B, H, W) give
+    (B, 8, n_rows·n_cols), one stream at a time."""
+    if depth.ndim == 3:
+        per = [cell_sums_plain(rgb[i], depth[i], occlusion_mask[i], fx, fy, cx, cy, hsv_lower,
+                               hsv_upper, multi_color_dlo, cell_px, voxel_leaf)
+               for i in range(depth.shape[0])]
+        return tuple(torch.stack(q) for q in zip(*per))
     h, w = depth.shape
     dev = depth.device
     dmm = depth_mm_f32(depth)
@@ -265,28 +275,36 @@ def _voxel_snap_channels(points, weights, leaf, parities=None):
 
 
 def _cap_snapped(snapped, snap_valid, cap, max_points):
-    """Fit ``cap`` snapped centroids into ``max_points`` slots, thinning an
-    overflow with an even stride over the valid entries."""
+    """Fit ``cap`` snapped centroids (..., cap, 3) into ``max_points`` slots,
+    thinning an overflow with an even stride over the valid entries of each
+    stream."""
     if cap > max_points:
         vi = snap_valid.to(torch.int64)
-        n_eff = torch.clamp_min(vi.sum(), max_points)
-        rank_v = torch.cumsum(vi, 0) - vi
+        n_eff = torch.clamp_min(vi.sum(dim=-1, keepdim=True), max_points)
+        rank_v = torch.cumsum(vi, -1) - vi
         kept = snap_valid & ((rank_v + 1) * max_points // n_eff > rank_v * max_points // n_eff)
-        i = torch.arange(snapped.shape[0], device=snapped.device)
-        key_k, order = torch.sort(torch.where(kept, i, cap), stable=True)
-        valid = key_k[:max_points] < cap
-        points = snapped[order[:max_points]]
+        i = torch.arange(snapped.shape[-2], device=snapped.device)
+        key_k, order = torch.sort(torch.where(kept, i, cap), dim=-1, stable=True)
+        valid = key_k[..., :max_points] < cap
+        idx = order[..., :max_points, None].expand(*order.shape[:-1], max_points, 3)
+        points = snapped.gather(-2, idx)
     else:
-        points = snapped[:max_points]
-        valid = snap_valid[:max_points]
-    return torch.where(valid[:, None], points, 0.0), valid
+        points = snapped[..., :max_points, :]
+        valid = snap_valid[..., :max_points]
+    return torch.where(valid[..., None], points, 0.0), valid
 
 
 def compact_parity_channels(xs, ys, zs, counts, max_points, voxel_leaf,
                             candidate_cap, inputs_are_sums: bool = False) -> PointCloud:
     """Parity-channel compaction from (n_channels, n_per) cell arrays (raw
-    sums when ``inputs_are_sums``), then the channel-batched voxel snap."""
-    n_channels, n_per = counts.shape
+    sums when ``inputs_are_sums``), then the channel-batched voxel snap.
+    Arrays with a leading stream axis (B, n_channels, n_per) give a batched
+    cloud: points (B, max_points, 3), mask (B, max_points), count (B,)."""
+    lead = counts.shape[:-2]
+    n_channels, n_per = counts.shape[-2:]
+    rows = lambda a: a.reshape(-1, n_per)
+    xs, ys, zs, counts = (rows(a) for a in (xs, ys, zs, counts))
+    n_streams = counts.shape[0] // n_channels
     dev = counts.device
     cap = candidate_cap if voxel_leaf is not None else max_points
     cap_per = cap // n_channels
@@ -302,12 +320,17 @@ def compact_parity_channels(xs, ys, zs, counts, max_points, voxel_leaf,
             # a table copied from host memory would block the host each frame.
             c = torch.arange(8, dtype=torch.int32, device=dev)[:, None]
             parities = (c >> torch.arange(2, -1, -1, dtype=torch.int32, device=dev)) & 1
+            parities = parities.repeat(n_streams, 1)
         snapped, snap_valid = _voxel_snap_channels(pts_ch, w_ch, voxel_leaf, parities)
+        snapped = snapped.reshape(n_streams, cap_per * n_channels, 3)
+        snap_valid = snap_valid.reshape(n_streams, cap_per * n_channels)
         points, valid = _cap_snapped(snapped, snap_valid, cap_per * n_channels, max_points)
     else:
-        valid = valid_ch.reshape(-1)
-        points = torch.where(valid[:, None], pts_ch.reshape(-1, 3), 0.0)
-    return PointCloud(points=points, mask=valid, count=valid.to(torch.int64).sum())
+        valid = valid_ch.reshape(n_streams, -1)
+        points = torch.where(valid[..., None], pts_ch.reshape(n_streams, -1, 3), 0.0)
+    points = points.reshape(lead + points.shape[1:])
+    valid = valid.reshape(lead + valid.shape[1:])
+    return PointCloud(points=points, mask=valid, count=valid.to(torch.int64).sum(dim=-1))
 
 
 def default_cell_px(leaf_size: float, fx: float, z_ref: float = 0.65) -> int:

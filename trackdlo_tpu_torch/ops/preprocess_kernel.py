@@ -38,7 +38,9 @@ def cell_sums(rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower, hsv_upper,
     (8, n_rows·n_cols) float32 tensors in raster order (channel bx·4+by·2+bz).
 
     ``rgb`` (H, W, 3) uint8, ``depth`` (H, W) u16 millimetres (uint16, or
-    the same bits as int16), ``occlusion_mask`` (H, W) bool."""
+    the same bits as int16), ``occlusion_mask`` (H, W) bool. With a leading
+    stream axis ((B, H, W, 3), …) the B frames take one launch and each
+    output is (B, 8, n_rows·n_cols)."""
     if depth.device.type == "cpu":
         return cell_sums_plain(
             rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower, hsv_upper,
@@ -50,15 +52,19 @@ def cell_sums(rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower, hsv_upper,
     )
     if depth.dtype not in (torch.int16, torch.uint16):
         raise ValueError(f"cell_sums: depth must be u16 bits, got {depth.dtype}")
-    h, w = depth.shape
-    if tuple(rgb.shape) != (h, w, 3) or tuple(occlusion_mask.shape) != (h, w):
+    lead = depth.shape[:-2]
+    if len(lead) > 1:
+        raise ValueError(f"cell_sums: depth must be (H, W) or (B, H, W), got {tuple(depth.shape)}")
+    n_streams = lead[0] if lead else 1
+    h, w = depth.shape[-2:]
+    if tuple(rgb.shape) != (*lead, h, w, 3) or tuple(occlusion_mask.shape) != (*lead, h, w):
         raise ValueError("cell_sums: rgb/occlusion_mask shapes do not match depth")
     n_rows, n_cols = parity_grid_shape(h, w, cell_px)
     bands = _bands_tensor(hsv_lower, hsv_upper, multi_color_dlo, dev)
     k = floor_key_constants(fx, fy, voxel_leaf)
-    out = torch.empty((4, 8, n_rows * n_cols), dtype=torch.float32, device=dev)
+    out = torch.empty((4, *lead, 8, n_rows * n_cols), dtype=torch.float32, device=dev)
     code = _build.lib().trackdlo_cell_sums(
-        rgb.data_ptr(), depth.data_ptr(), occlusion_mask.data_ptr(), h, w, int(cell_px),
+        rgb.data_ptr(), depth.data_ptr(), occlusion_mask.data_ptr(), n_streams, h, w, int(cell_px),
         bands.data_ptr(), bands.numel() // 6, float(fx), float(fy), float(cx), float(cy),
         k["kx"], k["ky"], k["k_zq"], k["kz"], int(k["z_from_mm"]),
         out.data_ptr(), _build.stream_ptr(dev),

@@ -4,7 +4,8 @@ Counterpart of trackdlo_tpu/ops/priors.py. The four pure-pursuit walks
 (head, tail, both-ends forward, both-ends backward) share one walk-space
 formulation (reversed walks run on index-flipped arrays) and go through
 kernel W together (:func:`trackdlo_tpu_torch.ops.hopper_kernels.pursuit_walks`);
-the five-way dispatch is a set of masked merges.
+the five-way dispatch is a set of masked merges. Under a stream batch the
+walks of every stream go through kernel W in one launch.
 """
 
 from __future__ import annotations
@@ -135,33 +136,48 @@ def correspondence_priors(
     ``guide_nodes`` (M, 3) pre-registered guides, prefix-packed in
     extended-visible order; ``vis_ext_idx``/``vis_ext_count`` the packed
     extended-visible indices; ``vis_idx``/``vis_count`` the packed raw
-    visible indices (used only by the least-moved-node anchor)."""
-    wi = walk_inputs(y, geodesic_coord, guide_nodes, vis_ext_idx, vis_ext_count, vis_idx, vis_count)
-    state, v = wi.state, vis_ext_count
-    pos4, valid4 = pursuit_walks(wi.guides, wi.seglens, wi.ints, _EPS_BETWEEN)
-    head = WalkResult(pos4[0], valid4[0])
-    tail = WalkResult(torch.flip(pos4[1], [0]), torch.flip(valid4[1], [0]))
-    fwd = WalkResult(pos4[2], valid4[2])
-    bwd = WalkResult(torch.flip(pos4[3], [0]), torch.flip(valid4[3], [0]))
+    visible indices (used only by the least-moved-node anchor). With a
+    leading stream axis on every argument, the walks of the B streams go
+    through kernel W together, as 4·B walks in one launch."""
+    lead = y.shape[:-2]
+    m = y.shape[-2]
+    if lead:
+        per = [walk_inputs(y[i], geodesic_coord[i], guide_nodes[i], vis_ext_idx[i],
+                           vis_ext_count[i], vis_idx[i], vis_count[i]) for i in range(lead[0])]
+        guides, seglens, ints = (torch.cat(f) for f in list(zip(*per))[:3])
+        state, align_idx = (torch.stack(f) for f in list(zip(*per))[3:])
+    else:
+        guides, seglens, ints, state, align_idx = walk_inputs(
+            y, geodesic_coord, guide_nodes, vis_ext_idx, vis_ext_count, vis_idx, vis_count
+        )
+    v = vis_ext_count
+    pos4, valid4 = pursuit_walks(guides, seglens, ints, _EPS_BETWEEN)
+    pos4 = pos4.reshape(*lead, 4, m, 3)
+    valid4 = valid4.reshape(*lead, 4, m)
+    walk = lambda k: WalkResult(pos4[..., k, :, :], valid4[..., k, :])
+    flipped = lambda k: WalkResult(torch.flip(pos4[..., k, :, :], [-2]),
+                                   torch.flip(valid4[..., k, :], [-1]))
+    head, tail, fwd, bwd = walk(0), flipped(1), walk(2), flipped(3)
 
     both_hv = head.valid & tail.valid
     avg_pos = torch.where(
-        both_hv[:, None], (head.pos + tail.pos) / 2.0,
-        torch.where(head.valid[:, None], head.pos, tail.pos),
+        both_hv[..., None], (head.pos + tail.pos) / 2.0,
+        torch.where(head.valid[..., None], head.pos, tail.pos),
     )
     avg_valid = head.valid | tail.valid
-    mid_pos = torch.where(tail.valid[:, None], tail.pos, head.pos)
-    both_pos = torch.where(bwd.valid[:, None], bwd.pos, fwd.pos)
+    mid_pos = torch.where(tail.valid[..., None], tail.pos, head.pos)
+    both_pos = torch.where(bwd.valid[..., None], bwd.pos, fwd.pos)
     both_valid = fwd.valid | bwd.valid
 
-    def pick(all_v, mid_v, tail_occ_v, head_occ_v, both_v):
+    def pick(st, all_v, mid_v, tail_occ_v, head_occ_v, both_v):
         return torch.where(
-            state == ALL_VISIBLE, all_v,
-            torch.where(state == MID_SECTION_OCCLUDED, mid_v,
-                        torch.where(state == TAIL_OCCLUDED, tail_occ_v,
-                                    torch.where(state == HEAD_OCCLUDED, head_occ_v, both_v))),
+            st == ALL_VISIBLE, all_v,
+            torch.where(st == MID_SECTION_OCCLUDED, mid_v,
+                        torch.where(st == TAIL_OCCLUDED, tail_occ_v,
+                                    torch.where(st == HEAD_OCCLUDED, head_occ_v, both_v))),
         )
 
-    prior_pos = pick(avg_pos, mid_pos, head.pos, tail.pos, both_pos)
-    prior_mask = pick(avg_valid, avg_valid, head.valid, tail.valid, both_valid) & (v > 0)
-    return PriorResult(prior_pos=prior_pos, prior_mask=prior_mask, state=state, alignment_idx=wi.alignment_idx)
+    st_m = state[..., None]
+    prior_pos = pick(st_m[..., None], avg_pos, mid_pos, head.pos, tail.pos, both_pos)
+    prior_mask = pick(st_m, avg_valid, avg_valid, head.valid, tail.valid, both_valid) & (v[..., None] > 0)
+    return PriorResult(prior_pos=prior_pos, prior_mask=prior_mask, state=state, alignment_idx=align_idx)

@@ -62,6 +62,14 @@ def compute_visibility(
     dlo_pixel_width: int,
     d_vis: float,
 ) -> VisibilityOut:
+    """Visibility of the chain ``y`` (M, 3) against the cloud ``x`` (N, 3).
+    With a leading stream axis on y, x, x_mask and geodesic_coord, every
+    output gains it (one stream at a time; ``proj`` is shared)."""
+    if y.ndim == 3:
+        per = [compute_visibility(y[i], x[i], x_mask[i], proj, geodesic_coord[i], img_rows,
+                                  img_cols, visibility_threshold, dlo_pixel_width, d_vis)
+               for i in range(y.shape[0])]
+        return VisibilityOut(*(torch.stack(f) for f in zip(*per)))
     m = y.shape[0]
     dev, dt = y.device, y.dtype
     iota = torch.arange(m, device=dev)

@@ -1,14 +1,16 @@
-"""Where the time of ``Tracker.step`` goes on the card: a torch.profiler
-trace of a steady window of frames at the live profile (720p, M=45).
+"""Where the time of a tracking step goes on the card: a torch.profiler
+trace of a steady window of frames at the live profile (720p, M=45), for
+``Tracker.step`` or, with ``--batch``, the batched step of that many
+streams (in cohorts of ``--cohort``).
 
 Run on a machine with a CUDA GPU, from the repository root:
 
-    python -m trackdlo_tpu_torch.profile_step [--frames 20]
+    python -m trackdlo_tpu_torch.profile_step [--frames 20] [--batch 16 --cohort 8]
 
 Prints the per-frame wall time, the device's busy share of it, the kernel
 launches and host-to-device copies per frame and the ops with the most
-device time, and writes them to
-``chiprun_out/profile_step.json``. Fails without a GPU.
+device time, and writes them to ``chiprun_out/profile_step.json`` (or
+``profile_step_b<batch>.json``). Fails without a GPU.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ import time
 import numpy as np
 import torch
 
-from trackdlo_tpu.config import CameraIntrinsics, live_params
-from trackdlo_tpu.io.sequence import SyntheticRope, render_frame
-from trackdlo_tpu_torch.models.trackdlo import Tracker
+from trackdlo_tpu_torch.config import CameraIntrinsics, live_params
+from trackdlo_tpu_torch.io.sequence import SyntheticRope, render_frame
+from trackdlo_tpu_torch.models.trackdlo import Tracker, TrackerState
+from trackdlo_tpu_torch.parallel import build_batched_step_fn
 
 
 def _busy_union_us(events) -> float:
@@ -46,6 +49,8 @@ def _busy_union_us(events) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=1, help="streams; above 1 the batched step")
+    ap.add_argument("--cohort", type=int, default=None, help="cohort size of the batched step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: CUDA is not available")
@@ -55,17 +60,29 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     params, intr, rope = live_params(), CameraIntrinsics(), SyntheticRope()
     tracker = Tracker(params, intr, device="cuda")
-    state = tracker.init_from_nodes(rope.nodes(0.0, params.M))
-    frames = [render_frame(rope, i / 15.0, intr) for i in range(1, 11)]
+    b = args.batch
+    if b == 1:
+        state = tracker.init_from_nodes(rope.nodes(0.0, params.M))
+        frames = [render_frame(rope, i / 15.0, intr) for i in range(1, 11)]
+        step = tracker.step
+    else:
+        # Stream s at phase offset 0.01·s, as chip_smoke.py's batched loop.
+        state = TrackerState(*(torch.stack(f) for f in zip(*(
+            tracker.init_from_nodes(rope.nodes(0.01 * s, params.M)) for s in range(b)))))
+        frames = []
+        for i in range(1, 11):
+            fr = [render_frame(rope, i / 15.0 + 0.01 * s, intr) for s in range(b)]
+            frames.append(tuple(np.stack(f) for f in zip(*fr)))
+        step = build_batched_step_fn(params, intr, cohort_size=args.cohort, device="cuda")
     for rgb, depth in frames:  # warm-up: build, first launches, allocator
-        state, _ = tracker.step(state, rgb, depth)
+        state, _ = step(state, rgb, depth)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(args.frames):
             rgb, depth = frames[i % len(frames)]
-            state, _ = tracker.step(state, rgb, depth)
+            state, _ = step(state, rgb, depth)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
 
@@ -74,6 +91,8 @@ def main() -> int:
     top = sorted(prof.key_averages(), key=lambda a: a.device_time_total, reverse=True)[:15]
     rec = {
         "card": card,
+        "streams": b,
+        "cohort": args.cohort,
         "frames": args.frames,
         "wall_ms_per_frame": wall_us / 1e3 / args.frames,
         "device_busy_ms_per_frame": busy_us / 1e3 / args.frames if kernels else None,
@@ -88,15 +107,17 @@ def main() -> int:
             for a in top
         ],
     }
+    unit = "frame" if b == 1 else f"frame set of {b} streams"
     print(f"card: {card}")
-    print(f"wall {rec['wall_ms_per_frame']:.3f} ms/frame under the profiler; device busy "
-          f"{rec['device_busy_ms_per_frame'] if kernels else 'not measured'} ms/frame; "
-          f"{rec['device_ops_per_frame']:.0f} device ops/frame; host-to-device copies/frame "
+    print(f"per {unit}: wall {rec['wall_ms_per_frame']:.3f} ms under the profiler; device busy "
+          f"{rec['device_busy_ms_per_frame'] if kernels else 'not measured'} ms; "
+          f"{rec['device_ops_per_frame']:.0f} device ops; host-to-device copies "
           f"{rec['htod_pageable_per_frame']:g} pageable, {rec['htod_pinned_per_frame']:g} pinned")
     for t in rec["top_device_ops"]:
-        print(f"  {t['device_ms_per_frame']:9.4f} ms  {t['calls_per_frame']:7.1f}/frame  {t['name'][:90]}")
+        print(f"  {t['device_ms_per_frame']:9.4f} ms  {t['calls_per_frame']:7.1f} calls  {t['name'][:90]}")
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "profile_step.json"), "w") as f:
+    name = "profile_step.json" if b == 1 else f"profile_step_b{b}.json"
+    with open(os.path.join("chiprun_out", name), "w") as f:
         json.dump(rec, f, indent=1)
     if not np.isfinite(state.y.cpu().numpy()).all():
         raise SystemExit("profile_step: non-finite nodes")
