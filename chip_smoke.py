@@ -8,23 +8,32 @@ Run from the repository root on a machine with a CUDA GPU:
 Phases, in order (any failure exits nonzero and prints no result line):
 
 1. toolchain: the card's name and power limit, torch's CUDA version, nvcc;
-2. build: compile the eight CUDA kernels from ``trackdlo_tpu_torch/csrc``,
-   one ``nvcc`` per source, all started together;
+2. build: compile the nine CUDA sources (eleven kernels and modes) from
+   ``trackdlo_tpu_torch/csrc``, one ``nvcc`` per source, all started
+   together;
 3. check: each kernel against its plain PyTorch version on the card, at the
    shapes of the main paths (720p frames, M=45, the live cloud capacity, 16
    streams for the batched E-step), the Gauss-Jordan solve against float64,
-   and the per-iteration EM against kernel E and its plain version;
+   and the per-iteration EM against kernel E and its plain version; kernel
+   P's one-channel modes (floor votes, no leaf) and kernel F (one EM
+   iteration with its one-hot M-step solve): F's route against the plain
+   per-iteration route, a live tolerance run through F, F batched;
 4. closed loop: ``Tracker.step`` over 30 occluded frames against the float64
-   oracle, with the kernels' launch counts;
+   oracle, with the kernels' launch counts; then the coarse profile
+   (``parity_split=False``, 30 frames) and the cells-only profile
+   (``exact_voxels=False``, 10 frames), each against the oracle fed the
+   port's own clouds;
 5. batch: the batched step over 16 streams in cohorts of 8 for 30 frames,
    each frame held against the single-stream step from the same state and
    against a lockstep batch of 16, streams 0 and 15 against the oracle, the
    exact lockstep launch count; then ``Tracker.step`` with
    ``solver="lstsq"`` (the single-stream per-iteration route) against the
-   oracle;
-6. timing: the per-frame single step and the batched step (CUDA events) and
-   each kernel beside its plain version and, for the solve, beside
-   ``torch.linalg.solve``.
+   oracle; then the coarse batched step, 4 streams for 10 frames, its
+   clouds against the single-stream coarse step's;
+6. timing: the per-frame single step (parity and coarse), the batched step
+   (CUDA events) and each kernel beside its plain version and, for the
+   solve, beside ``torch.linalg.solve``; kernel F also beside one iteration
+   of the single-stream per-iteration route.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after. The last two lines of standard output are the card line
@@ -92,10 +101,49 @@ BOUNDS = {
     "cohort_vs_lockstep_max": 0.0,
     "batched_launch_mismatch": 0,
     "lstsq_closed_loop_mean_mm": 1.0,
+    # The single-channel slice. Kernel P's one-channel modes against the
+    # plain version: counts and floor-vote sums (integers below 2^24) equal
+    # element for element; the clouds from the two sets of sums as the JAX
+    # package's audit holds its compiled kernel (perf/tpu_kernel_numerics.py,
+    # preprocess_kernel_*); the no-leaf cloud as the parity cloud.
+    "cell_sums_votes_mismatch": 0,
+    "preprocess_kernel_count_delta": 0,
+    "preprocess_kernel_vs_xla_p95_m": 2e-6,
+    "cell_sums_cells_mismatch": 0,
+    "preprocess_cells_count_delta": 0,
+    "preprocess_cells_p95_m": 1e-6,
+    # The coarse clouds are not the oracle's PCL-exact clouds (the JAX
+    # package records ~2.4 mm for the coarse profile), so each coarse loop is
+    # held against the float64 oracle fed the port's own clouds; the oracle
+    # on its own preprocessing is a gross tripwire.
+    "coarse_closed_loop_mean_mm": 1.0,
+    "coarse_vs_oracle_own_mean_mm": 5.0,
+    "cells_closed_loop_mean_mm": 1.0,
+    # The coarse batched step: clouds bit-equal to the single step's, the
+    # exact lockstep launch count, y under phase 5's nudge rule.
+    "coarse_batched_cloud_mismatch": 0,
+    "coarse_batched_launch_mismatch": 0,
+    "coarse_batched_vs_single_median_m": 5e-4,
+    "coarse_batched_vs_single_over_nudged": 2.0,
+    # Kernel F: the JAX audit's bounds (em10_fusedmstep_vs_xla_max_m) and
+    # check_em's; the launch count equal to the iteration count; a batch of
+    # copies bit-equal to one stream of the same staging through F.
+    "em3_fusedmstep_plain_max_m": 1e-6,
+    "em3_fusedmstep_lle_max_m": 1e-6,
+    "em3_fusedmstep_priors_gate_max_m": 1e-6,
+    "em10_fusedmstep_vs_xla_max_m": 2e-6,
+    "fused_live_launch_mismatch": 0,
+    "fused_batched_vs_single_max": 0.0,
+    "fused_batched_launch_mismatch": 0,
 }
 N_STREAMS, COHORT = 16, 8
 EXPECTED_LAUNCHES = {"cell_sums": 30, "compact": 30, "visibility": 30, "walks": 30, "em_loop": 60,
-                     "estep": 0, "estep_batch": 0, "gj_solve": 0}
+                     "estep": 0, "estep_batch": 0, "gj_solve": 0, "cell_sums_votes": 0,
+                     "cell_sums_cells": 0, "em_iteration": 0}
+# Per frame of the coarse (votes) and cells-only loops: kernel P's mode,
+# V, W, and kernel E twice; neither C nor the parity mode.
+COARSE_LAUNCHES = {"visibility": 1, "walks": 1, "em_loop": 2, "cell_sums": 0, "compact": 0,
+                   "em_iteration": 0, "estep": 0, "estep_batch": 0, "gj_solve": 0}
 KERNELS = {
     "cell_sums": ("trackdlo_tpu_torch/csrc/cell_sums.cu", "trackdlo_tpu/ops/preprocess_kernel.py:470"),
     "compact": ("trackdlo_tpu_torch/csrc/compact.cu", "trackdlo_tpu/ops/preprocess_kernel.py:617"),
@@ -105,9 +153,13 @@ KERNELS = {
     "estep": ("trackdlo_tpu_torch/csrc/estep.cu", "trackdlo_tpu/ops/pallas_kernels.py:728"),
     "estep_batch": ("trackdlo_tpu_torch/csrc/estep.cu", "trackdlo_tpu/ops/pallas_kernels.py:942"),
     "gj_solve": ("trackdlo_tpu_torch/csrc/gj_solve.cu", "trackdlo_tpu/ops/pallas_kernels.py:1112"),
+    "cell_sums_votes": ("trackdlo_tpu_torch/csrc/cell_sums.cu", "trackdlo_tpu/ops/preprocess_kernel.py:470"),
+    "cell_sums_cells": ("trackdlo_tpu_torch/csrc/cell_sums.cu", "trackdlo_tpu/ops/preprocess_kernel.py:470"),
+    "em_iteration": ("trackdlo_tpu_torch/csrc/em_iter.cu", "trackdlo_tpu/ops/pallas_kernels.py:482"),
 }
 # The path whose run gives each kernel's launch count in the kernels line.
-LAUNCH_PATH = {"estep": "lstsq", "estep_batch": "batched", "gj_solve": "batched"}
+LAUNCH_PATH = {"estep": "lstsq", "estep_batch": "batched", "gj_solve": "batched",
+               "cell_sums_votes": "coarse", "cell_sums_cells": "cells", "em_iteration": "fused"}
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory and
 # float32 outside the tensor cores. A kernel's bound is the larger of its
@@ -118,6 +170,7 @@ PEAK_F32_PER_S = 67e12
 # Operation counts per unit of work (adds, multiplies, compares, exp and
 # sqrt each one operation), read off the kernels' code:
 OPS_PER_PIXEL = 45         # kernel P: HSV test, deprojection, floors, sums
+OPS_PER_PIXEL_CELLS = 33   # kernel P without a leaf: no floors
 OPS_SWEEP_PAIR = 9         # squared distance and min, per (node, point)
 OPS_ESTEP_PAIR = 30        # both E-step passes and the P1/PX sums, per (node, point)
 OPS_WALK_STEP_SEG = 40     # kernel W: one sphere-segment test
@@ -134,6 +187,13 @@ def gj_solve_ops(m: int) -> int:
 def em_mstep_ops(m: int) -> int:
     """Kernel E's M-step per iteration: the solve, then T = Y0 + G W."""
     return gj_solve_ops(m) + 2 * m * m * 3
+
+
+def onehot_mstep_ops(m: int) -> int:
+    """Kernel F's M-step: the least work of a Gauss-Jordan solve with three
+    right-hand sides and no inverse, equilibration or refinement
+    ((2/3) m^3 + 2 m^2 3), then T = Y0 + G W."""
+    return 2 * m ** 3 // 3 + 2 * m * m * 3 + 2 * m * m * 3
 
 
 def quantile_ratio(got, ref) -> float:
@@ -213,24 +273,26 @@ class Smoke:
             torch.from_numpy(occ != 0).to(self.dev),
         )
 
+    def event_ms(self, fn, n):
+        """ms per call of ``fn`` over ``n`` calls after one warm-up call,
+        between two CUDA events."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
     def time_pair(self, name, kernel_fn, plain_fn, n_kernel=50, n_plain=5, library_fn=None):
         """ms per call of the kernel, of its plain version and of the library
         call (if any), measured in turns (plain, kernel, kernel, plain) with
         CUDA events."""
-        torch = self.torch
-
-        def run(fn, n):
-            fn()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(n):
-                fn()
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / n
-
+        run = self.event_ms
         p1 = run(plain_fn, n_plain)
         k1 = run(kernel_fn, n_kernel)
         k2 = run(kernel_fn, n_kernel)
@@ -606,7 +668,7 @@ class Smoke:
         3 iterations of 4 streams, kernels against plain versions."""
         torch = self.torch
         from trackdlo_tpu_torch.ops.cpd_lle import (
-            CpdParams, cpd_lle, cpd_lle_batched, em_loop_lockstep, em_staging,
+            CpdParams, cpd_lle, cpd_lle_batched, em_iteration, em_loop_lockstep, em_staging,
         )
         from trackdlo_tpu_torch.ops.hopper_kernels import (
             fused_estep_packed_batch, fused_estep_packed_batch_plain, gauss_jordan_solve_batched,
@@ -640,13 +702,135 @@ class Smoke:
         ):
             params = CpdParams(**{**short, **extra})
             st = em_staging(pc.points, pc.mask, y, nm4, s2_4, params, visible_count=vcs, **kw)
-            yk, sk, ik, _ = em_loop_lockstep(st, params, fused_estep_packed_batch,
-                                             gauss_jordan_solve_batched)
-            yp, sp, ip, _ = em_loop_lockstep(st, params, fused_estep_packed_batch_plain,
-                                             gauss_jordan_solve_batched_plain)
+            def loop(estep, solve, st=st, params=params):
+                return em_loop_lockstep(
+                    st, params, lambda y, s2: em_iteration(st, y, s2, params, estep, solve))
+
+            yk, sk, ik, _ = loop(fused_estep_packed_batch, gauss_jordan_solve_batched)
+            yp, sp, ip, _ = loop(fused_estep_packed_batch_plain, gauss_jordan_solve_batched_plain)
             if not torch.equal(ik, ip):
                 self.failures.append(f"{key}_iterations")
             self.bound(key, float((yk - yp).abs().max()))
+
+    def check_preprocess_single(self):
+        """Kernel P's one-channel modes on the occluded live frame against
+        the plain version: the coarse two-stage path (with the floor votes)
+        and the cells-only path (no leaf); then the clouds each set of sums
+        gives."""
+        np = self.np
+        from trackdlo_tpu_torch.ops.preprocess import cell_sums_plain, compact_sums
+        from trackdlo_tpu_torch.ops.preprocess_kernel import cell_sums
+
+        p = self.params
+        rgb, depth, occ = self.frame(1 / 15.0, occlude=True)
+        frame = self.to_dev(rgb, depth, occ)
+        self.p1_args = {}
+        for mode, leaf, cloud_key, p95_bound in (
+            ("votes", p.downsample_leaf_size, "preprocess_kernel", "preprocess_kernel_vs_xla_p95_m"),
+            ("cells", None, "preprocess_cells", "preprocess_cells_p95_m"),
+        ):
+            args = (*frame, *self.p_args[3:-1], leaf)
+            kw = dict(parity_split=False, with_votes=leaf is not None)
+            k_out = cell_sums(*args, **kw)
+            p_out = cell_sums_plain(*args, **kw)
+            exact = range(3, len(p_out))  # the count and the floor votes
+            self.bound(f"cell_sums_{mode}_mismatch", sum(int((k_out[i] != p_out[i]).sum()) for i in exact))
+            self.kernel_err[f"cell_sums_{mode}"] = max(float((a - b).abs().max())
+                                                       for a, b in zip(k_out, p_out))
+            pcs = [compact_sums(o, p.max_points, leaf, p.candidate_cap(), False) for o in (k_out, p_out)]
+            kp = pcs[0].points[pcs[0].mask].cpu().numpy()
+            pp = pcs[1].points[pcs[1].mask].cpu().numpy()
+            log(f"  one channel, {mode}: {len(p_out)} sums of {tuple(p_out[3].shape)} cells, "
+                f"{int((p_out[3] > 0).sum())} occupied; cloud {len(kp)} points (plain {len(pp)})")
+            self.bound(f"{cloud_key}_count_delta", int(pcs[0].count) - int(pcs[1].count))
+            d = np.linalg.norm(kp[:, None] - pp[None], axis=2).min(1) if len(kp) else np.zeros(1)
+            self.bound(p95_bound, float(np.percentile(d, 95)))
+            self.p1_args[mode] = (args, kw)
+
+    def check_fused(self):
+        """Kernel F: three iterations (tol 0) against its plain version in
+        the plain, LLE and priors+gate configurations of check_em; the fused
+        route against the plain per-iteration route (the JAX package's XLA
+        iteration, plain solve) over 10 iterations in the main-pass
+        configuration; a live tolerance run through F (its launches counted);
+        4 copies of that stream through the batched route."""
+        torch = self.torch
+        import dataclasses
+
+        from trackdlo_tpu_torch.ops.cpd_lle import (
+            CpdParams, EmStaging, cpd_lle, cpd_lle_batched, em_iteration_xla, em_loop_lockstep,
+            em_staging, fused_iteration,
+        )
+        from trackdlo_tpu_torch.ops.hopper_kernels import (
+            fused_em_iteration_plain, gauss_jordan_solve_batched_plain,
+        )
+
+        p, m = self.params, self.params.M
+        nodes = torch.as_tensor(self.rope.nodes(0.0, m), dtype=torch.float32, device=self.dev)
+        nm = torch.ones(m, dtype=torch.bool, device=self.dev)
+        s2 = torch.tensor(0.001, device=self.dev)
+        vc = torch.tensor(30, device=self.dev)
+        x, xm = self.cloud.points, self.cloud.mask
+        base = dict(beta=p.beta, lam=p.lam, lle_weight=p.lle_weight, mu=p.mu, max_iter=3,
+                    tol=0.0, include_lle=False, k_vis=p.k_vis,
+                    visibility_threshold=p.visibility_threshold, use_visibility=True,
+                    use_fused_mstep=True)
+        one = lambda a: a[None]
+        err = 0.0
+        for key, extra, kw in (
+            ("em3_fusedmstep_plain_max_m", {}, {}),
+            ("em3_fusedmstep_lle_max_m", {"include_lle": True}, {}),
+            ("em3_fusedmstep_priors_gate_max_m", {"use_priors": True, "alpha": p.alpha},
+             {"prior_pos": nodes + 0.004, "prior_mask": torch.arange(m, device=self.dev) < 12}),
+        ):
+            params = CpdParams(**{**base, **extra})
+            st = em_staging(one(x), one(xm), one(nodes), one(nm), one(s2), params,
+                            visible_count=one(vc), **{k: one(v) for k, v in kw.items()})
+            yk, _, ik, _ = em_loop_lockstep(st, params, lambda y, s: fused_iteration(st, y, s, params))
+            yp, _, ip, _ = em_loop_lockstep(
+                st, params, lambda y, s: fused_iteration(st, y, s, params, fused_em_iteration_plain))
+            if not torch.equal(ik, ip):
+                self.failures.append(f"{key}_iterations")
+            e = float((yk - yp).abs().max())
+            self.bound(key, e)
+            err = max(err, e)
+        self.kernel_err["em_iteration"] = err
+
+        main = CpdParams(**{**base, "max_iter": 10})
+        fused = cpd_lle(x, xm, nodes, nm, s2, main, visible_count=vc)
+        plain = dataclasses.replace(main, use_fused_mstep=False)
+        st = em_staging(one(x), one(xm), one(nodes), one(nm), one(s2), plain, visible_count=one(vc))
+        y_xla, _, it_xla, _ = em_loop_lockstep(
+            st, plain, lambda y, s: em_iteration_xla(st, y, s, plain, gauss_jordan_solve_batched_plain))
+        log(f"  10 iterations: fused route {int(fused.iterations)}, plain route {int(it_xla[0])}")
+        self.bound("em10_fusedmstep_vs_xla_max_m", float((fused.y - y_xla[0]).abs().max()))
+        self.f_stage = (st, main)
+
+        live = dataclasses.replace(main, max_iter=p.max_iter, tol=p.tol)
+        res = self.count_path("fused", lambda: cpd_lle(x, xm, nodes, nm, s2, live, visible_count=vc))
+        iters = int(res.iterations)
+        log(f"  live tolerance through F: {iters} iterations, converged {bool(res.converged)}")
+        self.bound("fused_live_launch_mismatch", self.path_launches["fused"]["em_iteration"] - iters)
+        rep = lambda a: a.unsqueeze(0).expand(4, *a.shape).contiguous()
+        batched = self.count_path("fused_batched", lambda: cpd_lle_batched(
+            rep(x), rep(xm), rep(nodes), rep(nm), rep(s2), live, visible_count=rep(vc)))
+        # F on the first stream of the batch's own staging: the staging of a
+        # lone stream can differ in the last bit of its geodesic coordinates
+        # (torch scans one row with another algorithm than a batch of rows),
+        # so F and the lockstep loop are held to bit-equality on the same
+        # inputs, and the distance from the lone stream is reported.
+        st4 = em_staging(rep(x), rep(xm), rep(nodes), rep(nm), rep(s2), live, visible_count=rep(vc))
+        st1 = EmStaging(tuple(a[:1] for a in st4.args), st4.kwargs, st4.n_count[:1], st4.sigma2[:1])
+        y1, s1, it1, _ = em_loop_lockstep(st1, live, lambda y, s: fused_iteration(st1, y, s, live))
+        self.bound("fused_batched_vs_single_max", max(float((batched.y - y1).abs().max()),
+                                                      float((batched.sigma2 - s1).abs().max())))
+        self.metrics["fused_batched_vs_lone_stream_max_m"] = float((batched.y - res.y[None]).abs().max())
+        log(f"  F batched against the lone stream's cpd_lle: "
+            f"{self.metrics['fused_batched_vs_lone_stream_max_m']!r} m")
+        trips = int(batched.iterations.max())
+        self.bound("fused_batched_launch_mismatch",
+                   abs(self.path_launches["fused_batched"]["em_iteration"] - trips)
+                   + int((batched.iterations != it1).sum()))
 
     # -- phase 4: closed loop against the oracle -----------------------------
     def closed_loop(self):
@@ -700,6 +884,70 @@ class Smoke:
         if len(seen) < 2:
             self.failures.append("occlusion_states")
         self.tracker, self.state, self.frames_data = tracker, state, frames
+
+    def profile_loop(self, name: str, change: dict, n_frames: int, key: str, tripwire=None):
+        """``Tracker.step`` with ``change`` to the live profile over the
+        first ``n_frames`` frames of phase 4, its launches counted; held
+        against the float64 oracle fed the port's own clouds, with the
+        oracle on its own preprocessing reported beside it."""
+        np, torch = self.np, self.torch
+        import dataclasses
+
+        from trackdlo_tpu_torch.models.trackdlo import Tracker
+        from trackdlo_tpu_torch.oracle.pipeline import init_state as oracle_init, step_frame
+
+        p = dataclasses.replace(self.params, **change)
+        intr, m = self.intr, p.M
+        tracker = Tracker(p, intr, device=self.dev)
+        state = tracker.init_from_nodes(self.rope.nodes(0.0, m))
+        frames = self.frames_data[:n_frames]
+        ys, clouds = [], []
+
+        def run():
+            nonlocal state
+            for rgb, depth, occ in frames:
+                state, out = tracker.step(state, rgb, depth, occ)
+                ys.append(state.y)
+                clouds.append(out.points[out.points_mask])
+
+        self.count_path(name, run)
+        got = self.path_launches[name]
+        want = {k: v * n_frames for k, v in COARSE_LAUNCHES.items()}
+        want[f"cell_sums_{'votes' if p.exact_voxels else 'cells'}"] = n_frames
+        for k, v in want.items():
+            if got[k] != v:
+                self.failures.append(f"{name}_launches_{k}")
+                log(f"  launches {k}: {got[k]} != {v}  FAIL")
+        o_port = oracle_init(self.rope.nodes(0.0, m), p)
+        o_own = oracle_init(self.rope.nodes(0.0, m), p)
+        port_mm, own_mm, npts = [], [], []
+        for (rgb, depth, occ), y, cloud in zip(frames, ys, clouds):
+            pts = cloud.cpu().numpy()
+            o_port, _, _ = step_frame(o_port, rgb, depth, p, intr, occ, points=pts)
+            o_own, _, _ = step_frame(o_own, rgb, depth, p, intr, occ)
+            y = y.cpu().numpy()
+            if not np.isfinite(y).all() or y.shape != (m, 3):
+                self.failures.append(f"{name}_finite")
+            port_mm.append(1000 * float(np.linalg.norm(y - o_port.y, axis=1).mean()))
+            own_mm.append(1000 * float(np.linalg.norm(y - o_own.y, axis=1).mean()))
+            npts.append(len(pts))
+        self.metrics.update({f"{name}_per_frame_mm": port_mm,
+                             f"{name}_vs_oracle_own_per_frame_mm": own_mm,
+                             f"{name}_n_points": npts})
+        log(f"  {name}: points per frame {npts}")
+        log(f"  {name}: against the oracle on its own preprocessing, mean "
+            f"{statistics.fmean(own_mm):.4f} mm (max {max(own_mm):.4f})")
+        self.bound(key, statistics.fmean(port_mm))
+        if tripwire is not None:
+            self.bound(tripwire, statistics.fmean(own_mm))
+        else:
+            self.metrics[f"{name}_vs_oracle_own_mean_mm"] = statistics.fmean(own_mm)
+        return tracker, state
+
+    def coarse_loops(self):
+        self.coarse = self.profile_loop("coarse", {"parity_split": False}, self.frames,
+                                        "coarse_closed_loop_mean_mm", "coarse_vs_oracle_own_mean_mm")
+        self.profile_loop("cells", {"exact_voxels": False}, 10, "cells_closed_loop_mean_mm")
 
     # -- phase 5: the batched step and the per-iteration route ---------------
     def batch_frames(self, i: int):
@@ -860,6 +1108,63 @@ class Smoke:
         self.bound("lstsq_closed_loop_mean_mm", statistics.fmean(dev_mm))
         self.lstsq_state = (tracker, state)
 
+    def coarse_batched(self, n_streams: int = 4, n_frames: int = 10):
+        """The coarse profile's batched step, 4 streams in lockstep for 10
+        frames (streams 0-3 of phase 5, odd ones occluded): each stream's
+        cloud bit-equal to the single coarse step's on its frame, kernel P
+        once per frame, the exact lockstep launch count, and y under phase
+        5's nudge rule."""
+        np, torch = self.np, self.torch
+        from trackdlo_tpu_torch.models.trackdlo import TrackerState
+        from trackdlo_tpu_torch.parallel import build_batched_step_fn
+
+        tracker = self.coarse[0]
+        p, intr, m = tracker.params, self.intr, self.params.M
+        fn = build_batched_step_fn(p, intr, device=self.dev)
+        state = TrackerState(*(torch.stack(f) for f in zip(*(
+            tracker.init_from_nodes(self.rope.nodes(0.01 * b, m)) for b in range(n_streams)))))
+        frames = [tuple(a[:n_streams] for a in f) for f in self.batch_frames_data[:n_frames]]
+        befores, outs = [], []
+
+        def run():
+            nonlocal state
+            for rgb, depth, occ in frames:
+                befores.append(state)
+                state, out = fn(state, rgb, depth, occ)
+                outs.append(out)
+
+        self.count_path("coarse_batched", run)
+        got = self.path_launches["coarse_batched"]
+        want = {k: 0 for k in got}
+        for k in ("cell_sums_votes", "visibility", "walks"):
+            want[k] = n_frames
+        want["estep_batch"] = want["gj_solve"] = sum(
+            int(o.guide_iterations.max()) + int(o.iterations.max()) for o in outs)
+        log(f"  expected launches: {want}")
+        self.bound("coarse_batched_launch_mismatch", sum(abs(got[k] - want[k]) for k in want))
+
+        cloud_mis = 0
+        dy, dp = [], []
+        nudge = torch.from_numpy(np.random.default_rng(0).normal(0, 1e-7, (m, 3)).astype(np.float32))
+        nudge = nudge.to(self.dev)
+        for (rgb, depth, occ), before, out in zip(frames, befores, outs):
+            for b in range(n_streams):
+                one = TrackerState(*(v[b] for v in before))
+                s1, o1 = tracker.step(one, rgb[b], depth[b], occ[b])
+                s2, _ = tracker.step(one._replace(y=one.y + nudge), rgb[b], depth[b], occ[b])
+                cloud_mis += int((o1.points != out.points[b]).any(dim=-1).sum())
+                cloud_mis += int((o1.points_mask != out.points_mask[b]).sum())
+                dy.append(float((s1.y - out.y[b]).abs().max()))
+                dp.append(float((s1.y - s2.y).abs().max()))
+        dy_a, dp_a = np.array(dy), np.array(dp)
+        self.metrics.update(coarse_batched_vs_single_m=dy, coarse_single_vs_nudged_m=dp)
+        log(f"  coarse batched vs single, {len(dy)} stream-frames: median {np.median(dy_a):.3g} m, "
+            f"max {dy_a.max():.3g}; single vs nudged: median {np.median(dp_a):.3g}, "
+            f"max {dp_a.max():.3g}")
+        self.bound("coarse_batched_cloud_mismatch", cloud_mis)
+        self.bound("coarse_batched_vs_single_median_m", float(np.median(dy_a)))
+        self.bound("coarse_batched_vs_single_over_nudged", quantile_ratio(dy_a, dp_a))
+
     # -- phase 6: timing --------------------------------------------------------
     def step_times(self, key, step, frames, n):
         """Median and p90 of CUDA events around ``step`` over ``n`` calls."""
@@ -917,14 +1222,28 @@ class Smoke:
         a = self.g_args[0]
         ns, mg = a.shape[:2]
         self.bounds_ms["gj_solve"] = bound(ns * (mg * mg + 2 * mg * 3) * 4, ns * gj_solve_ops(mg))
+        self.bounds_ms["cell_sums_votes"] = bound(h * w * 6 + 7 * n_cells * 4, h * w * OPS_PER_PIXEL)
+        self.bounds_ms["cell_sums_cells"] = bound(h * w * 6 + 4 * n_cells * 4,
+                                                  h * w * OPS_PER_PIXEL_CELLS)
+        st1 = self.f_stage[0]
+        n_f, nv_f = st1.args[9].shape[1], int(st1.n_count[0])
+        sweep_f = OPS_SWEEP_PAIR if bool(st1.args[0][0, 3] > 0) else 0
+        self.bounds_ms["em_iteration"] = bound(
+            20 + m * 12 * 2 + m * 4 * 2 + 3 * m * m * 4 + 2 * m * 12 + n_f * 16 + m * 12 + 8,
+            (sweep_f + OPS_ESTEP_PAIR) * m * nv_f + onehot_mstep_ops(m))
 
     def timing(self):
         np, torch = self.np, self.torch
-        from trackdlo_tpu_torch.ops.cpd_lle import CpdParams, em_staging
+        import dataclasses
+
+        from trackdlo_tpu_torch.ops.cpd_lle import (
+            CpdParams, _estep_one_stream, em_staging, fused_iteration, iteration_route,
+        )
         from trackdlo_tpu_torch.ops.hopper_kernels import (
-            fused_em_loop, fused_em_loop_plain, fused_estep_packed, fused_estep_packed_batch,
-            fused_estep_packed_batch_plain, fused_estep_packed_plain, gauss_jordan_solve_batched,
-            gauss_jordan_solve_batched_plain, pursuit_walks, pursuit_walks_plain,
+            fused_em_iteration_plain, fused_em_loop, fused_em_loop_plain, fused_estep_packed,
+            fused_estep_packed_batch, fused_estep_packed_batch_plain, fused_estep_packed_plain,
+            gauss_jordan_solve_batched, gauss_jordan_solve_batched_plain, pursuit_walks,
+            pursuit_walks_plain,
         )
         from trackdlo_tpu_torch.ops.preprocess import (
             cell_sums_plain, compact_channels, compact_channels_plain,
@@ -945,6 +1264,16 @@ class Smoke:
 
         rec = self.step_times("step", single, frames, self.timing_frames)
         log(f"  Tracker.step per frame: median {rec['median_ms']:.3f} ms "
+            f"(p90 {rec['p90_ms']:.3f}, host wall median {rec['wall_median_ms']:.3f})")
+        c_tracker, holder["c"] = self.coarse
+        for i in range(10):
+            holder["c"], _ = c_tracker.step(holder["c"], *frames[i % len(frames)])
+
+        def coarse(rgb, depth, occ):
+            holder["c"], _ = c_tracker.step(holder["c"], rgb, depth, occ)
+
+        rec = self.step_times("step_coarse", coarse, frames, self.timing_frames)
+        log(f"  Tracker.step, parity_split=False, per frame: median {rec['median_ms']:.3f} ms "
             f"(p90 {rec['p90_ms']:.3f}, host wall median {rec['wall_median_ms']:.3f})")
 
         fn_c8, fn_lock = self.batch_fns
@@ -1011,6 +1340,23 @@ class Smoke:
         self.time_pair("gj_solve_b16_m48", lambda: gauss_jordan_solve_batched(*spd),
                        lambda: gauss_jordan_solve_batched_plain(*spd),
                        library_fn=lambda: torch.linalg.solve(*spd))
+        for mode in ("votes", "cells"):
+            a1, kw1 = self.p1_args[mode]
+            self.time_pair(f"cell_sums_{mode}", lambda a1=a1, kw1=kw1: cell_sums(*a1, **kw1),
+                           lambda a1=a1, kw1=kw1: cell_sums_plain(*a1, **kw1))
+        st1, main = self.f_stage
+        y1, s21 = st1.args[1], st1.args[0][:, 0]
+        self.time_pair("em_iteration", lambda: fused_iteration(st1, y1, s21, main),
+                       lambda: fused_iteration(st1, y1, s21, main, fused_em_iteration_plain),
+                       n_plain=3)
+        route = iteration_route(st1, dataclasses.replace(main, use_fused_mstep=False),
+                                _estep_one_stream)
+        route_ms = [self.event_ms(lambda: route(y1, s21), 50) for _ in range(2)]
+        self.times["em_iteration"].update(
+            note="one iteration, one stream, main-pass configuration with the gate on",
+            periter_route_ms=sum(route_ms) / 2, periter_route_ms_runs=route_ms)
+        log(f"  one iteration of the per-iteration route (S + M-step assembly + G): "
+            f"{sum(route_ms) / 2:.4f} ms")
 
 
 def main() -> int:
@@ -1066,19 +1412,24 @@ def main() -> int:
         smoke.check_gj()
         smoke.check_estep()
         smoke.check_em_periter()
+        smoke.check_preprocess_single()
+        smoke.check_fused()
         torch.cuda.synchronize()
         phase_s["check"] = time.perf_counter() - t0
     if "loop" in phases:
-        log(f"[4] closed loop: {smoke.frames} frames against the float64 oracle")
+        log(f"[4] closed loop: {smoke.frames} frames against the float64 oracle; the coarse and "
+            "cells-only profiles")
         t0 = time.perf_counter()
         smoke.closed_loop()
+        smoke.coarse_loops()
         phase_s["loop"] = time.perf_counter() - t0
     if "batch" in phases and "loop" in phases and "check" in phases:
         log(f"[5] batched step: {N_STREAMS} streams in cohorts of {COHORT}, {smoke.frames} frames; "
-            "then the lstsq route")
+            "then the lstsq route and the coarse batched step")
         t0 = time.perf_counter()
         smoke.batched_loop()
         smoke.lstsq_loop()
+        smoke.coarse_batched()
         phase_s["batch"] = time.perf_counter() - t0
     if phases >= everything:
         log(f"[6] timing on {card}")

@@ -1,4 +1,4 @@
-"""The port's five CUDA kernels against their plain PyTorch versions, on the
+"""The port's CUDA kernels against their plain PyTorch versions, on the
 card. Every test here needs an NVIDIA GPU and nvcc, and skips without them.
 
 The file imports no JAX, so it runs on a GPU machine without it:
@@ -445,3 +445,160 @@ def test_batched_em_matches_single_stream_kernel(cuda):
     assert _build.launch_counts["estep_batch"] - before["estep_batch"] == 10
     assert _build.launch_counts["gj_solve"] - before["gj_solve"] == 10
     assert float((batched.y - single.y[None]).abs().max()) <= 2e-6
+
+
+# ---------------------------------------------------------------------------
+# The single-channel slice: kernel P's one-channel modes (B4 with the floor
+# votes, and without a leaf) and kernel F (B10).
+# ---------------------------------------------------------------------------
+
+ONE_CHANNEL = {"votes": (PARAMS.downsample_leaf_size, True), "cells": (None, False)}
+
+
+def _p1_args(intr, occluded, dev, mode, radius=9):
+    leaf, votes = ONE_CHANNEL[mode]
+    args = _p_args(intr, occluded, dev, radius)[:-1] + (leaf,)
+    return args, dict(parity_split=False, with_votes=votes)
+
+
+@pytest.mark.parametrize("mode", sorted(ONE_CHANNEL))
+@pytest.mark.parametrize("intr,occluded", [(LIVE, False), (LIVE, True), (QUARTER, True)])
+def test_one_channel_cell_sums_kernel_matches_plain(cuda, mode, intr, occluded):
+    """Counts and floor-vote sums equal element for element (integers below
+    2^24); the coordinate sums within a few float32 ulps."""
+    args, kw = _p1_args(intr, occluded, cuda, mode, radius=9 if intr is LIVE else 3)
+    counter = f"cell_sums_{mode}"
+    before = _build.launch_counts[counter]
+    got = cell_sums(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[counter] == before + 1
+    ref = cell_sums_plain(*args, **kw)
+    assert len(got) == len(ref) == (7 if mode == "votes" else 4)
+    for g, r in zip(got[3:], ref[3:]):
+        assert torch.equal(g, r)
+    assert float(ref[3].sum()) > 0
+    for g, r in zip(got[:3], ref[:3]):
+        torch.testing.assert_close(g, r, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("mode", sorted(ONE_CHANNEL))
+def test_one_channel_clouds_from_kernel_and_plain_sums(cuda, mode):
+    """preprocess_kernel_count_delta 0 and the p95 bound of the JAX audit
+    (2e-6 m with votes; 1e-6 m for the cells-only cloud)."""
+    from trackdlo_tpu_torch.ops.preprocess import compact_sums
+
+    args, kw = _p1_args(LIVE, True, cuda, mode)
+    leaf = args[-1]
+    pcs = [compact_sums(s, PARAMS.max_points, leaf, PARAMS.candidate_cap(), False)
+           for s in (cell_sums(*args, **kw), cell_sums_plain(*args, **kw))]
+    assert int(pcs[0].count) == int(pcs[1].count) > 0
+    a = pcs[0].points[pcs[0].mask].cpu().numpy()
+    b = pcs[1].points[pcs[1].mask].cpu().numpy()
+    d = np.linalg.norm(a[:, None] - b[None], axis=2).min(1)
+    assert np.percentile(d, 95) <= (2e-6 if mode == "votes" else 1e-6)
+
+
+@pytest.mark.parametrize("mode", sorted(ONE_CHANNEL))
+def test_batched_one_channel_cell_sums_equal_single_launches(cuda, mode):
+    leaf, votes = ONE_CHANNEL[mode]
+    rgb, depth, occ = _batch_frames(cuda, 4)
+    cell = default_cell_px(PARAMS.downsample_leaf_size, LIVE.fx)
+    rest = (LIVE.fx, LIVE.fy, LIVE.cx, LIVE.cy, PARAMS.hsv_lower, PARAMS.hsv_upper,
+            PARAMS.multi_color_dlo, cell, leaf)
+    kw = dict(parity_split=False, with_votes=votes)
+    got = cell_sums(rgb, depth, occ, *rest, **kw)
+    for b in range(4):
+        for g, o in zip(got, cell_sums(rgb[b], depth[b], occ[b], *rest, **kw)):
+            assert torch.equal(g[b], o)
+
+
+def _f_inputs(dev, config, v_count=M, n_streams=1):
+    """One iteration's inputs of kernel F from the port's staging, on the live
+    cloud, the iterate a little away from the origin."""
+    from trackdlo_tpu_torch.ops.cpd_lle import _TWO_PI
+
+    extra = {"plain": {}, "lle": {"include_lle": True},
+             "priors_gate": {"use_priors": True, "alpha": PARAMS.alpha}}[config]
+    pc = _batch_cloud(dev, n_streams)
+    y = torch.stack([torch.from_numpy(SyntheticRope().nodes(0.01 * b, M).astype(np.float32))
+                     for b in range(n_streams)]).to(dev)
+    nm = (torch.arange(M, device=dev) < v_count).expand(n_streams, M)
+    y = torch.where(nm[..., None], y, 0.0)
+    kw = dict(visible_count=torch.full((n_streams,), min(30, v_count - 1), device=dev))
+    if config == "priors_gate":
+        kw.update(prior_pos=y + 0.004, prior_mask=(torch.arange(M, device=dev) < 12).expand(n_streams, M))
+    params = _em_params(**extra, use_fused_mstep=True)
+    st = em_staging(pc.points, pc.mask, y, nm, torch.full((n_streams,), 1e-3, device=dev), params, **kw)
+    dyn, y0, coord, nmf, g, hg, hy0, jg, pd, x, xm = st.args
+    s2 = dyn[:, 0]
+    c_base = (_TWO_PI * s2) ** 1.5 * params.mu / (1 - params.mu)
+    noise = torch.from_numpy(np.random.default_rng(3).normal(0, 1e-3, (n_streams, M, 3)).astype(np.float32))
+    yc = torch.where(nmf[..., None] > 0, y0 + noise.to(dev), 0.0)
+    args = (yc, y0, nmf > 0, coord, g, hg, hy0, jg, pd, x, xm > 0, s2, c_base * dyn[:, 1] / dyn[:, 2],
+            c_base / dyn[:, 2], dyn[:, 3] > 0, dyn[:, 1])
+    return args, {k: st.kwargs[k] for k in ("k_vis", "tau_vis", "lam", "coef_lle", "alpha")}
+
+
+@pytest.mark.parametrize("config,v_count", [("plain", M), ("lle", M), ("priors_gate", M),
+                                            ("priors_gate", 30), ("lle", 3)])
+def test_em_iteration_kernel_matches_plain(cuda, config, v_count):
+    """One iteration: t within 1e-6 m, inactive rows exactly y0, sigma2 and
+    the mean move close (em3_fusedmstep_* of chip_smoke.py)."""
+    from trackdlo_tpu_torch.ops.hopper_kernels import fused_em_iteration, fused_em_iteration_plain
+
+    args, kw = _f_inputs(cuda, config, v_count)
+    if config == "priors_gate":
+        assert bool(args[14].all())
+    before = _build.launch_counts["em_iteration"]
+    got = fused_em_iteration(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["em_iteration"] == before + 1
+    ref = fused_em_iteration_plain(*args, **kw)
+    nm = args[2]
+    assert float((got[0] - ref[0]).abs()[nm].max()) <= 1e-6
+    assert torch.equal(got[0][~nm], args[1][~nm])
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=2e-7)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=1e-9)
+
+
+def test_em_iteration_stream_grid_equals_single_launches(cuda):
+    """Four different streams in one launch, one block each: bit-equal to
+    four single-stream launches."""
+    from trackdlo_tpu_torch.ops.hopper_kernels import fused_em_iteration
+
+    args, kw = _f_inputs(cuda, "priors_gate", n_streams=4)
+    got = fused_em_iteration(*args, **kw)
+    for b in range(4):
+        one = fused_em_iteration(*(a[b] for a in args), **kw)
+        for g, o in zip(got, one):
+            assert torch.equal(g[b], o)
+
+
+def test_fused_route_launches_equal_iterations(cuda):
+    """cpd_lle(use_fused_mstep=True) at the live tolerance: one launch of F
+    per iteration; 4 copies through cpd_lle_batched bit-equal to the first
+    stream of their staging through F (a lone stream's staging may differ in
+    the last bit of its geodesic coordinates: torch scans one row with
+    another algorithm than a batch of rows)."""
+    from trackdlo_tpu_torch.ops.cpd_lle import (
+        EmStaging, cpd_lle, cpd_lle_batched, em_loop_lockstep, fused_iteration,
+    )
+
+    pc = _cloud(cuda)
+    nodes = torch.from_numpy(SyntheticRope().nodes(0.0, M).astype(np.float32)).to(cuda)
+    nm = torch.ones(M, dtype=torch.bool, device=cuda)
+    params = _em_params(max_iter=PARAMS.max_iter, tol=PARAMS.tol, use_fused_mstep=True)
+    s2, vc = torch.tensor(0.001, device=cuda), torch.tensor(30, device=cuda)
+    before = _build.launch_counts["em_iteration"]
+    single = cpd_lle(pc.points, pc.mask, nodes, nm, s2, params, visible_count=vc)
+    assert _build.launch_counts["em_iteration"] - before == int(single.iterations) > 0
+    rep = lambda t: t.unsqueeze(0).expand(4, *t.shape).contiguous()
+    batched = cpd_lle_batched(rep(pc.points), rep(pc.mask), rep(nodes), rep(nm), rep(s2), params,
+                              visible_count=rep(vc))
+    st4 = em_staging(rep(pc.points), rep(pc.mask), rep(nodes), rep(nm), rep(s2), params,
+                     visible_count=rep(vc))
+    st1 = EmStaging(tuple(a[:1] for a in st4.args), st4.kwargs, st4.n_count[:1], st4.sigma2[:1])
+    y1, _, it1, _ = em_loop_lockstep(st1, params, lambda y, s: fused_iteration(st1, y, s, params))
+    assert torch.equal(batched.y, y1.expand(4, M, 3))
+    assert torch.equal(batched.iterations, it1.expand(4))
+    assert float((batched.y - single.y).abs().max()) <= 2e-6  # em10_batched_vs_single_max_m

@@ -164,13 +164,24 @@ def test_to_convergence_matches_jax():
 
 
 @pytest.mark.parametrize("change", [{"use_geodesic_redistance": False}, {"use_fused_mstep": True},
-                                    {"kernel": "gaussian_geodesic"}])
+                                    {"kernel": "gaussian_geodesic"}, {"axis_name": "model"}])
 def test_unported_options_raise(change):
+    """Of the options that once raised, only point-axis sharding
+    (``axis_name``) still does; the others now run and match the JAX
+    package's same route (tests/test_torch_fused_mstep.py holds them to it)."""
     y, x, xm = _inputs(8)
     t = torch.from_numpy
-    with pytest.raises(NotImplementedError):
-        tc.cpd_lle(t(x), t(xm), t(y), torch.ones(M, dtype=torch.bool), torch.tensor(1e-3),
-                   tc.CpdParams(**_base(), **change))
+    change = dict(change)
+    axis_name = change.pop("axis_name", None)
+    call = lambda: tc.cpd_lle(t(x), t(xm), t(y), torch.ones(M, dtype=torch.bool), torch.tensor(1e-3),
+                              tc.CpdParams(**_base(), **change), axis_name=axis_name)
+    if axis_name is not None:
+        with pytest.raises(NotImplementedError):
+            call()
+        return
+    got, refs = _run_both(x, xm, y, np.ones(M, bool), 1e-3, _base(**change))
+    _assert_match(got, refs[:1], np.ones(M, bool))
+    assert torch.equal(call().y, got.y)
 
 
 def test_cpd_params_have_no_kernel_switch():

@@ -67,6 +67,7 @@ SIGNATURES = {
         _P, _I,  # hsv bands, n_bands
         _F, _F, _F, _F,  # fx fy cx cy
         _F, _F, _F, _F, _I,  # kx ky k_zq kz z_from_mm
+        _I,  # mode: 0 parity, 1 one channel, 2 one channel with the floor votes
         _P,  # out
         _P,
     ],
@@ -88,6 +89,13 @@ SIGNATURES = {
         _P,  # w
         _P,
     ],
+    "trackdlo_em_iter": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # scal, y, y0, coord, nm, g..pd, x, x_mask
+        _I, _I, _I,  # n_streams, m, n
+        _F, _F, _F, _F, _F,  # k_vis, tau_vis, lam, coef_lle, alpha
+        _P, _P,  # t, stats
+        _P,
+    ],
 }
 
 _lock = threading.Lock()
@@ -98,6 +106,7 @@ build_seconds: float | None = None
 launch_counts = {
     "cell_sums": 0, "compact": 0, "visibility": 0, "walks": 0, "em_loop": 0,
     "estep": 0, "estep_batch": 0, "gj_solve": 0,
+    "cell_sums_votes": 0, "cell_sums_cells": 0, "em_iteration": 0,
 }
 
 

@@ -20,11 +20,7 @@ from trackdlo_tpu_torch.config import CameraIntrinsics, TrackerParams
 from trackdlo_tpu_torch.device import resolve_device, set_full_fp32
 from trackdlo_tpu_torch.ops.cpd_lle import CpdParams, cpd_lle, cpd_lle_batched
 from trackdlo_tpu_torch.ops.kernels import geodesic_coords
-from trackdlo_tpu_torch.ops.preprocess import (
-    PointCloud,
-    compact_parity_channels,
-    default_cell_px,
-)
+from trackdlo_tpu_torch.ops.preprocess import PointCloud, compact_sums, default_cell_px
 from trackdlo_tpu_torch.ops.preprocess_kernel import cell_sums
 from trackdlo_tpu_torch.ops.priors import correspondence_priors
 from trackdlo_tpu_torch.ops.visibility_kernel import fused_visibility
@@ -83,20 +79,26 @@ def host_to_device(a, device: torch.device) -> torch.Tensor:
 
 def preprocess_for_step(rgb, depth, occlusion_mask, *, params: TrackerParams,
                         intr: CameraIntrinsics, cell_px: int) -> PointCloud:
-    """Parity-split preprocessing: kernel P's raw cell sums, then kernel C's
-    compaction, divide-after-pack and the channel-batched voxel snap. Frames
-    with a leading stream axis give a batched cloud."""
-    if not (params.parity_split and params.exact_voxels):
-        raise NotImplementedError("only the parity-split voxel preprocessing is ported")
-    voxel_leaf = params.downsample_leaf_size
-    sx, sy, sz, cnt = cell_sums(
+    """Kernel P's raw cell sums, then the compaction, in the JAX package's
+    three branches:
+
+    - parity split (the default profile): kernel C's channel compaction,
+      divide-after-pack and the channel-batched voxel snap;
+    - coarse two-stage (``parity_split=False``): one channel with the floor
+      votes, the sort compaction and the vote-keyed snap;
+    - cells only (``exact_voxels=False``): one channel, the sort compaction
+      with even-stride thinning, no snap.
+
+    Frames with a leading stream axis give a batched cloud: kernel P runs
+    once for the B frames, and every later step is row-local."""
+    voxel_leaf = params.downsample_leaf_size if params.exact_voxels else None
+    parity = params.parity_split and voxel_leaf is not None
+    sums = cell_sums(
         rgb, depth, occlusion_mask, intr.fx, intr.fy, intr.cx, intr.cy,
         params.hsv_lower, params.hsv_upper, params.multi_color_dlo, cell_px, voxel_leaf,
+        parity_split=parity, with_votes=not parity and voxel_leaf is not None,
     )
-    return compact_parity_channels(
-        sx, sy, sz, cnt, params.max_points, voxel_leaf, params.candidate_cap(),
-        inputs_are_sums=True,
-    )
+    return compact_sums(sums, params.max_points, voxel_leaf, params.candidate_cap(), parity)
 
 
 def _track_from_points(state: TrackerState, pc: PointCloud, proj: torch.Tensor, *,

@@ -1,9 +1,9 @@
 """The CPD/MCT EM registration pass.
 
 Counterpart of trackdlo_tpu/ops/cpd_lle.py: prune by the visibility pass's
-per-point minima, build the MCT kernel G (and the LLE HG/HY0, the prior rows
-JG and the prior displacement), set the visibility gate, then iterate. Three
-routes, as in the JAX package:
+per-point minima, build the kernel G (MCT, or the prototype's Gaussian) and
+the LLE HG/HY0, the prior rows JG and the prior displacement, set the
+visibility gate, then iterate. The routes, as in the JAX package:
 
 - one stream, solver ``"lu"``: the whole tolerance loop in one call of
   kernel E (:func:`trackdlo_tpu_torch.ops.hopper_kernels.fused_em_loop`);
@@ -14,12 +14,17 @@ routes, as in the JAX package:
   ``jax.vmap(cpd_lle)``): the per-iteration loop over a leading stream axis,
   each iteration one launch of the batched E-step (B7) and one of the
   batched Gauss-Jordan solve (B8), in lockstep as ``lax.while_loop`` runs
-  under ``vmap``. A batch of one takes kernel E.
+  under ``vmap``. A batch of one takes kernel E;
+- ``use_fused_mstep``: the per-iteration loop, each iteration one launch of
+  kernel F (B10) for all streams (the solver is not used);
+- the prototype E-step variants (``kernel`` ``"gaussian_geodesic"`` or
+  ``"gaussian_euclidean"``, ``use_geodesic_redistance=False``): the
+  per-iteration loop with the JAX package's XLA iteration in torch and the
+  chosen solver, which no kernel of the JAX package computes.
 
 Data-dependent scalars (v_count, n_count, σ², the gate) stay on the device.
 The lockstep loop reads one flag per iteration to learn whether any stream
-is still active. ``axis_name``, ``use_fused_mstep`` and the prototype E-step
-variants raise ``NotImplementedError``.
+is still active. ``axis_name`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,12 +35,14 @@ from typing import Callable, NamedTuple
 import torch
 
 from trackdlo_tpu_torch.ops.hopper_kernels import (
+    fused_em_iteration,
     fused_em_loop,
     fused_estep_packed,
     fused_estep_packed_batch,
     gauss_jordan_solve_batched,
 )
 from trackdlo_tpu_torch.ops.kernels import (
+    gaussian_kernel,
     lle_regularizer,
     masked_geodesic_coords,
     mct_kernel,
@@ -78,15 +85,21 @@ class CpdResult(NamedTuple):
     iterations: torch.Tensor
 
 
+_KERNELS = ("mct_geodesic", "gaussian_geodesic", "gaussian_euclidean")
+
+
 def _check_ported(params: CpdParams, axis_name) -> None:
     if params.solver not in _SOLVE:
         raise ValueError(f"unknown solver {params.solver!r}")
-    if params.use_fused_mstep:
-        raise NotImplementedError("use_fused_mstep is not ported yet")
-    if params.kernel != "mct_geodesic" or not params.use_geodesic_redistance:
-        raise NotImplementedError("only the MCT-geodesic E-step is ported")
+    if params.kernel not in _KERNELS:
+        raise ValueError(f"unknown kernel {params.kernel!r}")
     if axis_name is not None:
         raise NotImplementedError("point-axis sharding is not ported yet")
+
+
+def _is_prototype(params: CpdParams) -> bool:
+    """The prototype E-step variants, which take the XLA iteration."""
+    return params.kernel != "mct_geodesic" or not params.use_geodesic_redistance
 
 
 class EmStaging(NamedTuple):
@@ -122,7 +135,13 @@ def em_staging(x, x_mask, y, node_mask, sigma2, params: CpdParams, prior_pos=Non
     node_coord = masked_geodesic_coords(y0, node_mask)
     node_dis = torch.abs(node_coord[..., :, None] - node_coord[..., None, :])
     pair_mask = node_mask[..., :, None] & node_mask[..., None, :]
-    g = torch.where(pair_mask, mct_kernel(node_dis, params.beta), zero)
+    if params.kernel == "mct_geodesic":
+        g_raw = mct_kernel(node_dis, params.beta)
+    elif params.kernel == "gaussian_geodesic":
+        g_raw = gaussian_kernel(node_dis, params.beta)
+    else:
+        g_raw = gaussian_kernel(torch.sqrt(pairwise_sq_dists(y0, y0)), params.beta)
+    g = torch.where(pair_mask, g_raw, zero)
 
     zeros_mm = torch.zeros_like(g)
     zeros_m3 = torch.zeros_like(y0)
@@ -230,13 +249,100 @@ def em_iteration(st: EmStaging, y, s2, params: CpdParams, estep: Callable, solve
     return t, s2_new, delta
 
 
-def em_loop_lockstep(st: EmStaging, params: CpdParams, estep: Callable, solve: Callable):
+def fused_iteration(st: EmStaging, y, s2, params: CpdParams, kernel: Callable = fused_em_iteration):
+    """One EM iteration of every stream in one launch of kernel F (the
+    JAX package's ``em_iteration_pallas``); same results as
+    :func:`em_iteration`. ``kernel`` may be F's plain version."""
+    dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm = st.args
+    v_count, n_safe, gate = dyn[:, 1], dyn[:, 2], dyn[:, 3]
+    c_base = (_TWO_PI * s2) ** 1.5 * params.mu / (1 - params.mu)
+    kw = st.kwargs
+    return kernel(
+        y.contiguous(), y0, nm, coord, g, hg, hy0, jg, pd, x, xm, s2, c_base * v_count / n_safe,
+        c_base / n_safe, gate, v_count, k_vis=kw["k_vis"], tau_vis=kw["tau_vis"], lam=kw["lam"],
+        coef_lle=kw["coef_lle"], alpha=kw["alpha"],
+    )
+
+
+def _geodesic_redistance(p, sq_d, coord, node, v_count):
+    """The XLA iteration's geodesic re-distance over (B, m, n): anchors at
+    the first argmax membership and its nearer chain neighbour (boundary
+    fallbacks to rows 2 and v_count − 3; a negative row wraps to the end, as
+    ``take_along_axis`` does), then the distances along the chain, zero
+    strictly between non-adjacent anchors."""
+    m = p.shape[1]
+    mp = torch.where(node[:, :, None], p, -torch.inf).argmax(dim=1)  # (B, n)
+    vc = v_count.to(torch.int64)[:, None]
+    take = lambda vals, idx: vals.gather(1, torch.where(idx < 0, idx + m, idx).clamp(0, m - 1)[:, None])[:, 0]
+    cand1 = torch.where(mp - 1 == -1, 2, mp - 1)
+    cand2 = torch.where(mp + 1 == vc, vc - 3, mp + 1)
+    nxt = torch.where(take(sq_d, cand1) < take(sq_d, cand2), cand1, cand2)
+    lo = torch.minimum(mp, nxt)
+    hi = torch.maximum(mp, nxt)
+    d_lo = torch.sqrt(take(sq_d, lo))
+    d_hi = torch.sqrt(take(sq_d, hi))
+    coord_b = coord[:, :, None].expand_as(sq_d)
+    c_lo, c_hi = take(coord_b, lo), take(coord_b, hi)
+    j = torch.arange(m, device=p.device)[None, :, None]
+    below = torch.abs(coord[:, :, None] - c_lo[:, None, :]) + d_lo[:, None, :]
+    above = torch.abs(coord[:, :, None] - c_hi[:, None, :]) + d_hi[:, None, :]
+    lo_b, hi_b = lo[:, None, :], hi[:, None, :]
+    return torch.where(
+        j < lo_b, below * below,
+        torch.where(j >= hi_b, above * above,
+                    torch.where(j == lo_b, (d_lo * d_lo)[:, None, :], 0.0)),
+    )
+
+
+def em_iteration_xla(st: EmStaging, y, s2, params: CpdParams, solve: Callable):
+    """One EM iteration of every stream as the JAX package's XLA iteration
+    computes it, in plain tensor ops on any device: the route of the
+    prototype E-step variants (the MCT or Gaussian G is in the staging; with
+    ``use_geodesic_redistance=False`` one normalisation and no visibility
+    prior). Returns (t, sigma2, delta) as :func:`em_iteration`."""
+    dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm = st.args
+    v_count, n_safe, gate = dyn[:, 1], dyn[:, 2], dyn[:, 3] > 0
+    node, pts = nm > 0, xm > 0
+    pair = node[:, :, None] & pts[:, None, :]
+    s2c = s2[:, None, None]
+    sq_d = pairwise_sq_dists(y, x)
+    shortest = torch.sqrt(torch.where(pts[:, None, :], sq_d, _BIG).amin(dim=2))
+    shortest = torch.where(shortest <= params.visibility_threshold, 0.0, shortest)
+    p = torch.where(pair, torch.exp(-0.5 * sq_d / s2c), 0.0)
+    c_base = (_TWO_PI * s2) ** 1.5 * params.mu / (1 - params.mu)
+    c = c_base * v_count / n_safe
+    p = p / (p.sum(dim=1, keepdim=True) + c[:, None, None])
+    if params.use_geodesic_redistance:
+        sq_geo = _geodesic_redistance(p, sq_d, coord, node, v_count)
+        p = torch.where(pair, torch.exp(-0.5 * sq_geo / s2c), 0.0)
+        p_vis = torch.where(node, torch.exp(-params.k_vis * shortest), 0.0)
+        p_vis = p_vis / torch.clamp_min(p_vis.sum(dim=1, keepdim=True), 1e-30)
+        p = torch.where(gate[:, None, None], p * p_vis[:, :, None], p)
+        c_eff = torch.where(gate, c_base / n_safe, c)
+        p = p / (p.sum(dim=1, keepdim=True) + c_eff[:, None, None])
+        p = torch.where(pair, p, 0.0)
+    pt1 = p.sum(dim=1)
+    p1 = p.sum(dim=2)
+    px = p @ x
+    a, b = mstep_system(st, p1, px, s2, params)
+    t = y0 + g @ solve(a, b)
+    tr_x = (pt1[:, :, None] * x * x).sum(dim=(1, 2))
+    tr_pxtt = (px * t).sum(dim=(1, 2))
+    tr_tt = (p1[:, :, None] * t * t).sum(dim=(1, 2))
+    s2_new = torch.clamp_min((tr_x - 2 * tr_pxtt + tr_tt) / (p1.sum(dim=1) * 3), 1e-10)
+    move = torch.where(node, torch.linalg.norm(y - t, dim=2), 0.0).sum(dim=1)
+    return t, s2_new, move / torch.clamp_min(v_count, 1.0)
+
+
+def em_loop_lockstep(st: EmStaging, params: CpdParams, iteration: Callable):
     """The tolerance loop of B streams in lockstep, as ``lax.while_loop``
     runs under ``vmap``: it goes on while any stream is active (not yet
     converged and below max_iter); a stream that is not active is frozen by
     select, so its y, σ², iteration count and ``converged`` stay as they
-    were. One flag per iteration crosses to the host. Returns (y, sigma2,
-    iterations int32, converged), each with the leading stream axis."""
+    were. ``iteration(y, sigma2)`` computes one iteration of every stream,
+    returning (t, sigma2, delta). One flag per iteration crosses to the
+    host. Returns (y, sigma2, iterations int32, converged), each with the
+    leading stream axis."""
     y = st.args[1]
     s2 = st.args[0][:, 0]
     bsz = y.shape[0]
@@ -248,7 +354,7 @@ def em_loop_lockstep(st: EmStaging, params: CpdParams, estep: Callable, solve: C
         active = ~done & (it < params.max_iter)
         if not bool(active.any()):
             break
-        t, s2_new, delta = em_iteration(st, y, s2, params, estep, solve)
+        t, s2_new, delta = iteration(y, s2)
         new_done = delta < params.tol
         y = torch.where(active[:, None, None], t, y)
         s2 = torch.where(active, s2_new, s2)
@@ -298,19 +404,32 @@ def _estep_one_stream(scal, y, coord, nm, pv, x, xm, *, two_phase):
     return tuple(o[None] for o in out)
 
 
+def iteration_route(st: EmStaging, params: CpdParams, estep: Callable) -> Callable:
+    """The per-iteration route's iteration ``(y, sigma2) -> (t, sigma2,
+    delta)`` for the streams of ``st``: the prototype variants' XLA
+    iteration, kernel F (``use_fused_mstep``), or the E-step ``estep`` with
+    the M-step assembly and the chosen solve."""
+    if _is_prototype(params):
+        return lambda y, s2: em_iteration_xla(st, y, s2, params, _SOLVE[params.solver])
+    if params.use_fused_mstep:
+        return lambda y, s2: fused_iteration(st, y, s2, params)
+    return lambda y, s2: em_iteration(st, y, s2, params, estep, _SOLVE[params.solver])
+
+
 def _per_iteration_single(st: EmStaging, params: CpdParams, return_deltas: bool):
     """The single-stream per-iteration route (solvers other than ``"lu"``,
-    ``return_deltas``): the lockstep loop over a batch of one, or with
-    ``return_deltas`` all max_iter iterations unconditionally."""
+    ``return_deltas``, ``use_fused_mstep``, the prototype variants): the
+    lockstep loop over a batch of one, or with ``return_deltas`` all
+    max_iter iterations unconditionally."""
     st1 = EmStaging(tuple(a[None] for a in st.args), st.kwargs, st.n_count, st.sigma2)
-    solve = _SOLVE[params.solver]
+    iteration = iteration_route(st1, params, _estep_one_stream)
     if not return_deltas:
-        y, s2, it, converged = em_loop_lockstep(st1, params, _estep_one_stream, solve)
+        y, s2, it, converged = em_loop_lockstep(st1, params, iteration)
         return y[0], s2[0], it[0], converged[0], None
     y, s2 = st1.args[1], st1.args[0][:, 0]
     deltas = []
     for _ in range(params.max_iter):
-        y, s2, delta = em_iteration(st1, y, s2, params, _estep_one_stream, solve)
+        y, s2, delta = iteration(y, s2)
         deltas.append(delta[0])
     dev = y.device
     deltas = torch.stack(deltas) if deltas else torch.zeros(0, dtype=y.dtype, device=dev)
@@ -342,7 +461,8 @@ def cpd_lle(
     st = em_staging(x, x_mask, y, node_mask, sigma2, params, prior_pos, prior_mask,
                     visible_count, point_min_sq)
     deltas = None
-    if params.solver == "lu" and not return_deltas:
+    if (params.solver == "lu" and not return_deltas and not params.use_fused_mstep
+            and not _is_prototype(params)):
         y_out, stats = fused_em_loop(*st.args, **st.kwargs)
         s2_out, iters, converged = stats[0], stats[1].to(torch.int32), stats[2] > 0
     else:
@@ -374,8 +494,9 @@ def cpd_lle_batched(
     leading stream axis (the counterpart of ``jax.vmap(cpd_lle)``). B ≥ 2
     runs the lockstep per-iteration loop (batched E-step, batched
     Gauss-Jordan solve; solver ``"lu"``, or the named solver for the
-    diagnostic ones); B = 1 takes kernel E, as the JAX package's axis-size-1
-    rule does."""
+    diagnostic ones; kernel F for all streams with ``use_fused_mstep``; the
+    XLA iteration for the prototype variants); B = 1 is :func:`cpd_lle`
+    (kernel E on its route), as the JAX package's axis-size-1 rule is."""
     _check_ported(params, None)
     bsz = y.shape[0]
     if bsz == 1:
@@ -387,7 +508,7 @@ def cpd_lle_batched(
     st = em_staging(x, x_mask, y, node_mask, sigma2, params, prior_pos, prior_mask,
                     visible_count, point_min_sq)
     y_out, s2_out, iters, converged = em_loop_lockstep(
-        st, params, fused_estep_packed_batch, _SOLVE[params.solver]
+        st, params, iteration_route(st, params, fused_estep_packed_batch)
     )
     any_points = st.n_count > 0
     return CpdResult(

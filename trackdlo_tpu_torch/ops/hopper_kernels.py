@@ -299,6 +299,14 @@ def fused_estep_packed_batch_plain(scal, y, coord, nm, pv, x, xm, *, two_phase: 
     :func:`fused_estep_packed_batch`. Rows are padded to a multiple of 8
     with zero rows, as the TPU kernel's are: the anchor row select reads
     them (and gives 0 outside them)."""
+    return _estep_batch_plain(scal, y, coord, nm, pv, x, xm, two_phase,
+                              lambda sq, s2: sq * (-0.5 / s2))
+
+
+def _estep_batch_plain(scal, y, coord, nm, pv, x, xm, two_phase, exponent):
+    """The batched E-step; ``exponent(sq, s2)`` is the argument of each
+    membership's exponential, in the operation order of the TPU kernel being
+    replaced."""
     bsz, m, _ = y.shape
     dt, dev = y.dtype, y.device
     m_pad = (m + 7) // 8 * 8
@@ -325,8 +333,7 @@ def fused_estep_packed_batch_plain(scal, y, coord, nm, pv, x, xm, *, two_phase: 
         pv = torch.where(nm > 0, torch.exp(-k_vis[:, :, 0] * shortest), zero)
         pv = pv / torch.clamp_min(pv.sum(dim=1, keepdim=True), 1e-30)
 
-    neg_half_inv_s2 = -0.5 / s2
-    p = torch.where(pair, torch.exp(sq * neg_half_inv_s2), zero)
+    p = torch.where(pair, torch.exp(exponent(sq, s2)), zero)
     p = p / (p.sum(dim=1, keepdim=True) + c_plain)
     rows = torch.arange(m_pad, device=dev)[None, :, None]
     masked = torch.where(pair, p, -1.0)
@@ -357,7 +364,7 @@ def fused_estep_packed_batch_plain(scal, y, coord, nm, pv, x, xm, *, two_phase: 
         torch.where(rows >= hi_b, above * above,
                     torch.where(rows == lo_b, (d_lo * d_lo)[:, None, :], zero)),
     )
-    p = torch.where(pair, torch.exp(geo * neg_half_inv_s2), zero)
+    p = torch.where(pair, torch.exp(exponent(geo, s2)), zero)
     p = p * (1.0 + gate * (pv[:, :, None] - 1.0))
     c_eff = c_plain + gate * (c_vis - c_plain)
     p = p / (p.sum(dim=1, keepdim=True) + c_eff)
@@ -466,3 +473,133 @@ def gauss_jordan_solve_batched(a, b):
     _build.check(code, "trackdlo_gj_solve")
     _build.count_launch("gj_solve")
     return w
+
+
+# ---------------------------------------------------------------------------
+# Kernel F: one whole EM iteration of B streams with its one-hot M-step solve.
+# ---------------------------------------------------------------------------
+
+
+def onehot_gauss_jordan_plain(a, b):
+    """Kernel F's solve in plain tensor ops: the TPU's one-hot Gauss-Jordan
+    elimination of (B, m, m) ``a`` with (B, m, 3) ``b``. No equilibration;
+    at step k the pivot is the first maximum of |a[:, k]| over the rows not
+    yet used (used rows bid -1), every other row is eliminated without row
+    swaps, and w[k] = b[perm k] / pivot_k with |pivot| < 1e-30 read as 1."""
+    bsz, m, _ = a.shape
+    aug = torch.cat([a, b], dim=-1)
+    rows = torch.arange(m, device=a.device)
+    used = torch.zeros((bsz, m), dtype=torch.bool, device=a.device)
+    perm = torch.zeros((bsz, m), dtype=torch.int64, device=a.device)
+    diag = torch.zeros((bsz, m), dtype=a.dtype, device=a.device)
+    for k in range(m):
+        col = aug[:, :, k]
+        r = torch.where(used, -1.0, col.abs()).argmax(dim=1)  # the first maximum
+        pv = col.gather(1, r[:, None])
+        onehot = rows[None, :] == r[:, None]
+        factor = torch.where(onehot, 0.0, col / torch.where(pv == 0, 1.0, pv))
+        pivot_row = aug.gather(1, r[:, None, None].expand(bsz, 1, m + 3))
+        aug = aug - factor[:, :, None] * pivot_row
+        used = used | onehot
+        perm[:, k] = r
+        diag[:, k] = pv[:, 0]
+    diag = torch.where(diag.abs() < 1e-30, 1.0, diag)
+    return aug[..., m:].gather(1, perm[:, :, None].expand(bsz, m, 3)) / diag[:, :, None]
+
+
+def fused_em_iteration_plain(y, y0, node_mask, node_coord, g, hg, hy0, jg, prior_disp, x,
+                             x_mask, sigma2, c_plain, c_vis, vis_gate, v_count, *, k_vis: float,
+                             tau_vis: float, lam: float, coef_lle: float, alpha: float):
+    """Kernel F's plain version: the same iteration in tensor ops, every
+    argument with the leading stream axis of :func:`fused_em_iteration`."""
+    bsz, m, _ = y.shape
+    nm = node_mask.to(_F32)
+    node = nm > 0
+    scal = torch.stack([sigma2, c_plain, c_vis, vis_gate.to(_F32), v_count.to(_F32),
+                        torch.full_like(sigma2, k_vis), torch.full_like(sigma2, tau_vis),
+                        torch.ones_like(sigma2)], dim=1)
+    p1, px, stats, _ = _estep_batch_plain(
+        scal, y, node_coord, nm, torch.ones_like(nm), x, x_mask.to(_F32), True,
+        lambda sq, s2: (-0.5 * sq) / s2,
+    )
+    s2c = sigma2[:, None, None]
+    eye = torch.eye(m, dtype=_F32, device=y.device)
+    a = p1[:, :, None] * g + (lam * s2c) * eye
+    a = a + (s2c * coef_lle) * hg + alpha * jg
+    b = px - p1[:, :, None] * y0
+    b = b - (s2c * coef_lle) * hy0 + alpha * prior_disp
+    a = torch.where(node[:, :, None] & node[:, None, :], a, eye)
+    b = b * nm[:, :, None]
+    w = onehot_gauss_jordan_plain(a, b)
+    t = torch.where(node[:, :, None], y0 + g @ w, y0)
+    tr_pxt = (px * t).sum(dim=(1, 2))
+    tr_tt = (p1[:, :, None] * t * t).sum(dim=(1, 2))
+    s2_new = (stats[:, 1] - 2.0 * tr_pxt + tr_tt) / torch.clamp_min(stats[:, 0] * 3.0, 1e-30)
+    dm = t - y
+    move = (torch.sqrt(dm[..., 0] * dm[..., 0] + dm[..., 1] * dm[..., 1] + dm[..., 2] * dm[..., 2])
+            * nm).sum(dim=1)
+    return t, torch.clamp_min(s2_new, 1e-10), move / torch.clamp_min(v_count.to(_F32), 1.0)
+
+
+def fused_em_iteration(y, y0, node_mask, node_coord, g, hg, hy0, jg, prior_disp, x, x_mask,
+                       sigma2, c_plain, c_vis, vis_gate, v_count, *, k_vis: float = 0.0,
+                       tau_vis: float = 0.0, lam: float = 1.0, coef_lle: float = 0.0,
+                       alpha: float = 0.0):
+    """One whole EM iteration in one launch (kernel F): the per-node minimum
+    sweep, the two-phase E-step with the visibility prior and gate, the
+    M-step system A = diag(P1)G + λσ²I + σ²·lle·HG + α·JG and its one-hot
+    Gauss-Jordan solve, T = Y0 + G·W, the σ² update and the mean node move.
+
+    The arguments of the JAX package's ``fused_em_iteration``: ``y``/``y0``
+    (m, 3), ``node_mask``/``node_coord`` (m,), ``g``/``hg``/``jg`` (m, m),
+    ``hy0``/``prior_disp`` (m, 3) (zeros where unused), ``x`` (n, 3),
+    ``x_mask`` (n,), the scalars ``sigma2``, ``c_plain``, ``c_vis``,
+    ``vis_gate`` and ``v_count``. With a leading stream axis on every one
+    (scalars (B,)) the B streams take one launch, one block each. Returns
+    (t (…, m, 3), sigma2_new (…), delta (…))."""
+    single = y.ndim == 2
+    if single:
+        y, y0, node_mask, node_coord, g, hg, hy0, jg, prior_disp, x, x_mask = (
+            a.unsqueeze(0) for a in (y, y0, node_mask, node_coord, g, hg, hy0, jg, prior_disp,
+                                     x, x_mask))
+    bsz = y.shape[0]
+    dev = y.device
+    sigma2, c_plain, c_vis, vis_gate, v_count = (
+        torch.as_tensor(v, device=dev).to(_F32).reshape(bsz)
+        for v in (sigma2, c_plain, c_vis, vis_gate, v_count))
+    kw = dict(k_vis=float(k_vis), tau_vis=float(tau_vis), lam=float(lam),
+              coef_lle=float(coef_lle), alpha=float(alpha))
+    if dev.type == "cpu":
+        out = fused_em_iteration_plain(y, y0, node_mask, node_coord, g, hg, hy0, jg, prior_disp,
+                                       x, x_mask, sigma2, c_plain, c_vis, vis_gate, v_count, **kw)
+    else:
+        out = _em_iteration_launch(y, y0, node_mask, node_coord, g, hg, hy0, jg, prior_disp, x,
+                                   x_mask, torch.stack([sigma2, c_plain, c_vis, vis_gate, v_count],
+                                                       dim=1), kw)
+    return tuple(o[0] for o in out) if single else out
+
+
+def _em_iteration_launch(y, y0, node_mask, node_coord, g, hg, hy0, jg, prior_disp, x, x_mask,
+                         scal, kw):
+    args = dict(scal=scal, y=y, y0=y0, coord=node_coord, nm=node_mask.to(_F32), g=g, hg=hg,
+                hy0=hy0, jg=jg, pd=prior_disp, x=x, xm=x_mask.to(_F32))
+    args = {k: v.contiguous() for k, v in args.items()}
+    dev = _build.require_cuda("fused_em_iteration", args)
+    bsz, m, _ = y.shape
+    n = x.shape[1]
+    if not 1 <= m <= 48:
+        raise ValueError(f"fused_em_iteration: m={m} outside [1, 48]")
+    shapes = dict(y0=(bsz, m, 3), coord=(bsz, m), nm=(bsz, m), g=(bsz, m, m), hg=(bsz, m, m),
+                  hy0=(bsz, m, 3), jg=(bsz, m, m), pd=(bsz, m, 3), x=(bsz, n, 3), xm=(bsz, n))
+    for k, want in shapes.items():
+        if tuple(args[k].shape) != want:
+            raise ValueError(f"fused_em_iteration: {k} must be {want}, got {tuple(args[k].shape)}")
+    t = torch.empty((bsz, m, 3), dtype=_F32, device=dev)
+    stats = torch.empty((bsz, 2), dtype=_F32, device=dev)
+    code = _build.lib().trackdlo_em_iter(
+        *(v.data_ptr() for v in args.values()), bsz, m, n, kw["k_vis"], kw["tau_vis"], kw["lam"],
+        kw["coef_lle"], kw["alpha"], t.data_ptr(), stats.data_ptr(), _build.stream_ptr(dev),
+    )
+    _build.check(code, "trackdlo_em_iter")
+    _build.count_launch("em_iteration")
+    return t, stats[:, 0], stats[:, 1]

@@ -47,6 +47,11 @@ def mct_kernel(node_dis: torch.Tensor, beta: float) -> torch.Tensor:
     )
 
 
+def gaussian_kernel(node_dis: torch.Tensor, beta: float) -> torch.Tensor:
+    """The prototype's Gaussian kernel G = exp(−d²/(2β²))."""
+    return torch.exp(-(node_dis * node_dis) / (2 * beta * beta))
+
+
 def chain_lle_weights(y: torch.Tensor, node_mask: torch.Tensor, k: int = 6) -> torch.Tensor:
     """LLE reconstruction weights over the chain, batched over nodes.
 

@@ -1,9 +1,15 @@
-"""Per-frame preprocessing: mask → deproject → parity cell pooling →
-compaction → voxel snap.
+"""Per-frame preprocessing: mask → deproject → cell pooling → compaction →
+voxel snap.
 
-Counterpart of trackdlo_tpu/ops/preprocess.py for the shipped parity-split
-path. :func:`cell_sums_plain` is the plain version of kernel P (the pooling
-of ``preprocess_frame``). After it:
+Counterpart of trackdlo_tpu/ops/preprocess.py. :func:`cell_sums_plain` is
+the plain version of kernel P (the pooling of ``preprocess_frame``) in its
+three modes: the parity split (the shipped profile), one channel with the
+voxel floor votes (the coarse two-stage path, ``parity_split=False``) and
+one channel with no leaf (``exact_voxels=False``). The single-channel modes
+end in :func:`compact_cells`: a stable ``torch.sort`` of the occupied cells
+then gathers (the JAX package's ``lax.sort``), the vote keys of
+:func:`pack_vote_keys` riding along, and :func:`voxel_snap`. After the
+parity pooling:
 
 - even-stride overflow thinning picks the kept cells (:func:`kept_cells`);
 - :func:`compact_channels` packs them with kernel C (csrc/compact.cu, the
@@ -131,15 +137,37 @@ def depth_mm_f32(depth: torch.Tensor) -> torch.Tensor:
     return (depth.view(torch.int16).to(torch.int32) & 0xFFFF).to(torch.float32)
 
 
+def cell_sums_mode(parity_split: bool, voxel_leaf, with_votes: bool) -> str:
+    """Kernel P's mode: ``"parity"`` (8 channels), ``"votes"`` (one channel
+    with the voxel floor votes) or ``"cells"`` (one channel, no leaf)."""
+    if parity_split:
+        if voxel_leaf is None or with_votes:
+            raise ValueError("the parity split needs a voxel leaf and takes no votes")
+        return "parity"
+    if with_votes:
+        if voxel_leaf is None:
+            raise ValueError("the floor votes need a voxel leaf")
+        return "votes"
+    return "cells"
+
+
 def cell_sums_plain(rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower,
-                    hsv_upper, multi_color_dlo, cell_px, voxel_leaf):
-    """Raw (Σx, Σy, Σz, count) per (parity channel, image cell): four
-    (8, n_rows·n_cols) float32 tensors in raster order, channel index
-    bx·4 + by·2 + bz. Frames with a leading stream axis (B, H, W) give
-    (B, 8, n_rows·n_cols), one stream at a time."""
+                    hsv_upper, multi_color_dlo, cell_px, voxel_leaf,
+                    parity_split: bool = True, with_votes: bool = False):
+    """Kernel P's plain version, the pooling of the JAX ``preprocess_frame``.
+
+    Parity mode: raw (Σx, Σy, Σz, count) per (parity channel, image cell),
+    four (8, n_rows·n_cols) float32 tensors in raster order, channel index
+    bx·4 + by·2 + bz. With ``parity_split=False``: (Σx, Σy, Σz, count) per
+    cell, four (n_rows·n_cols,) tensors, and with ``with_votes`` three more,
+    the sums of the per-pixel voxel floors (Σfkx, Σfky, Σfkz): integers, so
+    exact in any order. Frames with a leading stream axis (B, H, W) give a
+    leading B on every output, one stream at a time."""
+    mode = cell_sums_mode(parity_split, voxel_leaf, with_votes)
     if depth.ndim == 3:
         per = [cell_sums_plain(rgb[i], depth[i], occlusion_mask[i], fx, fy, cx, cy, hsv_lower,
-                               hsv_upper, multi_color_dlo, cell_px, voxel_leaf)
+                               hsv_upper, multi_color_dlo, cell_px, voxel_leaf, parity_split,
+                               with_votes)
                for i in range(depth.shape[0])]
         return tuple(torch.stack(q) for q in zip(*per))
     h, w = depth.shape
@@ -151,8 +179,6 @@ def cell_sums_plain(rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower,
     vs = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
     px = (us - cx) * z / fx
     py = (vs - cy) * z / fy
-    bx, by, bz = voxel_parity_bits(us, vs, dmm, fx, fy, cx, cy, voxel_leaf)
-    ch = bx * 4 + by * 2 + bz
     n_rows, n_cols = -(-h // cell_px), -(-w // cell_px)
     ph, pw = n_rows * cell_px - h, n_cols * cell_px - w
 
@@ -160,6 +186,14 @@ def cell_sums_plain(rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower,
         img = torch.nn.functional.pad(img, (0, pw, 0, ph))
         return img.reshape(n_rows, cell_px, n_cols, cell_px).sum(dim=(1, 3)).reshape(-1)
 
+    if mode != "parity":
+        wgt = mask.to(torch.float32)
+        quantities = [px, py, z, torch.ones_like(z)]
+        if mode == "votes":
+            quantities += voxel_floor_keys(us, vs, dmm, fx, fy, cx, cy, voxel_leaf)
+        return tuple(pool(q * wgt) for q in quantities)
+    bx, by, bz = voxel_parity_bits(us, vs, dmm, fx, fy, cx, cy, voxel_leaf)
+    ch = bx * 4 + by * 2 + bz
     out = torch.empty((4, 8, n_rows * n_cols), dtype=torch.float32, device=dev)
     for c in range(8):
         wgt = (mask & (ch == c)).to(torch.float32)
@@ -235,24 +269,44 @@ def compact_channels(xs, ys, zs, counts, kept, cap_per):
     return pts, cnt, valid
 
 
-def _voxel_snap_channels(points, weights, leaf, parities=None):
+def _pack_rel_keys(ijk, valid):
+    """Voxel indices (..., P, 3) rebased to the minimum over the valid rows
+    and packed as rel-x<<20 | rel-y<<10 | rel-z (each clipped to 10 bits)."""
+    ijk_min = torch.where(valid[..., None], ijk, _INT32_MAX).amin(dim=-2, keepdim=True)
+    rel = (ijk - ijk_min).clamp(0, (1 << 10) - 1)
+    return rel[..., 0] * (1 << 20) + rel[..., 1] * (1 << 10) + rel[..., 2]
+
+
+def pack_vote_keys(key_sums, counts, valid):
+    """Per-cell packed voxel key from the pooled floor votes: the rounded
+    mean vote per axis, rebased over the valid cells and packed like
+    :func:`voxel_snap`'s floor keys. ``key_sums`` (..., C, 3), ``counts`` and
+    ``valid`` (..., C); returns (..., C) int32. Call it on every cell before
+    any is dropped: the rebasing minimum runs over all valid cells."""
+    cnt = torch.clamp_min(counts, 1.0)
+    kv = torch.floor(key_sums / cnt[..., None] + 0.5).to(torch.int32)
+    return _pack_rel_keys(kv, valid)
+
+
+def _voxel_snap_channels(points, weights, leaf, parities=None, keys=None):
     """Per-channel voxel snap: (C, P, 3) candidates → (C·P, 3) weighted voxel
     centroids. Voxel duplicates are channel-local under the parity split;
     ``parities`` (C, 3) pins a knife-edge centroid's voxel index to its
-    channel's parity (the pixels' own floor vote)."""
+    channel's parity (the pixels' own floor vote). ``keys`` (C, P) int32,
+    when given, are the candidates' voxel keys (the coarse path's vote keys)
+    in place of their centroids' floors."""
     c_ch, p = points.shape[:2]
     dev = points.device
-    f = points * (1.0 / leaf)
-    ijk = torch.floor(f).to(torch.int32)
-    if parities is not None:
-        mismatch = (ijk & 1) != parities[:, None, :]
-        adj = torch.where(f - ijk.to(torch.float32) >= 0.5, 1, -1).to(torch.int32)
-        ijk = torch.where(mismatch, ijk + adj, ijk)
     valid = weights > 0
-    ijk_min = torch.where(valid[..., None], ijk, _INT32_MAX).amin(dim=1, keepdim=True)
-    rel = (ijk - ijk_min).clamp(0, (1 << 10) - 1)
-    key = rel[..., 0] * (1 << 20) + rel[..., 1] * (1 << 10) + rel[..., 2]
-    key = torch.where(valid, key, _INT32_MAX)
+    if keys is None:
+        f = points * (1.0 / leaf)
+        ijk = torch.floor(f).to(torch.int32)
+        if parities is not None:
+            mismatch = (ijk & 1) != parities[:, None, :]
+            adj = torch.where(f - ijk.to(torch.float32) >= 0.5, 1, -1).to(torch.int32)
+            ijk = torch.where(mismatch, ijk + adj, ijk)
+        keys = _pack_rel_keys(ijk, valid)
+    key = torch.where(valid, keys, _INT32_MAX)
     w_eff = torch.where(valid, weights, 0.0)
     key_s, order = torch.sort(key, dim=1, stable=True)
     data = torch.stack(
@@ -292,6 +346,72 @@ def _cap_snapped(snapped, snap_valid, cap, max_points):
         points = snapped[..., :max_points, :]
         valid = snap_valid[..., :max_points]
     return torch.where(valid[..., None], points, 0.0), valid
+
+
+def voxel_snap(points, weights, leaf, vote_keys=None):
+    """Weighted centroid per voxel over a fixed-capacity candidate set:
+    points (..., C, 3), weights (..., C) → centroids (..., C, 3) and their
+    validity, in voxel-key order. The key is the candidates' packed vote key
+    (``vote_keys`` (..., C) int32) or else the floor of each centroid over
+    ``leaf``, rebased over the valid candidates of each row."""
+    lead, c = points.shape[:-2], points.shape[-2]
+    keys = None if vote_keys is None else vote_keys.reshape(-1, c)
+    snapped, valid = _voxel_snap_channels(points.reshape(-1, c, 3), weights.reshape(-1, c), leaf,
+                                          keys=keys)
+    return snapped.reshape(*lead, c, 3), valid.reshape(*lead, c)
+
+
+def compact_cells(xs, ys, zs, counts, max_points, voxel_leaf, candidate_cap=4096,
+                  key_sums=None, inputs_are_sums: bool = False) -> PointCloud:
+    """Single-channel compaction of per-cell centroids (raw sums when
+    ``inputs_are_sums``) into the fixed-capacity cloud, then the voxel snap:
+    the JAX package's ``compact_cells(n_channels=1)``.
+
+    ``xs``/``ys``/``zs``/``counts`` (..., n_cells) in raster order;
+    ``key_sums`` (..., n_cells, 3), the pooled floor votes of the coarse
+    two-stage path. The occupied cells go to the first slots in ascending
+    cell order (a stable ``torch.sort`` of the cell index, then gathers, as
+    the JAX package's ``lax.sort``); without a leaf an overflow of
+    ``max_points`` is thinned with an even stride (:func:`kept_cells`), with
+    one the candidate cap keeps the first ones. With ``key_sums`` the vote
+    keys are packed over every cell before the pack and ride along to key
+    the snap. A leading stream axis gives a batched cloud; every step is
+    row-local."""
+    lead, n_cells = counts.shape[:-1], counts.shape[-1]
+    xs, ys, zs, counts = (a.reshape(-1, n_cells) for a in (xs, ys, zs, counts))
+    dev = counts.device
+    cap = candidate_cap if voxel_leaf is not None else max_points
+    cell_valid = counts > 0
+    use_votes = key_sums is not None and voxel_leaf is not None
+    kept = kept_cells(counts, cap) if voxel_leaf is None else cell_valid
+    idx = torch.arange(n_cells, device=dev)[None, :]
+    key_s, order = torch.sort(torch.where(kept, idx, n_cells), dim=-1, stable=True)
+    take = min(cap, n_cells)
+    key_s, order = key_s[:, :take], order[:, :take]
+    valid = key_s < n_cells
+    pts = torch.stack([xs.gather(1, order), ys.gather(1, order), zs.gather(1, order)], dim=-1)
+    cnt = counts.gather(1, order)
+    if inputs_are_sums:
+        pts = pts / torch.clamp_min(cnt, 1.0)[..., None]
+    points = torch.where(valid[..., None], pts, 0.0)
+    vote_keys = None
+    if use_votes:
+        vote_keys = pack_vote_keys(key_sums.reshape(-1, n_cells, 3), counts, cell_valid)
+        vote_keys = vote_keys.gather(1, order)
+    if n_cells < cap:
+        # Fewer cells than slots: pad to the static cap.
+        pad = cap - n_cells
+        points = torch.nn.functional.pad(points, (0, 0, 0, pad))
+        valid, cnt = (torch.nn.functional.pad(a, (0, pad)) for a in (valid, cnt))
+        if vote_keys is not None:
+            vote_keys = torch.nn.functional.pad(vote_keys, (0, pad))
+    if voxel_leaf is not None:
+        w = torch.where(valid, cnt, 0.0)
+        snapped, snap_valid = voxel_snap(points, w, voxel_leaf, vote_keys)
+        points, valid = _cap_snapped(snapped, snap_valid, cap, max_points)
+    points = points.reshape(lead + points.shape[1:])
+    valid = valid.reshape(lead + valid.shape[1:])
+    return PointCloud(points=points, mask=valid, count=valid.to(torch.int64).sum(dim=-1))
 
 
 def compact_parity_channels(xs, ys, zs, counts, max_points, voxel_leaf,
@@ -342,15 +462,29 @@ def preprocess_frame(rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower,
                      hsv_upper, multi_color_dlo, cell_px, max_points,
                      voxel_leaf=None, candidate_cap=4096,
                      parity_split=True) -> PointCloud:
-    """The plain parity-split preprocessing (kernel P's plain version, then
-    the shared compaction). Only the shipped parity path is ported."""
-    if not parity_split or voxel_leaf is None:
-        raise NotImplementedError("only the parity-split voxel path is ported")
+    """The plain preprocessing: kernel P's plain version, then the shared
+    compaction. Three paths, as in the JAX package: the parity split with a
+    voxel leaf; one channel with the floor votes and the snap (the coarse
+    two-stage path, ``parity_split=False``); one channel of cell centroids
+    (``voxel_leaf=None``)."""
     assert cell_px * cell_px <= (1 << _CNT_BITS) - 1, "cell counts overflow the packed key"
-    sx, sy, sz, cnt = cell_sums_plain(
+    parity = parity_split and voxel_leaf is not None
+    sums = cell_sums_plain(
         rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower, hsv_upper,
-        multi_color_dlo, cell_px, voxel_leaf,
+        multi_color_dlo, cell_px, voxel_leaf, parity_split=parity,
+        with_votes=not parity and voxel_leaf is not None,
     )
-    return compact_parity_channels(
-        sx, sy, sz, cnt, max_points, voxel_leaf, candidate_cap, inputs_are_sums=True
-    )
+    return compact_sums(sums, max_points, voxel_leaf, candidate_cap, parity)
+
+
+def compact_sums(sums, max_points, voxel_leaf, candidate_cap, parity: bool) -> PointCloud:
+    """The cloud from kernel P's raw sums: the four parity grids
+    (``parity``), or the four single-channel sums and, on the coarse
+    two-stage path, the three floor-vote sums after them."""
+    sx, sy, sz, cnt = sums[:4]
+    if parity:
+        return compact_parity_channels(sx, sy, sz, cnt, max_points, voxel_leaf, candidate_cap,
+                                       inputs_are_sums=True)
+    key_sums = torch.stack(sums[4:], dim=-1) if len(sums) == 7 else None
+    return compact_cells(sx, sy, sz, cnt, max_points, voxel_leaf, candidate_cap,
+                         key_sums=key_sums, inputs_are_sums=True)

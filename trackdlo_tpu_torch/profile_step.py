@@ -1,16 +1,18 @@
 """Where the time of a tracking step goes on the card: a torch.profiler
 trace of a steady window of frames at the live profile (720p, M=45), for
 ``Tracker.step`` or, with ``--batch``, the batched step of that many
-streams (in cohorts of ``--cohort``).
+streams (in cohorts of ``--cohort``); ``--profile coarse`` (``parity_split=False``)
+or ``cells`` (``exact_voxels=False``) for the preprocessing options.
 
 Run on a machine with a CUDA GPU, from the repository root:
 
-    python -m trackdlo_tpu_torch.profile_step [--frames 20] [--batch 16 --cohort 8]
+    python -m trackdlo_tpu_torch.profile_step [--frames 20] [--batch 16 --cohort 8] [--profile coarse]
 
 Prints the per-frame wall time, the device's busy share of it, the kernel
 launches and host-to-device copies per frame and the ops with the most
 device time, and writes them to ``chiprun_out/profile_step.json`` (or
-``profile_step_b<batch>.json``). Fails without a GPU.
+``profile_step_b<batch>.json``, with ``_<profile>`` for an option). Fails
+without a GPU.
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ from trackdlo_tpu_torch.config import CameraIntrinsics, live_params
 from trackdlo_tpu_torch.io.sequence import SyntheticRope, render_frame
 from trackdlo_tpu_torch.models.trackdlo import Tracker, TrackerState
 from trackdlo_tpu_torch.parallel import build_batched_step_fn
+
+
+PROFILES = {"parity": {}, "coarse": {"parity_split": False}, "cells": {"exact_voxels": False}}
 
 
 def _busy_union_us(events) -> float:
@@ -51,6 +56,8 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--batch", type=int, default=1, help="streams; above 1 the batched step")
     ap.add_argument("--cohort", type=int, default=None, help="cohort size of the batched step")
+    ap.add_argument("--profile", choices=sorted(PROFILES), default="parity",
+                    help="preprocessing: parity split (the default profile), coarse or cells")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: CUDA is not available")
@@ -58,7 +65,7 @@ def main() -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    params, intr, rope = live_params(), CameraIntrinsics(), SyntheticRope()
+    params, intr, rope = live_params(**PROFILES[args.profile]), CameraIntrinsics(), SyntheticRope()
     tracker = Tracker(params, intr, device="cuda")
     b = args.batch
     if b == 1:
@@ -91,6 +98,7 @@ def main() -> int:
     top = sorted(prof.key_averages(), key=lambda a: a.device_time_total, reverse=True)[:15]
     rec = {
         "card": card,
+        "profile": args.profile,
         "streams": b,
         "cohort": args.cohort,
         "frames": args.frames,
@@ -116,7 +124,8 @@ def main() -> int:
     for t in rec["top_device_ops"]:
         print(f"  {t['device_ms_per_frame']:9.4f} ms  {t['calls_per_frame']:7.1f} calls  {t['name'][:90]}")
     os.makedirs("chiprun_out", exist_ok=True)
-    name = "profile_step.json" if b == 1 else f"profile_step_b{b}.json"
+    name = "profile_step" + ("" if b == 1 else f"_b{b}")
+    name += ("" if args.profile == "parity" else f"_{args.profile}") + ".json"
     with open(os.path.join("chiprun_out", name), "w") as f:
         json.dump(rec, f, indent=1)
     if not np.isfinite(state.y.cpu().numpy()).all():
