@@ -8,7 +8,7 @@ Run from the repository root on a machine with a CUDA GPU:
 Phases, in order (any failure exits nonzero and prints no result line):
 
 1. toolchain: the card's name and power limit, torch's CUDA version, nvcc;
-2. build: compile the nine CUDA sources (eleven kernels and modes) from
+2. build: compile the ten CUDA sources (twelve kernels and modes) from
    ``trackdlo_tpu_torch/csrc``, one ``nvcc`` per source, all started
    together;
 3. check: each kernel against its plain PyTorch version on the card, at the
@@ -17,7 +17,9 @@ Phases, in order (any failure exits nonzero and prints no result line):
    and the per-iteration EM against kernel E and its plain version; kernel
    P's one-channel modes (floor votes, no leaf) and kernel F (one EM
    iteration with its one-hot M-step solve): F's route against the plain
-   per-iteration route, a live tolerance run through F, F batched;
+   per-iteration route, a live tolerance run through F, F batched; kernel N
+   (each node's nearest point on one shard of the cloud) bit-equal to its
+   plain version, alone and for 4 streams;
 4. closed loop: ``Tracker.step`` over 30 occluded frames against the float64
    oracle, with the kernels' launch counts; then the coarse profile
    (``parity_split=False``, 30 frames) and the cells-only profile
@@ -30,7 +32,13 @@ Phases, in order (any failure exits nonzero and prints no result line):
    ``solver="lstsq"`` (the single-stream per-iteration route) against the
    oracle; then the coarse batched step, 4 streams for 10 frames, its
    clouds against the single-stream coarse step's;
-6. timing: the per-frame single step (parity and coarse), the batched step
+6. shard: the point-sharded step (``build_parallel_step_fn``) on 2 gloo
+   ranks sharing the card (NCCL refuses two ranks on one GPU), the mesh 1
+   data × 2 model, over the 30 frames of phase 4: the shards' counts against
+   the cloud's, y bit-equal across the ranks, against the oracle, each frame
+   against ``Tracker.step`` from the same state (phase 5's nudge rule), the
+   exact launch counts, the per-frame time (CUDA events);
+7. timing: the per-frame single step (parity and coarse), the batched step
    (CUDA events) and each kernel beside its plain version and, for the
    solve, beside ``torch.linalg.solve``; kernel F also beside one iteration
    of the single-stream per-iteration route.
@@ -135,15 +143,28 @@ BOUNDS = {
     "fused_live_launch_mismatch": 0,
     "fused_batched_vs_single_max": 0.0,
     "fused_batched_launch_mismatch": 0,
+    # The point-sharded slice. Kernel N against its plain version: a minimum
+    # is exact in any order, so every element is equal. The sharded step:
+    # the shards' valid points sum to the cloud's count on every frame; y and
+    # sigma2 bit-equal across the ranks (every rank solves the same
+    # all-reduced system); the closed loop and the per-frame distance from
+    # Tracker.step as the batched step's (phase 5); the exact launch counts.
+    "nearest_mismatch": 0,
+    "sharded_count_mismatch": 0,
+    "sharded_ranks_mismatch": 0,
+    "sharded_closed_loop_mean_mm": 1.0,
+    "sharded_vs_single_median_m": 5e-4,
+    "sharded_vs_single_over_nudged": 2.0,
+    "sharded_launch_mismatch": 0,
 }
 N_STREAMS, COHORT = 16, 8
 EXPECTED_LAUNCHES = {"cell_sums": 30, "compact": 30, "visibility": 30, "walks": 30, "em_loop": 60,
                      "estep": 0, "estep_batch": 0, "gj_solve": 0, "cell_sums_votes": 0,
-                     "cell_sums_cells": 0, "em_iteration": 0}
+                     "cell_sums_cells": 0, "em_iteration": 0, "nearest": 0}
 # Per frame of the coarse (votes) and cells-only loops: kernel P's mode,
 # V, W, and kernel E twice; neither C nor the parity mode.
 COARSE_LAUNCHES = {"visibility": 1, "walks": 1, "em_loop": 2, "cell_sums": 0, "compact": 0,
-                   "em_iteration": 0, "estep": 0, "estep_batch": 0, "gj_solve": 0}
+                   "em_iteration": 0, "estep": 0, "estep_batch": 0, "gj_solve": 0, "nearest": 0}
 KERNELS = {
     "cell_sums": ("trackdlo_tpu_torch/csrc/cell_sums.cu", "trackdlo_tpu/ops/preprocess_kernel.py:470"),
     "compact": ("trackdlo_tpu_torch/csrc/compact.cu", "trackdlo_tpu/ops/preprocess_kernel.py:617"),
@@ -156,10 +177,13 @@ KERNELS = {
     "cell_sums_votes": ("trackdlo_tpu_torch/csrc/cell_sums.cu", "trackdlo_tpu/ops/preprocess_kernel.py:470"),
     "cell_sums_cells": ("trackdlo_tpu_torch/csrc/cell_sums.cu", "trackdlo_tpu/ops/preprocess_kernel.py:470"),
     "em_iteration": ("trackdlo_tpu_torch/csrc/em_iter.cu", "trackdlo_tpu/ops/pallas_kernels.py:482"),
+    "nearest": ("trackdlo_tpu_torch/csrc/nearest.cu", "trackdlo_tpu/ops/pallas_kernels.py:556"),
 }
 # The path whose run gives each kernel's launch count in the kernels line.
 LAUNCH_PATH = {"estep": "lstsq", "estep_batch": "batched", "gj_solve": "batched",
-               "cell_sums_votes": "coarse", "cell_sums_cells": "cells", "em_iteration": "fused"}
+               "cell_sums_votes": "coarse", "cell_sums_cells": "cells", "em_iteration": "fused",
+               "nearest": "sharded"}
+SHARD_RANKS = 2
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory and
 # float32 outside the tensor cores. A kernel's bound is the larger of its
@@ -223,6 +247,83 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60,
     )
     return res.stdout.strip().splitlines()[0] if res.stdout.strip() else "nvidia-smi: no output"
+
+
+def shard_worker(rank: int, world: int, device: str, n_frames: int) -> dict:
+    """One rank of the point-sharded step (spawned by phase 6): the live
+    profile, the mesh 1 data × ``world`` model, the frames of phase 4
+    rendered here from the same seedless sequence. Its launch counts are set
+    to 0 just before the frames and read just after; then the frames are
+    stepped again and timed, and so is one all-reduce of the main pass's
+    packed sums (4·45 + 2 floats) on the card and on the host. Returns
+    per-frame numpy results."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from trackdlo_tpu_torch import _build
+    from trackdlo_tpu_torch.config import CameraIntrinsics, live_params
+    from trackdlo_tpu_torch.io.sequence import SyntheticRope, render_frame
+    from trackdlo_tpu_torch.models.trackdlo import init_state
+    from trackdlo_tpu_torch.ops.collectives import shard_slice
+    from trackdlo_tpu_torch.parallel import build_parallel_step_fn, make_tracking_mesh, replicate_state
+
+    params, intr, rope = live_params(), CameraIntrinsics(), SyntheticRope()
+    mesh = make_tracking_mesh(model_parallel=world)
+    step = build_parallel_step_fn(params, intr, mesh, device=device)
+    frames = []
+    for i in range(1, n_frames + 1):
+        rgb, depth = render_frame(rope, i / 15.0, intr)
+        occ = np.ones((intr.height, intr.width), np.uint8) * 255
+        if 10 <= i <= 20:
+            occ[:, 500:800] = 0
+        frames.append((rgb[None], depth[None], occ[None]))
+    state = replicate_state(init_state(rope.nodes(0.0, params.M), params, device), 1)
+    _build.lib()  # the parent built it: this loads the cached library
+    keys = ("y", "sigma2", "n_points", "iterations", "guide_iterations", "occlusion_state")
+    rec = {k: [] for k in keys + ("shard_count", "event_ms")}
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    for f in frames:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, out = step(state, *f)
+        end.record()
+        end.synchronize()
+        rec["event_ms"].append(start.elapsed_time(end))
+        for k in keys:
+            rec[k].append(getattr(out, k)[0].cpu().numpy())
+        shard = shard_slice(out.points_mask.shape[-1], mesh.model_group)
+        rec["shard_count"].append(int(out.points_mask[0, shard].sum()))
+    torch.cuda.synchronize()
+    rec["launches"] = dict(_build.launch_counts)
+    timed, wall = [], []
+    for f in frames:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, _ = step(state, *f)
+        end.record()
+        end.synchronize()
+        wall.append(1000 * (time.perf_counter() - t0))
+        timed.append(start.elapsed_time(end))
+
+    def all_reduce_ms(t, n=200):
+        for _ in range(10):
+            dist.all_reduce(t, group=mesh.model_group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            dist.all_reduce(t, group=mesh.model_group)
+        torch.cuda.synchronize()
+        return 1000 * (time.perf_counter() - t0) / n
+
+    rec["all_reduce_ms"] = {"cuda": all_reduce_ms(torch.zeros(4 * params.M + 2, device=device)),
+                            "cpu": all_reduce_ms(torch.zeros(4 * params.M + 2))}
+    rec.update(timed_event_ms=timed, timed_wall_ms=wall, shard=(shard.start, shard.stop),
+               jax_modules=[k for k in sys.modules
+                            if k.split(".")[0] in ("jax", "jaxlib", "trackdlo_tpu")])
+    return {k: (np.stack(v) if k in keys else v) for k, v in rec.items()}
 
 
 class Smoke:
@@ -832,6 +933,38 @@ class Smoke:
                    abs(self.path_launches["fused_batched"]["em_iteration"] - trips)
                    + int((batched.iterations != it1).sum()))
 
+    def check_nearest(self):
+        """Kernel N against its plain version at the main pass's shapes: the
+        live nodes against each half of the phase-3 cloud (the shard a rank
+        of two holds), every node valid or some masked; a shard with no
+        valid point; 4 streams' first shards in one launch. Bit-equal."""
+        torch = self.torch
+        from trackdlo_tpu_torch.ops.hopper_kernels import nearest_point_sq, nearest_point_sq_plain
+
+        m = self.params.M
+        y = torch.as_tensor(self.rope.nodes(0.0, m), dtype=torch.float32, device=self.dev)
+        x, xm = self.cloud.points, self.cloud.mask
+        half = x.shape[0] // 2
+        nm_all = torch.ones(m, dtype=torch.bool, device=self.dev)
+        nm_part = torch.arange(m, device=self.dev) < 30
+        nm_part[3] = False
+        cases = [(y, nm, x[sl], xm[sl]) for sl in (slice(0, half), slice(half, None))
+                 for nm in (nm_all, nm_part)]
+        cases.append((y, nm_all, x[:half], torch.zeros_like(xm[:half])))
+        pc4, y4, _, _ = self.batch_em_inputs(4)
+        nm4 = torch.stack([nm_all, nm_part, nm_all, nm_part])
+        cases.append((y4, nm4, pc4.points[:, :half], pc4.mask[:, :half]))
+        mismatch, err = 0, 0.0
+        for c in cases:
+            got, ref = nearest_point_sq(*c), nearest_point_sq_plain(*c)
+            mismatch += int((got != ref).sum())
+            err = max(err, float((got - ref).abs().max()))
+        log(f"  shards of {half} points ({int(xm[:half].sum())} and {int(xm[half:].sum())} valid), "
+            f"{m} nodes; 4 streams of {half}")
+        self.bound("nearest_mismatch", mismatch)
+        self.kernel_err["nearest"] = err
+        self.n_args = cases[0]
+
     # -- phase 4: closed loop against the oracle -----------------------------
     def closed_loop(self):
         np, torch = self.np, self.torch
@@ -1165,7 +1298,93 @@ class Smoke:
         self.bound("coarse_batched_vs_single_median_m", float(np.median(dy_a)))
         self.bound("coarse_batched_vs_single_over_nudged", quantile_ratio(dy_a, dp_a))
 
-    # -- phase 6: timing --------------------------------------------------------
+    # -- phase 6: the point-sharded step -----------------------------------------
+    def sharded_loop(self):
+        np, torch = self.np, self.torch
+        from trackdlo_tpu_torch.models.trackdlo import TrackerState
+        from trackdlo_tpu_torch.oracle.pipeline import init_state as oracle_init, step_frame
+        from trackdlo_tpu_torch.parallel.launch import run_ranks
+
+        p, intr, m = self.params, self.intr, self.params.M
+        t0 = time.perf_counter()
+        ranks = run_ranks(shard_worker, SHARD_RANKS, device="cuda:0",
+                          timeout_s=600.0, args=(self.frames,))
+        log(f"  {SHARD_RANKS} ranks on cuda:0 ran in {time.perf_counter() - t0:.1f} s, shards "
+            f"{[r['shard'] for r in ranks]}")
+        r0 = ranks[0]
+        for r in ranks:
+            if r["jax_modules"]:
+                self.failures.append("sharded_rank_imported_jax")
+                log(f"  a rank imported {r['jax_modules'][:5]}  FAIL")
+        counts = np.stack([r["shard_count"] for r in ranks])
+        log(f"  valid points per shard, frame 1: {counts[:, 0].tolist()} of {int(r0['n_points'][0])}")
+        self.bound("sharded_count_mismatch", int((counts.sum(0) != r0["n_points"]).sum()))
+        self.bound("sharded_ranks_mismatch", sum(
+            int((~((r["y"] == r0["y"]).all(axis=(1, 2)) & (r["sigma2"] == r0["sigma2"]))).sum())
+            for r in ranks[1:]))
+
+        self.path_launches["sharded"] = r0["launches"]
+        log(f"  launches in the sharded run (rank 0): {r0['launches']}")
+        trips = int(r0["iterations"].sum() + r0["guide_iterations"].sum())
+        want = {k: 0 for k in r0["launches"]}
+        for k in ("cell_sums", "compact", "visibility", "walks"):
+            want[k] = self.frames
+        want["estep"] = want["gj_solve"] = trips
+        want["nearest"] = int(r0["iterations"].sum())
+        log(f"  expected launches: {want}")
+        self.bound("sharded_launch_mismatch",
+                   sum(abs(r["launches"][k] - want[k]) for r in ranks for k in want))
+
+        geo = self.tracker.init_from_nodes(self.rope.nodes(0.0, m)).geodesic_coord
+        o_state = oracle_init(self.rope.nodes(0.0, m), p)
+        nudge = torch.from_numpy(np.random.default_rng(0).normal(0, 1e-7, (m, 3)).astype(np.float32))
+        nudge = nudge.to(self.dev)
+        y_prev = torch.as_tensor(self.rope.nodes(0.0, m), dtype=torch.float32, device=self.dev)
+        s2_prev = torch.tensor(p.sigma2_init, dtype=torch.float32, device=self.dev)
+        dev_mm, dy, dp, trips_changed = [], [], [], 0
+        for k, (rgb, depth, occ) in enumerate(self.frames_data):
+            o_state, _, _ = step_frame(o_state, rgb, depth, p, intr, occ)
+            y = r0["y"][k]
+            if not np.isfinite(y).all() or y.shape != (m, 3):
+                self.failures.append("sharded_closed_loop_finite")
+            dev_mm.append(1000 * float(np.linalg.norm(y - o_state.y, axis=1).mean()))
+            before = TrackerState(y_prev, s2_prev, geo)
+            s1, o1 = self.tracker.step(before, rgb, depth, occ)
+            s2, _ = self.tracker.step(before._replace(y=y_prev + nudge), rgb, depth, occ)
+            dy.append(float(np.abs(s1.y.cpu().numpy() - y).max()))
+            dp.append(float((s1.y - s2.y).abs().max()))
+            trips_changed += int(o1.iterations) != int(r0["iterations"][k])
+            y_prev = torch.as_tensor(y, device=self.dev)
+            s2_prev = torch.as_tensor(r0["sigma2"][k], device=self.dev)
+        dy_a, dp_a = np.array(dy), np.array(dp)
+        ev, timed, wall = (np.array(r0[k]) for k in ("event_ms", "timed_event_ms", "timed_wall_ms"))
+        self.times["sharded_step"] = {
+            "median_ms": float(np.median(timed)), "p90_ms": float(np.percentile(timed, 90)),
+            "wall_median_ms": float(np.median(wall)), "counted_run_median_ms": float(np.median(ev)),
+            "calls": len(timed), "ranks": SHARD_RANKS,
+            "rank_event_medians_ms": [float(np.median(r["timed_event_ms"])) for r in ranks],
+            "all_reduce_ms": r0["all_reduce_ms"]}
+        self.metrics.update(
+            sharded_per_frame_mm=dev_mm, sharded_vs_single_m=dy, sharded_single_vs_nudged_m=dp,
+            sharded_shard_counts=counts.tolist(), sharded_n_points=r0["n_points"].tolist(),
+            sharded_main_iterations=r0["iterations"].tolist(),
+            sharded_guide_iterations=r0["guide_iterations"].tolist(),
+            sharded_occlusion_states_seen=sorted({int(v) for v in r0["occlusion_state"]}))
+        log(f"  main-EM iterations: {r0['iterations'].tolist()}")
+        log(f"  per-frame deviation from the oracle (mm): {[round(v, 4) for v in dev_mm]}")
+        log(f"  sharded vs Tracker.step, {len(dy)} frames: median {np.median(dy_a):.3g} m, max "
+            f"{dy_a.max():.3g}, {trips_changed} with another main-EM trip count; Tracker.step vs "
+            f"nudged: median {np.median(dp_a):.3g} m, max {dp_a.max():.3g}")
+        log(f"  per frame (rank 0, CUDA events, 30 frames after the counted run): median "
+            f"{np.median(timed):.3f} ms, p90 {np.percentile(timed, 90):.3f} ms, host wall median "
+            f"{np.median(wall):.3f} ms; the counted run's median {np.median(ev):.3f} ms")
+        log(f"  one all-reduce of {4 * m + 2} floats between the ranks: card tensor "
+            f"{r0['all_reduce_ms']['cuda']:.4f} ms, host tensor {r0['all_reduce_ms']['cpu']:.4f} ms")
+        self.bound("sharded_closed_loop_mean_mm", statistics.fmean(dev_mm))
+        self.bound("sharded_vs_single_median_m", float(np.median(dy_a)))
+        self.bound("sharded_vs_single_over_nudged", quantile_ratio(dy_a, dp_a))
+
+    # -- phase 7: timing --------------------------------------------------------
     def step_times(self, key, step, frames, n):
         """Median and p90 of CUDA events around ``step`` over ``n`` calls."""
         np, torch = self.np, self.torch
@@ -1231,6 +1450,10 @@ class Smoke:
         self.bounds_ms["em_iteration"] = bound(
             20 + m * 12 * 2 + m * 4 * 2 + 3 * m * m * 4 + 2 * m * 12 + n_f * 16 + m * 12 + 8,
             (sweep_f + OPS_ESTEP_PAIR) * m * nv_f + onehot_mstep_ops(m))
+        yn, nmn, xn, xmn = self.n_args
+        self.bounds_ms["nearest"] = bound(
+            sum(t.numel() * t.element_size() for t in self.n_args) + yn.shape[0] * 4,
+            OPS_SWEEP_PAIR * int(nmn.sum()) * int(xmn.sum()))
 
     def timing(self):
         np, torch = self.np, self.torch
@@ -1242,8 +1465,8 @@ class Smoke:
         from trackdlo_tpu_torch.ops.hopper_kernels import (
             fused_em_iteration_plain, fused_em_loop, fused_em_loop_plain, fused_estep_packed,
             fused_estep_packed_batch, fused_estep_packed_batch_plain, fused_estep_packed_plain,
-            gauss_jordan_solve_batched, gauss_jordan_solve_batched_plain, pursuit_walks,
-            pursuit_walks_plain,
+            gauss_jordan_solve_batched, gauss_jordan_solve_batched_plain, nearest_point_sq,
+            nearest_point_sq_plain, pursuit_walks, pursuit_walks_plain,
         )
         from trackdlo_tpu_torch.ops.preprocess import (
             cell_sums_plain, compact_channels, compact_channels_plain,
@@ -1251,6 +1474,7 @@ class Smoke:
         from trackdlo_tpu_torch.ops.preprocess_kernel import cell_sums
         from trackdlo_tpu_torch.ops.visibility import compute_visibility
         from trackdlo_tpu_torch.ops.visibility_kernel import fused_visibility
+        from trackdlo_tpu_torch.parallel.launch import run_ranks
 
         tracker, state, frames = self.tracker, self.state, self.frames_data
         for i in range(10):
@@ -1357,18 +1581,35 @@ class Smoke:
             periter_route_ms=sum(route_ms) / 2, periter_route_ms_runs=route_ms)
         log(f"  one iteration of the per-iteration route (S + M-step assembly + G): "
             f"{sum(route_ms) / 2:.4f} ms")
+        if "sharded_step" in self.times:
+            # The sharded step's route in one process: a one-rank model axis.
+            one = run_ranks(shard_worker, 1, device="cuda:0", timeout_s=600.0,
+                            args=(self.frames,))[0]
+            self.times["sharded_step_one_rank"] = {
+                "median_ms": float(np.median(one["timed_event_ms"])),
+                "p90_ms": float(np.percentile(one["timed_event_ms"], 90)),
+                "wall_median_ms": float(np.median(one["timed_wall_ms"])),
+                "all_reduce_ms": one["all_reduce_ms"], "calls": len(one["timed_event_ms"])}
+            log(f"  the sharded step on one rank (its route, no second process): median "
+                f"{self.times['sharded_step_one_rank']['median_ms']:.3f} ms, p90 "
+                f"{self.times['sharded_step_one_rank']['p90_ms']:.3f} ms; one-rank all-reduce "
+                f"{one['all_reduce_ms']['cuda']:.4f} ms")
+        self.time_pair("nearest", lambda: nearest_point_sq(*self.n_args),
+                       lambda: nearest_point_sq_plain(*self.n_args))
+        self.times["nearest"]["note"] = (f"{self.n_args[0].shape[0]} nodes, one shard of "
+                                         f"{self.n_args[2].shape[0]} points")
 
 
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="check,loop,batch,timing",
-                    help="comma list of check,loop,batch,timing (toolchain and build always run); "
-                         "anything but all four prints no result line")
+    ap.add_argument("--phases", default="check,loop,batch,shard,timing",
+                    help="comma list of check,loop,batch,shard,timing (toolchain and build always "
+                         "run); anything but all five prints no result line")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
-    everything = {"check", "loop", "batch", "timing"}
+    everything = {"check", "loop", "batch", "shard", "timing"}
 
     try:
         import torch
@@ -1414,6 +1655,7 @@ def main() -> int:
         smoke.check_em_periter()
         smoke.check_preprocess_single()
         smoke.check_fused()
+        smoke.check_nearest()
         torch.cuda.synchronize()
         phase_s["check"] = time.perf_counter() - t0
     if "loop" in phases:
@@ -1431,8 +1673,14 @@ def main() -> int:
         smoke.lstsq_loop()
         smoke.coarse_batched()
         phase_s["batch"] = time.perf_counter() - t0
+    if "shard" in phases and "loop" in phases:
+        log(f"[6] point-sharded step: 1 data x {SHARD_RANKS} model gloo ranks on cuda:0, "
+            f"{smoke.frames} frames")
+        t0 = time.perf_counter()
+        smoke.sharded_loop()
+        phase_s["shard"] = time.perf_counter() - t0
     if phases >= everything:
-        log(f"[6] timing on {card}")
+        log(f"[7] timing on {card}")
         t0 = time.perf_counter()
         smoke.timing()
         phase_s["timing"] = time.perf_counter() - t0

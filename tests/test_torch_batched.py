@@ -148,11 +148,37 @@ def test_batched_step_checks_shapes_and_device():
             build_batched_step_fn(PARAMS, SMALL)
 
 
-def test_mesh_and_point_sharding_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        make_tracking_mesh()
-    with pytest.raises(NotImplementedError):
-        build_parallel_step_fn(PARAMS, SMALL, None)
+@pytest.fixture
+def one_rank_group(tmp_path):
+    """A process group of this process alone."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def test_mesh_and_point_sharding_are_not_ported(one_rank_group):
+    """Named for the time the mesh raised; it now checks that it runs. The
+    mesh and the point-sharded step are ported: on a mesh of one rank
+    the DP × SP step matches the lockstep batched step, every discrete
+    output equal (tests/test_torch_shard_step.py runs them over 4 ranks).
+    The main pass's visibility weights are summed over 45 rows there and
+    over the E-step's 48 padded rows here: y and sigma2 agree to rounding."""
+    mesh = make_tracking_mesh()
+    assert (mesh.data_size, mesh.model_size, mesh.data_rank, mesh.model_rank) == (1, 1, 0, 0)
+    with pytest.raises(ValueError, match="not divisible"):
+        make_tracking_mesh(model_parallel=2)
+    _, state = _state0(2)
+    rgb, depth, occ = _frames(2, occluded=(1,))
+    ps, po = build_parallel_step_fn(PARAMS, SMALL, mesh, device="cpu")(state, rgb, depth, occ)
+    bs, bo = build_batched_step_fn(PARAMS, SMALL, device="cpu")(state, rgb, depth, occ)
+    for name, a, b in zip(ps._fields + po._fields, (*ps, *po), (*bs, *bo)):
+        if name in ("y", "sigma2"):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6 if name == "y" else 2e-7)
+        else:
+            assert torch.equal(a, b), name
 
 
 def test_replicate_state_and_batched_conversion():

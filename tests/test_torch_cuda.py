@@ -602,3 +602,81 @@ def test_fused_route_launches_equal_iterations(cuda):
     assert torch.equal(batched.y, y1.expand(4, M, 3))
     assert torch.equal(batched.iterations, it1.expand(4))
     assert float((batched.y - single.y).abs().max()) <= 2e-6  # em10_batched_vs_single_max_m
+
+
+# ---------------------------------------------------------------------------
+# The point-sharded slice: kernel N (B9) and the sharded EM on gloo ranks
+# that share the card.
+# ---------------------------------------------------------------------------
+
+
+def _n_inputs(dev, n_streams, n, case):
+    """Live nodes against the first n points of the live clouds (streams
+    offset 0.01 apart), in the case's layout."""
+    pc = _batch_cloud(dev, n_streams)
+    x, xm = pc.points[:, :n], pc.mask[:, :n]
+    y = torch.stack([torch.from_numpy(SyntheticRope().nodes(0.01 * b, M).astype(np.float32))
+                     for b in range(n_streams)]).to(dev)
+    nm = torch.ones((n_streams, M), dtype=torch.bool, device=dev)
+    if case == "masked_rows":
+        nm[:, 30:] = False
+        nm[:, 3] = False
+    if case == "all_masked_cloud":
+        xm = torch.zeros_like(xm)
+    if case == "non_contiguous":
+        x = torch.cat([x, torch.zeros_like(x)], dim=-1)[..., :3]
+        y = torch.cat([y, torch.zeros_like(y)], dim=-1)[..., :3]
+        nm = torch.stack([nm, nm], dim=-1)[..., 0]
+        assert not (x.is_contiguous() or y.is_contiguous() or nm.is_contiguous())
+    return y, nm, x, xm
+
+
+@pytest.mark.parametrize("case", ["rope", "masked_rows", "all_masked_cloud", "non_contiguous"])
+@pytest.mark.parametrize("n_streams,n", [(1, 1024), (4, 2048)])
+def test_nearest_kernel_is_bit_equal_to_plain(cuda, n_streams, n, case):
+    from trackdlo_tpu_torch.ops.hopper_kernels import nearest_point_sq, nearest_point_sq_plain
+
+    args = _n_inputs(cuda, n_streams, n, case)
+    before = _build.launch_counts["nearest"]
+    got = nearest_point_sq(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["nearest"] == before + 1
+    ref = nearest_point_sq_plain(*args)
+    assert torch.equal(got, ref)
+    assert bool((got[~args[1]] == 1e5).all())
+    if case == "all_masked_cloud":
+        assert bool((got == 1e5).all())
+    else:
+        assert float(got[args[1]].max()) < 1e5
+    one = nearest_point_sq(*(a[0] for a in args))
+    assert torch.equal(one, got[0])
+
+
+def test_sharded_em_on_gloo_ranks_sharing_the_card(cuda):
+    """The main pass's configuration (priors, the gate on) with the live
+    cloud split over 2 gloo ranks on cuda:0: y bit-equal across the ranks
+    and within 1e-6 m of 3 iterations of the unsharded per-iteration
+    route."""
+    import torch_shard_workers as workers
+    from trackdlo_tpu_torch.ops.cpd_lle import cpd_lle
+    from trackdlo_tpu_torch.parallel.launch import run_ranks
+
+    pc = _cloud(cuda)
+    nodes = torch.from_numpy(SyntheticRope().nodes(0.0, M).astype(np.float32)).to(cuda)
+    nm = torch.ones(M, dtype=torch.bool, device=cuda)
+    params = _em_params(use_priors=True, alpha=PARAMS.alpha)
+    prior_pos, prior_mask = nodes + 0.004, torch.arange(M, device=cuda) < 12
+    pmin = ((nodes[:, None] - pc.points[None]) ** 2).sum(-1).amin(0)
+    ref, _ = cpd_lle(pc.points, pc.mask, nodes, nm, torch.tensor(PARAMS.sigma2_init, device=cuda),
+                     params, prior_pos, prior_mask, torch.tensor(30, device=cuda),
+                     point_min_sq=pmin, return_deltas=True)
+    np_ = lambda t: t.cpu().numpy()
+    case = dict(x=np_(pc.points), xm=np_(pc.mask), y=np_(nodes), nm=np_(nm),
+                sigma2=PARAMS.sigma2_init, prior_pos=np_(prior_pos), prior_mask=np_(prior_mask),
+                visible_count=30, point_min_sq=np_(pmin), return_deltas=False,
+                params={f: getattr(params, f) for f in params.__dataclass_fields__})
+    ranks = run_ranks(workers.cpd_cases, 2, device="cuda:0", timeout_s=120.0, args=([case],))
+    a, b = (r[0] for r in ranks)
+    assert a["iterations"] == b["iterations"] == 3
+    assert np.array_equal(a["y"], b["y"]) and np.array_equal(a["sigma2"], b["sigma2"])
+    assert np.abs(a["y"] - np_(ref.y)).max() <= 1e-6

@@ -163,24 +163,40 @@ def test_to_convergence_matches_jax():
         assert np.abs(got.y.numpy() - np.asarray(ref.y)).max() <= 1e-5
 
 
+@pytest.fixture(scope="module")
+def one_rank_group(tmp_path_factory):
+    """A process group of this process alone: the point axis of one rank."""
+    import torch.distributed as dist
+
+    store = dist.FileStore(str(tmp_path_factory.mktemp("gloo") / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("change", [{"use_geodesic_redistance": False}, {"use_fused_mstep": True},
                                     {"kernel": "gaussian_geodesic"}, {"axis_name": "model"}])
-def test_unported_options_raise(change):
-    """Of the options that once raised, only point-axis sharding
-    (``axis_name``) still does; the others now run and match the JAX
-    package's same route (tests/test_torch_fused_mstep.py holds them to it)."""
+def test_unported_options_raise(change, request):
+    """Named for the time these options raised; it now checks that they run.
+    No option raises any more. The ones that once did run and match the
+    JAX package's same route (tests/test_torch_fused_mstep.py holds them to
+    it); point-axis sharding (``axis_name``, here a process group of one
+    rank) takes the per-iteration route, bit-equal on the CPU to the
+    unsharded per-iteration route (tests/test_torch_shard_em.py holds two
+    ranks to the JAX package's ``shard_map``)."""
     y, x, xm = _inputs(8)
     t = torch.from_numpy
     change = dict(change)
-    axis_name = change.pop("axis_name", None)
+    axis_name = request.getfixturevalue("one_rank_group") if change.pop("axis_name", None) else None
     call = lambda: tc.cpd_lle(t(x), t(xm), t(y), torch.ones(M, dtype=torch.bool), torch.tensor(1e-3),
                               tc.CpdParams(**_base(), **change), axis_name=axis_name)
-    if axis_name is not None:
-        with pytest.raises(NotImplementedError):
-            call()
-        return
     got, refs = _run_both(x, xm, y, np.ones(M, bool), 1e-3, _base(**change))
     _assert_match(got, refs[:1], np.ones(M, bool))
+    if axis_name is not None:
+        periter = tc.cpd_lle(t(x), t(xm), t(y), torch.ones(M, dtype=torch.bool), torch.tensor(1e-3),
+                             tc.CpdParams(**_base(solver="xla_lu")))
+        assert torch.equal(call().y, periter.y)
+        return
     assert torch.equal(call().y, got.y)
 
 
@@ -190,13 +206,25 @@ def test_cpd_params_have_no_kernel_switch():
         tc.CpdParams(**_base(), use_pallas=True)
 
 
-def test_return_deltas_raises():
-    """return_deltas is ported; on the point-sharded EM (not ported) it raises."""
+def test_return_deltas_raises(one_rank_group):
+    """Named for the time this option raised; it now checks that it runs.
+    return_deltas on the point-sharded EM no longer raises. With one rank
+    and the visibility prior on, the sharded main pass (kernel N, the
+    shards' minimum, the one-phase E-step) matches the unsharded
+    per-iteration pass (the two-phase E-step, which sums the visibility
+    weights over its 48 padded rows), deltas included."""
     y, x, xm = _inputs(8)
     t = torch.from_numpy
-    with pytest.raises(NotImplementedError):
-        tc.cpd_lle(t(x), t(xm), t(y), torch.ones(M, dtype=torch.bool), torch.tensor(1e-3),
-                   tc.CpdParams(**_base()), axis_name="model", return_deltas=True)
+    params = tc.CpdParams(**_base(use_priors=True, alpha=PARAMS.alpha, use_visibility=True,
+                                  k_vis=PARAMS.k_vis))
+    kw = dict(prior_pos=t((y + 0.004).astype(np.float32)), prior_mask=torch.arange(M) < 12,
+              visible_count=torch.tensor(30), return_deltas=True)
+    args = (t(x), t(xm), t(y), torch.ones(M, dtype=torch.bool), torch.tensor(1e-3), params)
+    sharded, d_sharded = tc.cpd_lle(*args, axis_name=one_rank_group, **kw)
+    plain, d_plain = tc.cpd_lle(*args, **kw)
+    assert d_sharded.shape == (3,)
+    assert float((sharded.y - plain.y).abs().max()) <= TOL_M
+    torch.testing.assert_close(d_sharded, d_plain, rtol=0, atol=TOL_M)
 
 
 def test_wrapper_takes_plain_version_on_cpu():

@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's numpy-only modules (config,
 io.sequence, dlo_init, the float64 oracle) against the originals, and an
 import scan: no file of the port, and not chip_smoke.py, imports jax or
-anything of trackdlo_tpu."""
+anything of trackdlo_tpu; nor does tests/torch_shard_workers.py, which the
+point-sharded tests' spawned ranks import."""
 
 import ast
 import dataclasses
@@ -91,7 +92,8 @@ def _imports(path: Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((REPO / "trackdlo_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "trackdlo_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "torch_shard_workers.py"]
     assert len(files) > 20
     bad = []
     for path in files:

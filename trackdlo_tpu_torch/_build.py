@@ -96,6 +96,12 @@ SIGNATURES = {
         _P, _P,  # t, stats
         _P,
     ],
+    "trackdlo_nearest": [
+        _P, _P, _P, _P,  # y, node_mask, x, x_mask
+        _I, _I, _I,  # n_streams, m, n
+        _P,  # out
+        _P,
+    ],
 }
 
 _lock = threading.Lock()
@@ -106,7 +112,7 @@ build_seconds: float | None = None
 launch_counts = {
     "cell_sums": 0, "compact": 0, "visibility": 0, "walks": 0, "em_loop": 0,
     "estep": 0, "estep_batch": 0, "gj_solve": 0,
-    "cell_sums_votes": 0, "cell_sums_cells": 0, "em_iteration": 0,
+    "cell_sums_votes": 0, "cell_sums_cells": 0, "em_iteration": 0, "nearest": 0,
 }
 
 

@@ -6,7 +6,8 @@ runs: preprocessing (kernel P, compaction with kernel C, voxel snap) → visibil
 (kernel E) → occlusion dispatch and prior walks (kernel W) → main EM
 (kernel E). Every stage stays on the tracker's device; nothing is read back
 to the host inside a step. The same stages run over a leading stream axis in
-the batched step (:mod:`trackdlo_tpu_torch.parallel`).
+the batched step, and with the cloud sharded over a process group in the
+point-sharded step (:mod:`trackdlo_tpu_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from trackdlo_tpu_torch.config import CameraIntrinsics, TrackerParams
 from trackdlo_tpu_torch.device import resolve_device, set_full_fp32
+from trackdlo_tpu_torch.ops.collectives import shard_slice
 from trackdlo_tpu_torch.ops.cpd_lle import CpdParams, cpd_lle, cpd_lle_batched
 from trackdlo_tpu_torch.ops.kernels import geodesic_coords
 from trackdlo_tpu_torch.ops.preprocess import PointCloud, compact_sums, default_cell_px
@@ -102,10 +104,17 @@ def preprocess_for_step(rgb, depth, occlusion_mask, *, params: TrackerParams,
 
 
 def _track_from_points(state: TrackerState, pc: PointCloud, proj: torch.Tensor, *,
-                       params: TrackerParams, intr: CameraIntrinsics):
+                       params: TrackerParams, intr: CameraIntrinsics, model_axis=None):
     """Visibility → pre-registration → priors → main EM on a prepared cloud;
     a state and cloud with a leading stream axis run every stage batched
-    (the EM passes through :func:`cpd_lle_batched`)."""
+    (the EM passes through :func:`cpd_lle_batched`).
+
+    ``model_axis``: a process group over which the cloud is sharded. Every
+    rank of it runs the preprocessing and visibility on the whole cloud and
+    keeps its slice of the points and of the per-point minima
+    (:func:`~trackdlo_tpu_torch.ops.collectives.shard_slice` of the cloud's
+    own length, so each point lands in exactly one shard); both EM passes
+    reduce over the shards. ``StepOutputs.points`` stays the whole cloud."""
     m = params.num_of_nodes
     dev = state.y.device
     lead = state.y.shape[:-2]
@@ -115,19 +124,22 @@ def _track_from_points(state: TrackerState, pc: PointCloud, proj: torch.Tensor, 
         intr.height, intr.width, params.visibility_threshold,
         params.dlo_pixel_width, params.d_vis,
     )
+    shard = shard_slice(pc.points.shape[-2], model_axis)
+    em_points, em_mask = pc.points[..., shard, :], pc.mask[..., shard]
     iota = torch.arange(m, device=dev)
     guide_node_mask = iota < vis.vis_ext_count[..., None]
     picked = state.y.gather(-2, vis.vis_ext_idx[..., None].expand(*lead, m, 3))
     guide0 = torch.where(guide_node_mask[..., None], picked, 0.0)
     pre = em(
-        pc.points, pc.mask, guide0, guide_node_mask, state.sigma2,
+        em_points, em_mask, guide0, guide_node_mask, state.sigma2,
         CpdParams(
             beta=params.beta_pre_proc, lam=params.lambda_pre_proc,
             lle_weight=params.lle_weight, mu=params.mu, max_iter=params.max_iter,
             tol=params.tol, include_lle=True, prune_radius=params.prune_radius,
             visibility_threshold=params.visibility_threshold, solver=params.solver,
         ),
-        point_min_sq=vis.point_min_sq_ext,
+        point_min_sq=vis.point_min_sq_ext[..., shard],
+        axis_name=model_axis,
     )
     guide_nodes = pre.y
     priors = correspondence_priors(
@@ -135,7 +147,7 @@ def _track_from_points(state: TrackerState, pc: PointCloud, proj: torch.Tensor, 
         vis.vis_ext_count, vis.vis_idx, vis.vis_count,
     )
     main = em(
-        pc.points, pc.mask, state.y, torch.ones((*lead, m), dtype=torch.bool, device=dev),
+        em_points, em_mask, state.y, torch.ones((*lead, m), dtype=torch.bool, device=dev),
         state.sigma2,
         CpdParams(
             beta=params.beta, lam=params.lam, lle_weight=params.lle_weight,
@@ -148,7 +160,8 @@ def _track_from_points(state: TrackerState, pc: PointCloud, proj: torch.Tensor, 
         prior_pos=priors.prior_pos,
         prior_mask=priors.prior_mask,
         visible_count=vis.vis_ext_count,
-        point_min_sq=vis.point_min_sq_all,
+        point_min_sq=vis.point_min_sq_all[..., shard],
+        axis_name=model_axis,
     )
     new_state = TrackerState(y=main.y, sigma2=main.sigma2, geodesic_coord=state.geodesic_coord)
     outputs = StepOutputs(

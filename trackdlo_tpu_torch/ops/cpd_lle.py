@@ -20,11 +20,23 @@ visibility gate, then iterate. The routes, as in the JAX package:
 - the prototype E-step variants (``kernel`` ``"gaussian_geodesic"`` or
   ``"gaussian_euclidean"``, ``use_geodesic_redistance=False``): the
   per-iteration loop with the JAX package's XLA iteration in torch and the
-  chosen solver, which no kernel of the JAX package computes.
+  chosen solver, which no kernel of the JAX package computes;
+- ``axis_name`` (the point-sharded EM, the JAX package's ``shard_map`` over
+  a ``model`` axis): ``x`` is this rank's shard of the cloud and
+  ``axis_name`` the ``torch.distributed`` process group of the ranks that
+  hold the other shards. Every route is then the per-iteration loop (never
+  kernel E or F, also for ``use_fused_mstep``); each over-points sum is an
+  all-reduce SUM (:func:`~trackdlo_tpu_torch.ops.collectives.psum`) and
+  each over-points minimum an all-reduce MIN (``pmin``). With the
+  visibility prior, an iteration runs kernel N (B9) on the shard, the
+  cross-shard minimum, the visibility weights, then the one-phase E-step
+  (kernel S) with those weights; without it, the two-phase E-step. Node
+  space stays replicated: every rank solves the same M-step.
 
 Data-dependent scalars (v_count, n_count, σ², the gate) stay on the device.
 The lockstep loop reads one flag per iteration to learn whether any stream
-is still active. ``axis_name`` raises ``NotImplementedError``.
+is still active; under an axis every rank reads the same flag, since every
+rank holds the same all-reduced bits.
 """
 
 from __future__ import annotations
@@ -34,12 +46,14 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from trackdlo_tpu_torch.ops.collectives import pmin, psum
 from trackdlo_tpu_torch.ops.hopper_kernels import (
     fused_em_iteration,
     fused_em_loop,
     fused_estep_packed,
     fused_estep_packed_batch,
     gauss_jordan_solve_batched,
+    nearest_point_sq,
 )
 from trackdlo_tpu_torch.ops.kernels import (
     gaussian_kernel,
@@ -88,13 +102,11 @@ class CpdResult(NamedTuple):
 _KERNELS = ("mct_geodesic", "gaussian_geodesic", "gaussian_euclidean")
 
 
-def _check_ported(params: CpdParams, axis_name) -> None:
+def _check_params(params: CpdParams) -> None:
     if params.solver not in _SOLVE:
         raise ValueError(f"unknown solver {params.solver!r}")
     if params.kernel not in _KERNELS:
         raise ValueError(f"unknown kernel {params.kernel!r}")
-    if axis_name is not None:
-        raise NotImplementedError("point-axis sharding is not ported yet")
 
 
 def _is_prototype(params: CpdParams) -> bool:
@@ -114,10 +126,13 @@ class EmStaging(NamedTuple):
 
 
 def em_staging(x, x_mask, y, node_mask, sigma2, params: CpdParams, prior_pos=None,
-               prior_mask=None, visible_count=None, point_min_sq=None) -> EmStaging:
+               prior_mask=None, visible_count=None, point_min_sq=None,
+               axis_name=None) -> EmStaging:
     """Prune, build G/HG/HY0/JG/prior displacement and the gate: every
     iteration-invariant input of the EM loop. Every tensor may carry the
-    same leading stream axis (x (B, N, 3), y (B, M, 3), sigma2 (B,), …)."""
+    same leading stream axis (x (B, N, 3), y (B, M, 3), sigma2 (B,), …).
+    Under ``axis_name`` the point count and the σ² init's sum are summed
+    over the shards."""
     dt, dev = y.dtype, y.device
     zero = torch.zeros((), dtype=dt, device=dev)
     sigma2 = torch.as_tensor(sigma2, dtype=dt, device=dev)
@@ -129,7 +144,7 @@ def em_staging(x, x_mask, y, node_mask, sigma2, params: CpdParams, prior_pos=Non
         sq_d0 = pairwise_sq_dists(y0, x)
         point_min_sq = torch.where(node_mask[..., :, None], sq_d0, _BIG).amin(dim=-2)
     x_mask = x_mask & (point_min_sq < params.prune_radius**2)
-    n_count = x_mask.to(dt).sum(dim=-1)
+    n_count = psum(x_mask.to(dt).sum(dim=-1), axis_name)
     n_safe = torch.clamp_min(n_count, 1.0)
 
     node_coord = masked_geodesic_coords(y0, node_mask)
@@ -167,7 +182,8 @@ def em_staging(x, x_mask, y, node_mask, sigma2, params: CpdParams, prior_pos=Non
     if sq_d0 is not None:
         # sigma2 == 0: start from the mean squared node-point distance.
         masked = torch.where(x_mask[..., None, :] & node_mask[..., :, None], sq_d0, zero)
-        s2_init = masked.sum(dim=(-2, -1)) / (3 * torch.clamp_min(v_count, 1.0) * n_safe)
+        s2_init = psum(masked.sum(dim=(-2, -1)), axis_name) / (
+            3 * torch.clamp_min(v_count, 1.0) * n_safe)
         sigma2 = torch.where(sigma2 == 0, s2_init, sigma2)
 
     dyn = torch.stack(torch.broadcast_tensors(sigma2, v_count, n_safe, gate.to(dt)), dim=-1)
@@ -229,14 +245,41 @@ def mstep_system(st: EmStaging, p1, px, s2, params: CpdParams):
     return a.contiguous(), b.contiguous()
 
 
-def em_iteration(st: EmStaging, y, s2, params: CpdParams, estep: Callable, solve: Callable):
-    """One EM iteration of every stream: the E-step, the M-step system and
-    its solve, T = Y0 + G·W, the σ² update (floored at 1e-10) and the mean
-    node move. Returns (t (B, m, 3), sigma2 (B,), delta (B,))."""
+def _psum_packed(axis_name, *parts):
+    """psum of several (B, …) tensors in one all-reduce."""
+    if axis_name is None:
+        return parts
+    flat = psum(torch.cat([p.reshape(p.shape[0], -1) for p in parts], dim=1), axis_name)
+    sizes = [p[0].numel() for p in parts]
+    return tuple(f.reshape(p.shape) for f, p in zip(flat.split(sizes, dim=1), parts))
+
+
+def em_iteration(st: EmStaging, y, s2, params: CpdParams, estep: Callable, solve: Callable,
+                 axis_name=None):
+    """One EM iteration of every stream (the JAX package's
+    ``em_iteration_pallas_sharded``, with or without an axis): the E-step,
+    the M-step system and its solve, T = Y0 + G·W, the σ² update (floored
+    at 1e-10) and the mean node move. Returns (t (B, m, 3), sigma2 (B,),
+    delta (B,)).
+
+    Without an axis, or without the visibility prior, the E-step runs two
+    phases (it finds each node's nearest point itself). Under ``axis_name``
+    with the prior, the nearest points of this shard come from kernel N, the
+    shards' minimum from ``pmin``, and the E-step runs one phase with the
+    visibility weights made here; P1, PX, Np and tr(XᵀdPt1X) are then summed
+    over the shards in one all-reduce."""
     dyn, y0, coord, nm, g, _, _, _, _, x, xm = st.args
     scal = estep_scalars(dyn, s2, params)
-    p1, px, stats, _ = estep(scal, y.contiguous(), coord, nm, torch.ones_like(nm), x, xm,
-                             two_phase=True)
+    y = y.contiguous()
+    if axis_name is not None and params.use_visibility and params.k_vis != 0:
+        shortest = torch.sqrt(pmin(nearest_point_sq(y, nm, x, xm), axis_name))
+        shortest = torch.where(shortest <= params.visibility_threshold, 0.0, shortest)
+        pv = torch.where(nm > 0, torch.exp(-params.k_vis * shortest), 0.0)
+        pv = pv / torch.clamp_min(pv.sum(dim=1, keepdim=True), 1e-30)
+        p1, px, stats, _ = estep(scal, y, coord, nm, pv, x, xm, two_phase=False)
+    else:
+        p1, px, stats, _ = estep(scal, y, coord, nm, torch.ones_like(nm), x, xm, two_phase=True)
+    p1, px, stats = _psum_packed(axis_name, p1, px, stats)
     a, b = mstep_system(st, p1, px, s2, params)
     w = solve(a, b)
     t = y0 + g @ w
@@ -294,19 +337,21 @@ def _geodesic_redistance(p, sq_d, coord, node, v_count):
     )
 
 
-def em_iteration_xla(st: EmStaging, y, s2, params: CpdParams, solve: Callable):
+def em_iteration_xla(st: EmStaging, y, s2, params: CpdParams, solve: Callable, axis_name=None):
     """One EM iteration of every stream as the JAX package's XLA iteration
     computes it, in plain tensor ops on any device: the route of the
     prototype E-step variants (the MCT or Gaussian G is in the staging; with
     ``use_geodesic_redistance=False`` one normalisation and no visibility
-    prior). Returns (t, sigma2, delta) as :func:`em_iteration`."""
+    prior). Under ``axis_name`` the nearest distances take the shards'
+    minimum and P1, PX and tr(XᵀdPt1X) their sum. Returns (t, sigma2,
+    delta) as :func:`em_iteration`."""
     dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm = st.args
     v_count, n_safe, gate = dyn[:, 1], dyn[:, 2], dyn[:, 3] > 0
     node, pts = nm > 0, xm > 0
     pair = node[:, :, None] & pts[:, None, :]
     s2c = s2[:, None, None]
     sq_d = pairwise_sq_dists(y, x)
-    shortest = torch.sqrt(torch.where(pts[:, None, :], sq_d, _BIG).amin(dim=2))
+    shortest = torch.sqrt(pmin(torch.where(pts[:, None, :], sq_d, _BIG).amin(dim=2), axis_name))
     shortest = torch.where(shortest <= params.visibility_threshold, 0.0, shortest)
     p = torch.where(pair, torch.exp(-0.5 * sq_d / s2c), 0.0)
     c_base = (_TWO_PI * s2) ** 1.5 * params.mu / (1 - params.mu)
@@ -322,11 +367,10 @@ def em_iteration_xla(st: EmStaging, y, s2, params: CpdParams, solve: Callable):
         p = p / (p.sum(dim=1, keepdim=True) + c_eff[:, None, None])
         p = torch.where(pair, p, 0.0)
     pt1 = p.sum(dim=1)
-    p1 = p.sum(dim=2)
-    px = p @ x
+    tr_x = (pt1[:, :, None] * x * x).sum(dim=(1, 2))
+    p1, px, tr_x = _psum_packed(axis_name, p.sum(dim=2), p @ x, tr_x)
     a, b = mstep_system(st, p1, px, s2, params)
     t = y0 + g @ solve(a, b)
-    tr_x = (pt1[:, :, None] * x * x).sum(dim=(1, 2))
     tr_pxtt = (px * t).sum(dim=(1, 2))
     tr_tt = (p1[:, :, None] * t * t).sum(dim=(1, 2))
     s2_new = torch.clamp_min((tr_x - 2 * tr_pxtt + tr_tt) / (p1.sum(dim=1) * 3), 1e-10)
@@ -404,25 +448,27 @@ def _estep_one_stream(scal, y, coord, nm, pv, x, xm, *, two_phase):
     return tuple(o[None] for o in out)
 
 
-def iteration_route(st: EmStaging, params: CpdParams, estep: Callable) -> Callable:
+def iteration_route(st: EmStaging, params: CpdParams, estep: Callable,
+                    axis_name=None) -> Callable:
     """The per-iteration route's iteration ``(y, sigma2) -> (t, sigma2,
     delta)`` for the streams of ``st``: the prototype variants' XLA
-    iteration, kernel F (``use_fused_mstep``), or the E-step ``estep`` with
-    the M-step assembly and the chosen solve."""
+    iteration, kernel F (``use_fused_mstep`` without an axis), or the
+    E-step ``estep`` with the M-step assembly and the chosen solve."""
+    solve = _SOLVE[params.solver]
     if _is_prototype(params):
-        return lambda y, s2: em_iteration_xla(st, y, s2, params, _SOLVE[params.solver])
-    if params.use_fused_mstep:
+        return lambda y, s2: em_iteration_xla(st, y, s2, params, solve, axis_name)
+    if params.use_fused_mstep and axis_name is None:
         return lambda y, s2: fused_iteration(st, y, s2, params)
-    return lambda y, s2: em_iteration(st, y, s2, params, estep, _SOLVE[params.solver])
+    return lambda y, s2: em_iteration(st, y, s2, params, estep, solve, axis_name)
 
 
-def _per_iteration_single(st: EmStaging, params: CpdParams, return_deltas: bool):
+def _per_iteration_single(st: EmStaging, params: CpdParams, return_deltas: bool, axis_name=None):
     """The single-stream per-iteration route (solvers other than ``"lu"``,
-    ``return_deltas``, ``use_fused_mstep``, the prototype variants): the
-    lockstep loop over a batch of one, or with ``return_deltas`` all
-    max_iter iterations unconditionally."""
+    ``return_deltas``, ``use_fused_mstep``, the prototype variants, an
+    axis): the lockstep loop over a batch of one, or with ``return_deltas``
+    all max_iter iterations unconditionally."""
     st1 = EmStaging(tuple(a[None] for a in st.args), st.kwargs, st.n_count, st.sigma2)
-    iteration = iteration_route(st1, params, _estep_one_stream)
+    iteration = iteration_route(st1, params, _estep_one_stream, axis_name)
     if not return_deltas:
         y, s2, it, converged = em_loop_lockstep(st1, params, iteration)
         return y[0], s2[0], it[0], converged[0], None
@@ -447,7 +493,7 @@ def cpd_lle(
     prior_pos: torch.Tensor | None = None,
     prior_mask: torch.Tensor | None = None,
     visible_count: torch.Tensor | None = None,
-    axis_name: str | None = None,
+    axis_name: torch.distributed.ProcessGroup | None = None,
     point_min_sq: torch.Tensor | None = None,
     return_deltas: bool = False,
 ):
@@ -456,17 +502,24 @@ def cpd_lle(
     min squared distance to the valid nodes (from the visibility pass) and
     requires ``sigma2 > 0``. With ``return_deltas`` every one of the
     max_iter iterations runs and the result is ``(CpdResult, deltas
-    (max_iter,))``, each iteration's mean node move."""
-    _check_ported(params, axis_name)
+    (max_iter,))``, each iteration's mean node move.
+
+    ``axis_name``: the process group of the point axis (the JAX package's
+    mesh axis name), or ``None``. Under a group, ``x``, ``x_mask`` and
+    ``point_min_sq`` are this rank's shard of the cloud, every other
+    argument is the same on every rank of the group, and so is the
+    result; every rank of the group must make the call."""
+    _check_params(params)
     st = em_staging(x, x_mask, y, node_mask, sigma2, params, prior_pos, prior_mask,
-                    visible_count, point_min_sq)
+                    visible_count, point_min_sq, axis_name)
     deltas = None
-    if (params.solver == "lu" and not return_deltas and not params.use_fused_mstep
-            and not _is_prototype(params)):
+    if (axis_name is None and params.solver == "lu" and not return_deltas
+            and not params.use_fused_mstep and not _is_prototype(params)):
         y_out, stats = fused_em_loop(*st.args, **st.kwargs)
         s2_out, iters, converged = stats[0], stats[1].to(torch.int32), stats[2] > 0
     else:
-        y_out, s2_out, iters, converged, deltas = _per_iteration_single(st, params, return_deltas)
+        y_out, s2_out, iters, converged, deltas = _per_iteration_single(
+            st, params, return_deltas, axis_name)
     # Degenerate input: no valid point at all leaves the state unchanged.
     any_points = st.n_count > 0
     res = CpdResult(
@@ -489,26 +542,30 @@ def cpd_lle_batched(
     prior_mask: torch.Tensor | None = None,
     visible_count: torch.Tensor | None = None,
     point_min_sq: torch.Tensor | None = None,
+    axis_name: torch.distributed.ProcessGroup | None = None,
 ) -> CpdResult:
     """:func:`cpd_lle` of B streams, every argument and result with a
     leading stream axis (the counterpart of ``jax.vmap(cpd_lle)``). B ≥ 2
     runs the lockstep per-iteration loop (batched E-step, batched
     Gauss-Jordan solve; solver ``"lu"``, or the named solver for the
-    diagnostic ones; kernel F for all streams with ``use_fused_mstep``; the
-    XLA iteration for the prototype variants); B = 1 is :func:`cpd_lle`
-    (kernel E on its route), as the JAX package's axis-size-1 rule is."""
-    _check_ported(params, None)
+    diagnostic ones; kernel F for all streams with ``use_fused_mstep`` and
+    no axis; the XLA iteration for the prototype variants); B = 1 is
+    :func:`cpd_lle` (kernel E on its route; the per-iteration loop under an
+    axis), as the JAX package's axis-size-1 rule is. ``axis_name`` as for
+    :func:`cpd_lle`: every rank of the group holds the same B streams, each
+    with its own shard of their clouds."""
+    _check_params(params)
     bsz = y.shape[0]
     if bsz == 1:
         one = lambda a: None if a is None else a[0]
         res = cpd_lle(one(x), one(x_mask), one(y), one(node_mask), one(sigma2), params,
-                      one(prior_pos), one(prior_mask), one(visible_count),
+                      one(prior_pos), one(prior_mask), one(visible_count), axis_name,
                       point_min_sq=one(point_min_sq))
         return CpdResult(*(v[None] for v in res))
     st = em_staging(x, x_mask, y, node_mask, sigma2, params, prior_pos, prior_mask,
-                    visible_count, point_min_sq)
+                    visible_count, point_min_sq, axis_name)
     y_out, s2_out, iters, converged = em_loop_lockstep(
-        st, params, iteration_route(st, params, fused_estep_packed_batch)
+        st, params, iteration_route(st, params, fused_estep_packed_batch, axis_name)
     )
     any_points = st.n_count > 0
     return CpdResult(

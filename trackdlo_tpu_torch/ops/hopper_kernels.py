@@ -1,10 +1,12 @@
 """The EM and prior-walk kernels, each beside its plain PyTorch version.
 
-Counterpart of trackdlo_tpu/ops/pallas_kernels.py for five of its kernels:
+Counterpart of trackdlo_tpu/ops/pallas_kernels.py for its kernels:
 ``fused_em_loop`` (kernel E, csrc/em_loop.cu), ``pursuit_walks_fused``
 (kernel W, csrc/walks.cu), ``fused_estep_packed_batch`` and
 ``fused_estep_packed`` (kernel S, csrc/estep.cu, launched for B streams or
-for one) and ``gauss_jordan_solve_batched`` (kernel G, csrc/gj_solve.cu).
+for one), ``gauss_jordan_solve_batched`` (kernel G, csrc/gj_solve.cu),
+``fused_em_iteration`` (kernel F, csrc/em_iter.cu) and ``nearest_point_sq``
+(kernel N, csrc/nearest.cu).
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel (or raises).
@@ -603,3 +605,46 @@ def _em_iteration_launch(y, y0, node_mask, node_coord, g, hg, hy0, jg, prior_dis
     _build.check(code, "trackdlo_em_iter")
     _build.count_launch("em_iteration")
     return t, stats[:, 0], stats[:, 1]
+
+
+# ---------------------------------------------------------------------------
+# Kernel N: each node's nearest valid point on one shard of the cloud.
+# ---------------------------------------------------------------------------
+
+
+def nearest_point_sq_plain(y, node_mask, x, x_mask):
+    """Kernel N's plain version; same contract as :func:`nearest_point_sq`.
+    The squared distance is summed d = 0, 1, 2 in that order."""
+    d = y[..., :, None, :] - x[..., None, :, :]
+    sq = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    pair = (node_mask > 0)[..., :, None] & (x_mask > 0)[..., None, :]
+    return torch.where(pair, sq, _BIG).amin(dim=-1).clamp_max(_BIG)
+
+
+def nearest_point_sq(y, node_mask, x, x_mask):
+    """The minimum over the valid points of each valid node's squared
+    distance, in one launch (kernel N): ``y`` (…, m, 3), ``node_mask``
+    (…, m) and ``x_mask`` (…, n) bool or 0/1, ``x`` (…, n, 3), with an
+    optional leading stream axis on all four. Returns (…, m) float32, 1e5
+    where the node is masked or no point is valid."""
+    if y.device.type == "cpu":
+        return nearest_point_sq_plain(y, node_mask, x, x_mask)
+    single = y.ndim == 2
+    args = dict(y=y, nm=node_mask.to(_F32), x=x, xm=x_mask.to(_F32))
+    args = {k: (v[None] if single else v).contiguous() for k, v in args.items()}
+    dev = _build.require_cuda("nearest_point_sq", args)
+    bsz, m, _ = args["y"].shape
+    n = args["x"].shape[1]
+    if not 1 <= m <= 48:
+        raise ValueError(f"nearest_point_sq: m={m} outside [1, 48]")
+    shapes = dict(y=(bsz, m, 3), nm=(bsz, m), x=(bsz, n, 3), xm=(bsz, n))
+    for k, want in shapes.items():
+        if tuple(args[k].shape) != want:
+            raise ValueError(f"nearest_point_sq: {k} must be {want}, got {tuple(args[k].shape)}")
+    out = torch.empty((bsz, m), dtype=_F32, device=dev)
+    code = _build.lib().trackdlo_nearest(
+        *(v.data_ptr() for v in args.values()), bsz, m, n, out.data_ptr(), _build.stream_ptr(dev)
+    )
+    _build.check(code, "trackdlo_nearest")
+    _build.count_launch("nearest")
+    return out[0] if single else out

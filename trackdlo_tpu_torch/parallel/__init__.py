@@ -1,4 +1,5 @@
-"""Multi-stream tracking on one card (see :mod:`.sharding`)."""
+"""Multi-stream tracking: batched streams on one card and the (data × model)
+mesh over ``torch.distributed`` ranks (see :mod:`.sharding`, :mod:`.launch`)."""
 
 from trackdlo_tpu_torch.parallel.sharding import (
     build_batched_step_fn,

@@ -1,6 +1,7 @@
-"""The batched multi-stream step: many cameras or ropes on one card.
+"""Multi-stream tracking: batched streams on one card, and the (data × model)
+mesh over ``torch.distributed`` ranks.
 
-Counterpart of trackdlo_tpu/parallel/sharding.py without the mesh: the
+Counterpart of trackdlo_tpu/parallel/sharding.py. The batched step is the
 per-frame step over a leading stream axis (the JAX package's ``jax.vmap`` of
 ``_step_impl``). B frames take one launch of kernel P, B·8 channel rows one
 of kernel C, B streams one of kernel V, 4·B walks one of kernel W, and each
@@ -14,14 +15,24 @@ A converged stream is frozen by select, so grouping changes no stream's
 math. A cohort of one takes the single-stream step (kernel E's whole loop),
 as the JAX package's axis-size-1 rule does.
 
-The device mesh, point-axis sharding and ``build_parallel_step_fn`` are not
-ported yet (ROADMAP item 11): they raise.
+The mesh: one process per rank, ranks laid out data-major as the JAX
+package's device grid (rank r is data index r // model_parallel, model
+index r % model_parallel). Streams are split over ``data``; with
+:func:`build_parallel_step_fn` each stream's cloud is also split over
+``model``, whose ranks reduce the EM's sums and minima with all-reduces
+(:mod:`trackdlo_tpu_torch.ops.collectives`). Every step takes the global
+batch of frames and returns this rank's data slice, the counterpart of the
+shard a device holds. :mod:`trackdlo_tpu_torch.parallel.launch` starts the
+ranks.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from trackdlo_tpu_torch.config import CameraIntrinsics, TrackerParams
 from trackdlo_tpu_torch.device import resolve_device, set_full_fp32
@@ -40,41 +51,73 @@ def replicate_state(state: TrackerState, batch: int) -> TrackerState:
     return TrackerState(*(v.unsqueeze(0).expand((batch,) + v.shape).contiguous() for v in state))
 
 
-def make_tracking_mesh(*args, **kwargs):
-    raise NotImplementedError("device meshes are not ported yet (ROADMAP item 11)")
+@dataclasses.dataclass(frozen=True)
+class TrackingMesh:
+    """This rank's place in a (data × model) mesh of processes."""
+
+    data_size: int
+    model_size: int
+    data_rank: int
+    model_rank: int
+    model_group: dist.ProcessGroup  # the ranks that share this rank's streams
 
 
-def build_parallel_step_fn(*args, **kwargs):
-    raise NotImplementedError("the point-sharded step is not ported yet (ROADMAP item 11)")
+def make_tracking_mesh(n_devices: int | None = None, model_parallel: int = 1) -> TrackingMesh:
+    """A (data × model) mesh over the ranks of the initialised default
+    process group (``n_devices``, when given, must be its size). Every rank
+    must call it, in the same order as its other group calls."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_tracking_mesh needs an initialised default process group "
+                           "(torch.distributed.init_process_group, or parallel.launch.run_ranks)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n = world if n_devices is None else n_devices
+    if n != world:
+        raise ValueError(f"n_devices={n_devices} but the process group has {world} ranks")
+    if model_parallel < 1 or n % model_parallel:
+        raise ValueError(f"{n} devices not divisible by model_parallel={model_parallel}")
+    model_group = None
+    for d in range(n // model_parallel):
+        ranks = list(range(d * model_parallel, (d + 1) * model_parallel))
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            model_group = group
+    return TrackingMesh(n // model_parallel, model_parallel, rank // model_parallel,
+                        rank % model_parallel, model_group)
 
 
-def build_batched_step_fn(params: TrackerParams, intr: CameraIntrinsics,
-                          cohort_size: int | None = None, device=None):
-    """The batched step ``step(state, rgb (B, H, W, 3) u8, depth (B, H, W)
-    u16 mm, occ (B, H, W)) -> (state, outputs)``, a leading B axis on every
-    field of both results. ``occ`` nonzero keeps a pixel; ``None`` keeps
-    all. ``cohort_size`` must divide B. Runs on ``device`` (the CUDA card
-    unless the caller names the CPU)."""
+def _make_step(params: TrackerParams, intr: CameraIntrinsics, cohort_size, mesh, model_axis,
+               device):
     dev = resolve_device(device)
     set_full_fp32()
     cell_px = params.downsample_cell_px or default_cell_px(params.downsample_leaf_size, intr.fx)
     proj = torch.as_tensor(np.array(intr.proj_matrix(), np.float32), device=dev)
     h, w = intr.height, intr.width
+    kw = dict(params=params, intr=intr, model_axis=model_axis)
 
     def run(state: TrackerState, rgb, depth, occ):
         if state.y.shape[0] == 1:
             one = TrackerState(*(v[0] for v in state))
             pc = preprocess_for_step(rgb[0], depth[0], occ[0], params=params, intr=intr,
                                      cell_px=cell_px)
-            new, out = _track_from_points(one, pc, proj, params=params, intr=intr)
+            new, out = _track_from_points(one, pc, proj, **kw)
             return TrackerState(*(v[None] for v in new)), StepOutputs(*(v[None] for v in out))
         pc = preprocess_for_step(rgb, depth, occ, params=params, intr=intr, cell_px=cell_px)
-        return _track_from_points(state, pc, proj, params=params, intr=intr)
+        return _track_from_points(state, pc, proj, **kw)
 
     def step(state: TrackerState, rgb, depth, occ=None):
         b = int(np.shape(rgb)[0])
         if tuple(np.shape(rgb)) != (b, h, w, 3) or tuple(np.shape(depth)) != (b, h, w):
             raise ValueError(f"rgb must be ({b}, {h}, {w}, 3) u8 and depth ({b}, {h}, {w}) u16")
+        if mesh is not None:
+            if b % mesh.data_size:
+                raise ValueError(f"batch {b} not divisible by the mesh's data size {mesh.data_size}")
+            per = b // mesh.data_size
+            sl = slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
+            rgb, depth = rgb[sl], depth[sl]
+            occ = None if occ is None else occ[sl]
+            if state.y.shape[0] == b:
+                state = TrackerState(*(v[sl] for v in state))
+            b = per
         if tuple(state.y.shape) != (b, params.num_of_nodes, 3):
             raise ValueError(f"state.y must be ({b}, {params.num_of_nodes}, 3), "
                              f"got {tuple(state.y.shape)}")
@@ -102,3 +145,30 @@ def build_batched_step_fn(params: TrackerParams, intr: CameraIntrinsics,
         return TrackerState(*cat(states)), StepOutputs(*cat(results))
 
     return step
+
+
+def build_batched_step_fn(params: TrackerParams, intr: CameraIntrinsics,
+                          mesh: TrackingMesh | None = None, cohort_size: int | None = None,
+                          device=None):
+    """The batched step ``step(state, rgb (B, H, W, 3) u8, depth (B, H, W)
+    u16 mm, occ (B, H, W)) -> (state, outputs)``, a leading B axis on every
+    field of both results. ``occ`` nonzero keeps a pixel; ``None`` keeps
+    all. ``cohort_size`` must divide B (with a mesh, this rank's slice).
+    Runs on ``device`` (the CUDA card unless the caller names the CPU).
+
+    With a ``mesh`` (pure data parallelism): the frames are the global batch
+    and this rank steps its data slice of it, B / data size streams, and
+    returns their state and outputs; ``state`` is the global batch's or this
+    slice's. Ranks of one model group step the same streams."""
+    return _make_step(params, intr, cohort_size, mesh, None, device)
+
+
+def build_parallel_step_fn(params: TrackerParams, intr: CameraIntrinsics, mesh: TrackingMesh,
+                           device=None):
+    """The DP × SP step: as :func:`build_batched_step_fn` with a mesh, and
+    each stream's cloud split over the mesh's ``model`` ranks, whose EM
+    passes reduce with all-reduces. Every rank of the model group returns
+    the same state and outputs. The cloud's length (``params.max_points``,
+    or the candidate capacity below it) must be divisible by the model
+    size."""
+    return _make_step(params, intr, None, mesh, mesh.model_group, device)
