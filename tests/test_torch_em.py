@@ -176,9 +176,8 @@ def one_rank_group(tmp_path_factory):
 
 @pytest.mark.parametrize("change", [{"use_geodesic_redistance": False}, {"use_fused_mstep": True},
                                     {"kernel": "gaussian_geodesic"}, {"axis_name": "model"}])
-def test_unported_options_raise(change, request):
-    """Named for the time these options raised; it now checks that they run.
-    No option raises any more. The ones that once did run and match the
+def test_formerly_unported_options_run(change, request):
+    """No option of ``cpd_lle`` raises. The ones that once did run and match the
     JAX package's same route (tests/test_torch_fused_mstep.py holds them to
     it); point-axis sharding (``axis_name``, here a process group of one
     rank) takes the per-iteration route, bit-equal on the CPU to the
@@ -206,9 +205,8 @@ def test_cpd_params_have_no_kernel_switch():
         tc.CpdParams(**_base(), use_pallas=True)
 
 
-def test_return_deltas_raises(one_rank_group):
-    """Named for the time this option raised; it now checks that it runs.
-    return_deltas on the point-sharded EM no longer raises. With one rank
+def test_return_deltas_on_point_axis(one_rank_group):
+    """return_deltas on the point-sharded EM. With one rank
     and the visibility prior on, the sharded main pass (kernel N, the
     shards' minimum, the one-phase E-step) matches the unsharded
     per-iteration pass (the two-phase E-step, which sums the visibility

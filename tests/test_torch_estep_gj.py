@@ -307,3 +307,20 @@ def test_unknown_solver_raises():
     with pytest.raises(ValueError, match="unknown solver"):
         tc.cpd_lle(t(x), t(xm), t(y), torch.ones(M, dtype=torch.bool), torch.tensor(1e-3),
                    tc.CpdParams(**_base(solver="qr_magic")))
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 700, 1024, 2001, 2048, 4096, 16384])
+def test_cluster_shape_covers_every_row_once(n):
+    """Kernels E and S split n rows over a cluster whose shape depends on n
+    alone: 1 to 8 CTAs of at most 2048 rows, about 256 rows each, the CTAs'
+    ranges covering every row exactly once (the card test holds the launch
+    to this shape)."""
+    from trackdlo_tpu_torch.ops.hopper_kernels import cluster_shape
+
+    c, rows = cluster_shape(n)
+    assert 1 <= c <= 8 and rows <= 2048
+    assert c == min(max(-(-n // 256), 1), 8)
+    covered = np.zeros(n, int)
+    for r in range(c):
+        covered[min(n, r * rows):min(n, (r + 1) * rows)] += 1
+    assert (covered == 1).all()

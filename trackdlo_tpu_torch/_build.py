@@ -102,6 +102,10 @@ SIGNATURES = {
         _P,  # out
         _P,
     ],
+    # Kernels E and S launch as thread-block clusters: for n rows, the
+    # cluster size, the rows per CTA and how many clusters the card holds.
+    "trackdlo_em_loop_cluster_info": [_I, _P],
+    "trackdlo_estep_cluster_info": [_I, _P],
 }
 
 _lock = threading.Lock()

@@ -13,6 +13,12 @@ __device__ __forceinline__ float td_warp_sum(float v) {
   return v;
 }
 
+// Butterfly sum: every lane gets the same bits (addition is commutative).
+__device__ __forceinline__ float td_warp_allsum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(TD_FULL_MASK, v, off);
+  return v;
+}
+
 __device__ __forceinline__ float td_warp_min(float v) {
   for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_down_sync(TD_FULL_MASK, v, off));
   return v;

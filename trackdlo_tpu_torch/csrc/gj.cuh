@@ -1,10 +1,11 @@
 // The equilibrated Gauss-Jordan M-step solve of one (m, m) system with
 // three right-hand sides, as block-wide device code in shared memory. Kernel
-// E (em_loop.cu) runs it inside its EM loop; kernel G (gj_solve.cu) runs it
-// once per system.
+// E (em_loop.cu) runs it inside its EM loop, in every CTA of its cluster;
+// kernel G (gj_solve.cu) runs it once per system.
 //
-// The steps are those of trackdlo_tpu/ops/pallas_kernels.py
-// gauss_jordan_solve_batched and _batched_gj_kernel:
+// Replaces the solve of trackdlo_tpu/ops/pallas_kernels.py
+// gauss_jordan_solve_batched (_batched_gj_kernel) and fused_em_loop's M-step
+// (_gj2d_with_inv). The steps are theirs:
 // - each row of A and B divided by a power of two near max|A_row| (exact:
 //   only exponents change), by the rule of the TPU kernel being replaced
 //   (GjScale below);
@@ -17,6 +18,28 @@
 //   w += inv ((B - A w) / e).
 // Padded equations of the TPU function are identity rows that never mix
 // with the real ones, so solving at m (not m_pad) gives the same steps.
+//
+// What bounds it on an H100: the chain of m dependent pivot steps (~0.5
+// MFLOP per system, far below any rate): per step a pivot search, the
+// factors, one update and one barrier.
+//
+// Design, one barrier per step:
+// - Every warp finds the pivot itself: a 32-bit key per candidate whose
+//   integer order is the search's order (|a| by its bits, a used row below
+//   every unused one, NaN below all), one __reduce_max_sync for the best key
+//   and one __reduce_min_sync for its lowest row; the used rows stay in a
+//   register mask.
+// - The identity part is kept in pivot order: column m + k holds the
+//   identity column of the row pivoted at step k, written at that step (it
+//   was exact zeros and a one until then). The entries step k must update
+//   are then always the contiguous columns k + 1 .. m + k (the A columns
+//   after k and the identity columns pivoted so far) and the three B
+//   columns; the pivot row's other identity entries are zeros, so skipping
+//   them changes no value. Each thread owns fixed cells of that m x (m + 3)
+//   block, their row and slot computed before the pivot loop.
+// - An entry's update stays aug[r][c] - factor[r] * aug[p][c], a multiply
+//   then a subtract under -fmad=false, with factor[r] = aug[r][k] / pivot, so
+//   the solve gives the values of the full sweep in the original layout.
 #pragma once
 
 #include "common.cuh"
@@ -24,15 +47,15 @@
 namespace td {
 
 constexpr int GJ_MMAX = 48;
+static_assert(GJ_MMAX <= 64, "the used rows live in a 64-bit mask");
 
 struct GjSmem {
-  float aug[GJ_MMAX * (2 * GJ_MMAX + 3)];  // [A/e | I | B/e]
+  float aug[GJ_MMAX * (2 * GJ_MMAX + 3)];  // [A/e | I in pivot order | B/e]
   float inv[GJ_MMAX * GJ_MMAX];
   float r[GJ_MMAX * 3];
-  float e[GJ_MMAX], factor[GJ_MMAX], diag[GJ_MMAX], used[GJ_MMAX];
-  int perm[GJ_MMAX];
-  int ridx;
-  float pivot;
+  float e[GJ_MMAX], diag[GJ_MMAX];
+  int perm[GJ_MMAX];  // the row pivoted at each step
+  int pos[GJ_MMAX];   // the step at which each row was pivoted
 };
 
 // The two row-scale rules of the TPU kernels. They differ by a factor of 2
@@ -61,76 +84,104 @@ __device__ __forceinline__ float gj_row_scale(float d) {
   }
 }
 
+// The pivot search's order as an unsigned key: a larger |a| wins (the bits
+// of a non-negative float order as integers), a used row (which bids -1)
+// loses to every unused one, and NaN never wins (it compares false).
+__device__ __forceinline__ unsigned gj_pivot_key(float v, bool used) {
+  if (used) return 1u;
+  const float a = fabsf(v);
+  return a == a ? __float_as_uint(a) + 2u : 0u;
+}
+
 // Solves A w = B for one system: ``a`` (m*m, row-major) and ``b`` (m*3)
 // unscaled in shared memory; ``w`` (m*3) in shared memory is written. Every
 // thread of the block calls it; it ends after a barrier.
 template <int THREADS, GjScale RULE>
 __device__ void gj_solve(int m, const float* a, const float* b, float* w, GjSmem& G) {
+  constexpr int NWARPS = THREADS / 32;
+  constexpr int NC = (GJ_MMAX * (GJ_MMAX + 3) + THREADS - 1) / THREADS;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int width = 2 * m + 3;
-  if (tid < m) {
+  const int act = m + 3;  // columns updated per step
+  // Row scales, one warp per row (a maximum is exact in any order).
+  for (int r = warp; r < m; r += NWARPS) {
     float d = 0.0f;
-    for (int c = 0; c < m; ++c) d = fmaxf(d, fabsf(a[tid * m + c]));
-    G.e[tid] = gj_row_scale<RULE>(d);
-    G.used[tid] = 0.0f;
+    for (int c = lane; c < m; c += 32) d = fmaxf(d, fabsf(a[r * m + c]));
+    for (int off = 16; off > 0; off >>= 1) d = fmaxf(d, __shfl_xor_sync(TD_FULL_MASK, d, off));
+    if (lane == 0) {
+      G.e[r] = gj_row_scale<RULE>(d);
+      G.pos[r] = 0;  // stays in bounds for a row never pivoted (an all-NaN column)
+    }
   }
   __syncthreads();
-  for (int k = tid; k < m * width; k += THREADS) {
-    const int r = k / width, c = k % width;
-    float v;
-    if (c < m) v = a[r * m + c] / G.e[r];
-    else if (c < 2 * m) v = (c - m == r) ? 1.0f : 0.0f;
-    else v = b[r * 3 + c - 2 * m] / G.e[r];
-    G.aug[k] = v;
+  for (int r = warp; r < m; r += NWARPS) {
+    const float er = G.e[r];
+    for (int c = lane; c < width; c += 32) {
+      float v;
+      if (c < m) v = a[r * m + c] / er;
+      else if (c < 2 * m) v = 0.0f;  // written when its row is pivoted
+      else v = b[r * 3 + c - 2 * m] / er;
+      G.aug[r * width + c] = v;
+    }
   }
+  // This thread's cells of the m x (m + 3) block of updated entries: row
+  // and slot, fixed for the whole elimination (row -1: no cell).
+  int cell_r[NC], cell_j[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int q = tid + i * THREADS;
+    cell_r[i] = q < m * act ? q / act : -1;
+    cell_j[i] = q < m * act ? q - (q / act) * act : 0;
+  }
+  unsigned long long used = 0ull;
   __syncthreads();
   for (int k = 0; k < m; ++k) {
-    if (warp == 0) {
-      float bv = -2.0f;
-      int br = m;
-      for (int r = lane; r < m; r += 32) {
-        const float cand = G.used[r] > 0.0f ? -1.0f : fabsf(G.aug[r * width + k]);
-        if (cand > bv) {
-          bv = cand;
-          br = r;
-        }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(TD_FULL_MASK, bv, off);
-        const int orow = __shfl_down_sync(TD_FULL_MASK, br, off);
-        if (ov > bv || (ov == bv && orow < br)) {
-          bv = ov;
-          br = orow;
-        }
-      }
-      if (lane == 0) {
-        G.ridx = br;
-        G.pivot = G.aug[br * width + k];
+    unsigned key = 0u;
+    int row = m;
+    for (int r = lane; r < m; r += 32) {
+      const unsigned kr = gj_pivot_key(G.aug[r * width + k], (used >> r) & 1ull);
+      if (kr > key) {
+        key = kr;
+        row = r;
       }
     }
-    __syncthreads();
-    const int ridx = G.ridx;
-    const float pv = G.pivot;
+    const unsigned best = __reduce_max_sync(TD_FULL_MASK, key);
+    const int ridx =
+        best == 0u ? m : (int)__reduce_min_sync(TD_FULL_MASK, key == best ? (unsigned)row : ~0u);
+    const float pv = G.aug[ridx * width + k];
     const float pv_safe = pv == 0.0f ? 1.0f : pv;
-    if (tid < m) G.factor[tid] = tid == ridx ? 0.0f : G.aug[tid * width + k] / pv_safe;
-    __syncthreads();
-    for (int q = tid; q < m * width; q += THREADS) {
-      const int r = q / width, c = q % width;
-      if (r != ridx) G.aug[q] = G.aug[q] - G.factor[r] * G.aug[ridx * width + c];
-    }
+    used |= 1ull << ridx;
     if (tid == 0) {
-      G.used[ridx] = 1.0f;
       G.perm[k] = ridx;
+      if (ridx < m) G.pos[ridx] = k;
       G.diag[k] = pv;
+    }
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int r = cell_r[i];
+      if (r < 0) continue;
+      const int j = cell_j[i];
+      const int c = j < m ? k + 1 + j : m + j;
+      const bool fresh = j == m - 1;  // column m + k: the pivot row's identity column
+      if (r == ridx) {
+        if (fresh) G.aug[r * width + c] = 1.0f;
+        continue;
+      }
+      const float f = G.aug[r * width + k] / pv_safe;
+      const float x = fresh ? 0.0f : G.aug[r * width + c];
+      const float y = fresh ? 1.0f : G.aug[ridx * width + c];
+      G.aug[r * width + c] = x - f * y;
     }
     __syncthreads();
   }
-  for (int q = tid; q < m * (m + 3); q += THREADS) {
-    const int k = q / (m + 3), c = q % (m + 3);
+  // inv[k] and w[k] from the row pivoted at step k, one warp per step.
+  for (int k = warp; k < m; k += NWARPS) {
     const float dg = fabsf(G.diag[k]) < 1e-30f ? 1.0f : G.diag[k];
-    const int pr = G.perm[k];
-    if (c < m) G.inv[k * m + c] = G.aug[pr * width + m + c] / dg;
-    else w[k * 3 + c - m] = G.aug[pr * width + 2 * m + c - m] / dg;
+    const float* row = G.aug + G.perm[k] * width;
+    for (int c = lane; c < m + 3; c += 32) {
+      if (c < m) G.inv[k * m + c] = row[m + G.pos[c]] / dg;
+      else w[k * 3 + c - m] = row[2 * m + c - m] / dg;
+    }
   }
   __syncthreads();
   // Refinement: residual in FMA form against the unscaled system.

@@ -6,10 +6,10 @@
 //
 // What bounds it on an H100: latency. A (48, 48) system with three
 // right-hand sides is ~0.5 MFLOP and 9.8 KB; the elimination is a chain of
-// m dependent pivot steps (a search, then a rank-1 update of [A | I | B]),
-// each behind two barriers. The TPU vectorised all B eliminations across
-// sublanes in one 48-step loop; here the B systems are independent blocks
-// that run side by side on B SMs.
+// m dependent pivot steps (a search, then a rank-1 update of the m + 3 live
+// columns of [A | I | B]), each behind one barrier (gj.cuh). The TPU
+// vectorised all B eliminations across sublanes in one 48-step loop; here
+// the B systems are independent blocks that run side by side on B SMs.
 //
 // Design: one block per system, [A | I | B] (19 KB at m = 48) and the
 // inverse in shared memory, the solve of gj.cuh (the one kernel E runs in
@@ -22,7 +22,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 512;
 
 struct Smem {
   float a[td::GJ_MMAX * td::GJ_MMAX];
@@ -30,9 +30,9 @@ struct Smem {
   td::GjSmem gj;
 };
 
-__global__ void __launch_bounds__(THREADS) gj_solve_kernel(const float* __restrict__ a,
-                                                           const float* __restrict__ b, int m,
-                                                           float* __restrict__ w) {
+__global__ void __launch_bounds__(THREADS, 1)
+    gj_solve_kernel(const float* __restrict__ a, const float* __restrict__ b, int m,
+                    float* __restrict__ w) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x;

@@ -23,6 +23,36 @@ _BIG = 1e5
 _TWO_PI = 6.283185307179586
 _F32 = torch.float32
 
+# Kernels E and S run one E-step over a thread-block cluster
+# (csrc/estep_cluster.cuh): one CTA per 256 rows, 1 to 8 CTAs, each holding
+# at most 2048 rows.
+_CLUSTER_ROWS, _CLUSTER_MAX, _CTA_MAX_ROWS = 256, 8, 2048
+
+
+def cluster_shape(n: int) -> tuple[int, int]:
+    """(CTAs per cluster, rows per CTA) of kernels E and S for ``n`` rows: a
+    function of ``n`` alone, so a stream's result depends neither on the
+    batch it is launched in nor on the card (csrc/estep_cluster.cuh)."""
+    c = min(max(-(-n // _CLUSTER_ROWS), 1), _CLUSTER_MAX)
+    return c, -(-n // c)
+
+
+def _check_cluster_rows(name: str, n: int) -> None:
+    if cluster_shape(n)[1] > _CTA_MAX_ROWS:
+        raise ValueError(f"{name}: n={n} rows exceed {_CLUSTER_MAX * _CTA_MAX_ROWS}")
+
+
+def cluster_info(kernel: str, n: int) -> dict:
+    """Kernel E's (``"em_loop"``) or S's (``"estep"``) cluster launch for
+    ``n`` rows on the current card: the cluster size, the rows per CTA and
+    how many such clusters the card can hold at once."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    fn = getattr(_build.lib(), f"trackdlo_{kernel}_cluster_info")
+    _build.check(fn(int(n), ctypes.addressof(out)), f"trackdlo_{kernel}_cluster_info")
+    return {"cluster_size": out[0], "rows_per_cta": out[1], "max_active_clusters": out[2]}
+
 
 # ---------------------------------------------------------------------------
 # Kernel E: the whole tolerance EM loop of one registration pass.
@@ -154,7 +184,8 @@ def fused_em_loop(
     muf: float, k_vis: float, tau_vis: float, lam: float, coef_lle: float,
     alpha: float, tol: float, max_iter: int,
 ):
-    """The whole tolerance EM loop of one pass in one launch.
+    """The whole tolerance EM loop of one pass in one launch (kernel E, one
+    thread-block cluster of :func:`cluster_shape` CTAs).
 
     ``dyn`` (4,) device values: sigma2, v_count, n_safe, visibility gate.
     ``y0`` (m, 3) EM origin and first iterate; ``coord``/``nm`` (m,)
@@ -171,6 +202,7 @@ def fused_em_loop(
     m, n = y0.shape[0], x.shape[0]
     if not 1 <= m <= 48:
         raise ValueError(f"fused_em_loop: m={m} outside [1, 48]")
+    _check_cluster_rows("fused_em_loop", n)
     y_out = torch.empty((m, 3), dtype=_F32, device=dev)
     stats = torch.empty((4,), dtype=_F32, device=dev)
     code = _build.lib().trackdlo_em_loop(
@@ -388,6 +420,7 @@ def _estep_launch(name, scal, y, coord, nm, pv, x, xm, two_phase):
     n = x.shape[1]
     if not 1 <= m <= 48:
         raise ValueError(f"{name}: m={m} outside [1, 48]")
+    _check_cluster_rows(name, n)
     if tuple(scal.shape) != (bsz, 8) or tuple(x.shape) != (bsz, n, 3) or tuple(xm.shape) != (bsz, n):
         raise ValueError(f"{name}: scal/x/xm shapes do not match y")
     if any(tuple(a.shape) != (bsz, m) for a in (coord, nm, pv)):
@@ -406,7 +439,8 @@ def _estep_launch(name, scal, y, coord, nm, pv, x, xm, two_phase):
 
 
 def fused_estep_packed_batch(scal, y, coord, nm, pv, x, xm, *, two_phase: bool):
-    """The E-step of B streams in one launch (kernel S).
+    """The E-step of B streams in one launch (kernel S, one thread-block
+    cluster of :func:`cluster_shape` CTAs per stream).
 
     ``scal`` (B, 8) per stream: sigma2, c_plain, c_vis, visibility gate,
     v_count, k_vis, tau_vis, unused; ``y`` (B, m, 3); ``coord``/``nm``/``pv``
