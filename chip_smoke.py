@@ -16,7 +16,9 @@ Phases, in order (any failure exits nonzero and prints no result line):
    the card, at the shapes of the main paths (720p frames, M=45, the live
    cloud capacity, 16 streams for the batched E-step; each stream of the
    batch bit-equal to the same stream launched alone), the Gauss-Jordan
-   solve against float64,
+   solve and its plain version against float64, kernel E after 10
+   iterations, the 4·B walks against each stream's alone (the JAX package's
+   audit fields, printed beside the port's names where they differ),
    and the per-iteration EM against kernel E and its plain version; kernel
    P's one-channel modes (floor votes, no leaf) and kernel F (one EM
    iteration with its one-hot M-step solve): F's route against the plain
@@ -44,13 +46,17 @@ Phases, in order (any failure exits nonzero and prints no result line):
    exact launch counts, the per-frame time (CUDA events);
 7. timing: the per-frame single step (parity and coarse), the batched step
    (CUDA events) and each kernel beside its plain version and, for the
-   solve, beside ``torch.linalg.solve``; kernel F also beside one iteration
-   of the single-stream per-iteration route.
+   solve, beside ``torch.linalg.solve``, with its device time from a
+   ``torch.profiler`` trace; kernel F also beside one iteration of the
+   single-stream per-iteration route.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after. The last two lines of standard output are the card line
 and a JSON object ``{"ok": true, "device": {...}}``; the line before them
-holds the kernels' JSON record. Details go to ``chiprun_out/chip_smoke.json``.
+holds the kernels' JSON record. Details go to ``chiprun_out/chip_smoke.json``;
+kernel G's outputs and the closed loop's final nodes and trips to
+``chiprun_out/solve_bits.npz`` (the card tests hold the kernels bit-equal
+to the copy in ``tests/data``).
 """
 
 from __future__ import annotations
@@ -80,6 +86,14 @@ BOUNDS = {
     "em3_plain_max_m": 1e-6,
     "em3_lle_max_m": 1e-6,
     "em3_priors_gate_max_m": 1e-6,
+    # The JAX package's audit fields (perf/tpu_kernel_numerics.py:36-55) that
+    # the checks above do not cover, under its names and bounds: kernel E
+    # against its plain version after 10 iterations (tol 0); the plain
+    # version of kernel G (torch.linalg.solve, on the card) against float64;
+    # kernel W's 4·B walks against each stream's walks alone.
+    "em10_pallas_vs_xla_max_m": 2e-6,
+    "lu_solve_vs_f64_max": 1e-7,
+    "priors_batched_vs_single_max_m": 1e-6,
     "closed_loop_mean_mm": 1.0,
     # The batched slice. The solve against float64 and the batched EM
     # against the single stream are the JAX package's own bounds
@@ -168,6 +182,14 @@ BOUNDS = {
     # against 7.70, a fault logged in ROADMAP §C), so it is held to that.
     "trip_pre_mean_delta": 1.67,
     "trip_main_mean_delta": 1.0,
+}
+# The port's names of four fields of the JAX package's audit, beside the
+# audit's own.
+JAX_NAMES = {
+    "em3_plain_max_m": "em3_fusedloop_vs_xla_max_m",
+    "em3_lle_max_m": "em3_fusedloop_lle_vs_xla_max_m",
+    "em3_priors_gate_max_m": "em3_fusedloop_priors_vs_xla_max_m",
+    "preprocess_parity_p95_m": "preprocess_parity_vs_xla_p95_m",
 }
 N_STREAMS, COHORT = 16, 8
 EXPECTED_LAUNCHES = {"cell_sums": 30, "compact": 30, "visibility": 30, "walks": 30, "em_loop": 60,
@@ -380,6 +402,7 @@ class Smoke:
         self.launches: dict = {}
         self.path_launches: dict = {}
         self.times: dict = {}
+        self.bits: dict = {}  # outputs kept bit for bit (chiprun_out/solve_bits.npz)
         self.bounds_ms: dict = {}
         self.failures: list[str] = []
 
@@ -387,7 +410,8 @@ class Smoke:
     def bound(self, key: str, value: float) -> None:
         self.metrics[key] = value
         ok = abs(value) <= BOUNDS[key]
-        log(f"  {key:34s} {value!r:>24}  bound {BOUNDS[key]!r}  {'ok' if ok else 'FAIL'}")
+        jax = f"  (JAX audit: {JAX_NAMES[key]})" if key in JAX_NAMES else ""
+        log(f"  {key:34s} {value!r:>24}  bound {BOUNDS[key]!r}  {'ok' if ok else 'FAIL'}{jax}")
         if not ok:
             self.failures.append(key)
 
@@ -422,10 +446,30 @@ class Smoke:
         end.synchronize()
         return start.elapsed_time(end) / n
 
+    def device_ms(self, fn, n):
+        """The device time of one call of ``fn`` (the sum of its kernels' and
+        copies' spans in a torch.profiler trace of ``n`` calls after one
+        warm-up call) and its device ops per call; (None, 0) where the trace
+        holds no device activity. Events between back-to-back calls measure
+        the host where the host is slower than the card; this does not."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not ev:
+            return None, 0.0
+        return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / n, len(ev) / n
+
     def time_pair(self, name, kernel_fn, plain_fn, n_kernel=50, n_plain=5, library_fn=None):
         """ms per call of the kernel, of its plain version and of the library
         call (if any), measured in turns (plain, kernel, kernel, plain) with
-        CUDA events."""
+        CUDA events; then the kernel's device time from the profiler."""
         run = self.event_ms
         p1 = run(plain_fn, n_plain)
         k1 = run(kernel_fn, n_kernel)
@@ -435,10 +479,13 @@ class Smoke:
                "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2], "library_ms": None}
         if library_fn is not None:
             rec["library_ms"] = run(library_fn, n_kernel)
+        rec["device_ms"], rec["device_ops_per_call"] = self.device_ms(kernel_fn, n_kernel)
         self.times[name] = rec
         lib = f"   library {rec['library_ms']:.4f} ms" if library_fn is not None else ""
-        log(f"  {name:12s} kernel {rec['ms']:.4f} ms   plain {rec['plain_ms']:.4f} ms{lib}"
-            f"   bound {self.bounds_ms[name][0]:.6f} ms ({self.bounds_ms[name][1]})")
+        dev = ("not measured" if rec["device_ms"] is None
+               else f"{rec['device_ms']:.4f} ms in {rec['device_ops_per_call']:g} ops")
+        log(f"  {name:12s} kernel {rec['ms']:.4f} ms (device {dev})   plain {rec['plain_ms']:.4f} ms"
+            f"{lib}   bound {self.bounds_ms[name][0]:.6f} ms ({self.bounds_ms[name][1]})")
 
     def count_path(self, path: str, fn):
         """Run ``fn`` with every launch counter at 0; keep the counts."""
@@ -569,7 +616,7 @@ class Smoke:
         np, torch = self.np, self.torch
         from trackdlo_tpu_torch.ops.hopper_kernels import pursuit_walks, pursuit_walks_plain
         from trackdlo_tpu_torch.ops.kernels import geodesic_coords
-        from trackdlo_tpu_torch.ops.priors import walk_inputs
+        from trackdlo_tpu_torch.ops.priors import correspondence_priors, walk_inputs
 
         m = self.params.M
         y = torch.as_tensor(self.rope.nodes(0.0, m), dtype=torch.float32, device=self.dev)
@@ -583,12 +630,14 @@ class Smoke:
             "both_ends_occluded": list(range(10, 35)),
         }
         mask_mis, pos_max = 0, 0.0
+        streams = []
         for name, vis in cases.items():
             idx = torch.full((m,), m - 1, dtype=torch.int64, device=self.dev)
             idx[: len(vis)] = torch.as_tensor(vis, device=self.dev)
             cnt = torch.tensor(len(vis), device=self.dev)
             guides = torch.zeros_like(y)
             guides[: len(vis)] = moved[idx[: len(vis)]]
+            streams.append((y, coord, guides, idx, cnt, idx, cnt))
             wi = walk_inputs(y, coord, guides, idx, cnt, idx, cnt)
             pk, vk = pursuit_walks(wi.guides, wi.seglens, wi.ints)
             pp, vp = pursuit_walks_plain(wi.guides, wi.seglens, wi.ints)
@@ -601,6 +650,12 @@ class Smoke:
         self.bound("priors_mask_mismatch", mask_mis)
         self.bound("priors_pos_max_m", pos_max)
         self.kernel_err["walks"] = pos_max
+        # The five cases as the streams of one batch: their 4·5 walks in one
+        # launch of W, against each stream's priors alone.
+        batched = correspondence_priors(*(torch.stack(f) for f in zip(*streams)))
+        diff = max(float((batched.prior_pos[b] - correspondence_priors(*f).prior_pos).abs().max())
+                   for b, f in enumerate(streams))
+        self.bound("priors_batched_vs_single_max_m", diff)
 
     def check_em(self):
         torch = self.torch
@@ -622,6 +677,7 @@ class Smoke:
             ("em3_priors_gate_max_m", {"use_priors": True, "alpha": p.alpha},
              {"prior_pos": nodes + 0.004,
               "prior_mask": torch.arange(m, device=self.dev) < 12}),
+            ("em10_pallas_vs_xla_max_m", {"max_iter": 10}, {}),
         )
         err = 0.0
         for key, extra, kw in cases:
@@ -658,12 +714,15 @@ class Smoke:
         wk = gauss_jordan_solve_batched(a, b)
         wp = gauss_jordan_solve_batched_plain(a, b)
         wk_np, wp_np = wk.cpu().numpy(), wp.cpu().numpy()
-        self.metrics["gj_plain_vs_f64_max"] = float(np.abs(wp_np - w64).max())
-        log(f"  plain (torch.linalg.solve) vs float64: {self.metrics['gj_plain_vs_f64_max']!r}")
+        self.bound("lu_solve_vs_f64_max", float(np.abs(wp_np - w64).max()))
         self.bound("gj_solve_vs_f64_max", float(np.abs(wk_np - w64).max()))
         self.bound("gj_solve_vs_plain_max", float(np.abs(wk_np - wp_np).max()))
         self.kernel_err["gj_solve"] = self.metrics["gj_solve_vs_plain_max"]
         self.gj_spd = (torch.cat([a, a]), torch.cat([b, b]))  # (16, 48, 48) for the timing
+        saved = np.load(os.path.join(ROOT, "tests", "data", "gj_prereg_system.npz"))
+        self.bits["gj_spd16"] = gauss_jordan_solve_batched(*self.gj_spd).cpu().numpy()
+        self.bits["gj_saved_live"] = gauss_jordan_solve_batched(
+            *(torch.from_numpy(saved[k]).to(self.dev)[None] for k in ("a", "b")))[0].cpu().numpy()
 
         a_l, b_l = self.prereg_system()
         cond = float(np.linalg.cond(a_l.double().cpu().numpy()))
@@ -1083,6 +1142,7 @@ class Smoke:
         port_trips = np.stack([torch.stack(guide_iters).cpu().numpy(),
                                torch.stack(iters).cpu().numpy()], axis=1)
         self.trip_count_gate(port_trips, np.array(oracle_trips))
+        self.bits.update(loop_y=state.y.cpu().numpy(), loop_trips=port_trips)
         self.tracker, self.state, self.frames_data = tracker, state, frames
 
     def trip_count_gate(self, port, oracle):
@@ -1784,6 +1844,10 @@ def main() -> int:
         "phase_seconds": phase_s,
     }
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    if smoke.bits:
+        import numpy as np
+
+        np.savez(os.path.join(ROOT, "chiprun_out", "solve_bits.npz"), **smoke.bits)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
     if smoke.failures:

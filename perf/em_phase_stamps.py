@@ -3,23 +3,28 @@ clock64() stamps in instrumented builds of the port's CUDA sources.
 
 Run on a machine with an NVIDIA GPU and nvcc, from the repository root:
 
-    python3 perf/em_phase_stamps.py [--parent DIR]
+    python3 perf/em_phase_stamps.py [--parent DIR] [--variant NAME=DIR ...]
 
 The instrumented sources are generated from ``trackdlo_tpu_torch/csrc`` (and
-from ``DIR/trackdlo_tpu_torch/csrc``, an unpacked earlier tree, for the
-``parent`` variants) into ``build/em_phase_stamps/``; nothing instrumented is
-part of the package. Thread 0 of the first CTA stamps the phase boundaries,
+from ``DIR/trackdlo_tpu_torch/csrc`` of an unpacked earlier tree for
+``--parent``, or of any other tree for each ``--variant``) into
+``build/em_phase_stamps/``; nothing instrumented is part of the package. Thread 0 of the first CTA stamps the phase boundaries,
 so the cycles are those of one SM's clock.
 
 - Kernel E: 10 iterations (tol 0) of the main pass's configuration with the
   gate on, on the live cloud of ``chip_smoke.py`` (frame 1, 2048 rows);
   cycles per iteration by phase, and the launch's time by CUDA events.
-  Variants: the current sources, four lanes per point raised to eight, and
-  the pivot search as a shuffle tree instead of two warp reductions.
 - Kernel G: one solve of the live pre-registration system saved in
   ``tests/data/gj_prereg_system.npz`` (8 copies) and of the (16, 48, 48) SPD
   systems of ``chip_smoke.py``, cycles of block 0 and CUDA events; each
-  variant's solution bit for bit against the saved one.
+  variant's solution bit for bit against the saved one; the current sources
+  at 512 threads and at 256.
+- In both, the solve's pivot steps (``gj.cuh``), per step: each phase as
+  thread 0 of block 0 sees it (the search, the factors, the update, the
+  barrier; in the current solve the search is the search warp's, with its
+  column k + 1, pick and publication apart), the barrier's skew (first to
+  last warp arriving) and its release after the last arrival; per solve,
+  the inverse and the refinement.
 
 Writes ``chiprun_out/em_phase_stamps.json``. The text anchors below follow
 the sources; a source change that moves one fails here loudly.
@@ -39,6 +44,126 @@ sys.path.insert(0, ROOT)
 OUT_DIR = os.path.join(ROOT, "build", "em_phase_stamps")
 NVCC = ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-fmad=false", "-Xcompiler", "-fPIC", "-shared"]
+
+# The solve (gj.cuh), in block 0: thread 0 stamps each pivot step's phases
+# into registers; lane 0 of each warp stamps its arrival at the step's
+# barrier and thread 0 its release, into shared memory; at the end of each
+# solve thread 0 adds the spread between the first and the last warp to
+# arrive (the barrier's skew) and the time from the last arrival to its own
+# release, and every sum goes to global memory (no global access inside a
+# step, where its latency would land in the next phase).
+GJ_STAMPS = r'''
+__device__ unsigned long long gj_acc[GJ_NACC];
+__device__ unsigned long long gj_sp[GJ_NSP];
+#define GJ_ON (blockIdx.x == 0)
+#define GJ_DECL() long long _gj_acc[GJ_NACC - 4] = {0}; long long _gj_prev = 0, _gj_sprev = 0, _gj_s = 0; \
+  long long _gj_sp[GJ_NSP] = {0}; \
+  __shared__ long long _gj_arr[GJ_MMAX][32]; __shared__ long long _gj_rel[GJ_MMAX]
+#define GJ_T(p) do { if (GJ_ON && threadIdx.x == 0) { const long long _t = clock64(); \
+  if ((p) > 0) _gj_acc[(p) - 1] += _t - _gj_prev; _gj_prev = _t; } } while (0)
+#define GJ_ARRIVE(k) do { if (GJ_ON && (threadIdx.x & 31) == 0) _gj_arr[k][threadIdx.x >> 5] = clock64(); } while (0)
+#define GJ_RELEASE(k) do { if (GJ_ON && threadIdx.x == 0) _gj_rel[k] = clock64(); } while (0)
+#define GJ_S_START() do { if (GJ_ON && threadIdx.x == blockDim.x - 32) _gj_sprev = clock64(); } while (0)
+#define GJ_SP(p) do { if (GJ_ON && threadIdx.x == blockDim.x - 32) { const long long _t = clock64(); \
+  _gj_sp[(p)] += _t - _gj_sprev; _gj_s += _t - _gj_sprev; _gj_sprev = _t; } } while (0)
+#define GJ_FLUSH(nw, steps) do { if (GJ_ON && threadIdx.x == 0) { long long _sk = 0, _re = 0; \
+  for (int _k = 0; _k < (steps); ++_k) { long long _lo = _gj_arr[_k][0], _hi = _lo; \
+    for (int _w = 1; _w < (nw); ++_w) { const long long _v = _gj_arr[_k][_w]; \
+      _lo = _v < _lo ? _v : _lo; _hi = _v > _hi ? _v : _hi; } \
+    _sk += _hi - _lo; _re += _gj_rel[_k] - _hi; } \
+  _Pragma("unroll") for (int _i = 0; _i < GJ_NACC - 4; ++_i) \
+    atomicAdd(&gj_acc[_i], (unsigned long long)_gj_acc[_i]); \
+  atomicAdd(&gj_acc[GJ_NACC - 4], (unsigned long long)_sk); \
+  atomicAdd(&gj_acc[GJ_NACC - 3], (unsigned long long)_re); \
+  atomicAdd(&gj_acc[GJ_NACC - 2], (unsigned long long)(steps)); atomicAdd(&gj_acc[GJ_NACC - 1], 1ull); } \
+  if (GJ_ON && threadIdx.x == blockDim.x - 32) { atomicAdd(&gj_acc[0], (unsigned long long)_gj_s); \
+    _Pragma("unroll") for (int _i = 0; _i < GJ_NSP; ++_i) \
+      atomicAdd(&gj_sp[_i], (unsigned long long)_gj_sp[_i]); } } while (0)
+'''
+GJ_HOST = r'''
+extern "C" int gj_reset() {
+  unsigned long long z[GJ_NACC] = {0}, zs[GJ_NSP] = {0};
+  cudaError_t e = cudaMemcpyToSymbol(td::gj_acc, z, sizeof(z));
+  return (int)(e != cudaSuccess ? e : cudaMemcpyToSymbol(td::gj_sp, zs, sizeof(zs)));
+}
+extern "C" int gj_read(long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, td::gj_acc, sizeof(td::gj_acc));
+  return (int)(e != cudaSuccess ? e : cudaMemcpyFromSymbol(out + GJ_NACC, td::gj_sp, sizeof(td::gj_sp)));
+}
+'''
+# Per pivot step: the phases thread 0 stamps (in order), then the barrier's
+# skew and release; per solve, the inverse and refinement after the loop.
+GJ_PHASES = ["search", "factor", "update", "barrier", "tail"]
+GJ_NACC = len(GJ_PHASES) + 4
+# The current solve's search warp, per step: its update of column k + 1 (a
+# division per row), the pick of step k + 1's pivot, its publication.
+GJ_SEARCH_PHASES = ["column k + 1", "pick", "publish"]
+GJ_NSP = len(GJ_SEARCH_PHASES)
+
+# The previous solve: every warp searches; factors per cell.
+GJ_PARENT_ANCHORS = [
+    ("  const int act = m + 3;  // columns updated per step\n",
+     "  const int act = m + 3;  // columns updated per step\n  GJ_DECL();\n"),
+    ("  for (int k = 0; k < m; ++k) {\n    unsigned key = 0u;\n",
+     "  for (int k = 0; k < m; ++k) {\n    GJ_T(0);\n    unsigned key = 0u;\n"),
+    ("    const float pv_safe = pv == 0.0f ? 1.0f : pv;\n",
+     "    const float pv_safe = pv == 0.0f ? 1.0f : pv;\n    GJ_T(1);\n"
+     "    float fs[NC];\n#pragma unroll\n    for (int i = 0; i < NC; ++i)\n"
+     "      fs[i] = cell_r[i] >= 0 ? G.aug[cell_r[i] * width + k] / pv_safe : 0.0f;\n    GJ_T(2);\n"),
+    ("      const float f = G.aug[r * width + k] / pv_safe;\n", "      const float f = fs[i];\n"),
+    ("    __syncthreads();\n  }\n  // inv[k] and w[k]",
+     "    GJ_T(3);\n    GJ_ARRIVE(k);\n    __syncthreads();\n    GJ_T(4);\n    GJ_RELEASE(k);\n  }\n  // inv[k] and w[k]"),
+    ("      w[q] = w[q] + acc;\n    }\n    __syncthreads();\n  }\n}\n",
+     "      w[q] = w[q] + acc;\n    }\n    __syncthreads();\n  }\n  GJ_T(5);\n  GJ_FLUSH(NWARPS, m);\n}\n"),
+]
+
+
+# The current solve: the last warp searches (its lane 0 stamps its part of a
+# step: column k + 1, the pick of step k + 1's pivot, its publication); thread
+# 0, in an update warp, stamps dividing its row's factor, its update and the
+# barrier.
+GJ_ANCHORS = [
+    ("  const int act = m + 3;  // slots updated per step\n",
+     "  const int act = m + 3;  // slots updated per step\n  GJ_DECL();\n"),
+    ("  for (int k = 0; k < m; ++k) {\n    const int p = G.piv_row[k & 1];\n",
+     "  for (int k = 0; k < m; ++k) {\n    GJ_T(0);\n    GJ_S_START();\n    const int p = G.piv_row[k & 1];\n"),
+    ("      col[1] = nxt[1];\n", "      col[1] = nxt[1];\n      GJ_SP(0);\n"),
+    ("        const int ridx = gj_pick(m, used, col, pvn);\n",
+     "        const int ridx = gj_pick(m, used, col, pvn);\n        GJ_SP(1);\n"),
+    ("          G.diag[k + 1] = pvn;\n        }\n      }\n",
+     "          G.diag[k + 1] = pvn;\n        }\n      }\n      GJ_SP(2);\n"),
+    ("        const float f = row[k] / pv_safe;\n", "        const float f = row[k] / pv_safe;\n        GJ_T(2);\n"),
+    ("    __syncthreads();\n  }\n  // inv[k] and w[k]",
+     "    GJ_T(3);\n    GJ_ARRIVE(k);\n    __syncthreads();\n    GJ_T(4);\n    GJ_RELEASE(k);\n  }\n  // inv[k] and w[k]"),
+    ("      w[q] = w[q] + acc;\n    }\n    __syncthreads();\n  }\n}\n",
+     "      w[q] = w[q] + acc;\n    }\n    __syncthreads();\n  }\n  GJ_T(5);\n  GJ_FLUSH(NWARPS, m);\n}\n"),
+]
+
+
+def _stamp_gj(text: str) -> str:
+    """gj.cuh with the per-step stamps; the anchors of whichever solve it holds."""
+    anchors = GJ_ANCHORS if "piv_val" in text else GJ_PARENT_ANCHORS
+    for old, new in anchors:
+        text = _replace(text, old, new)
+    return text.replace("namespace td {\n",
+                        f"namespace td {{\n#define GJ_NACC {GJ_NACC}\n#define GJ_NSP {GJ_NSP}\n" + GJ_STAMPS, 1)
+
+
+def _gj_record(lib) -> dict:
+    acc = (ctypes.c_ulonglong * (GJ_NACC + GJ_NSP))()
+    if lib.gj_read(acc) != 0:
+        raise RuntimeError("gj_read failed")
+    steps, solves = acc[GJ_NACC - 2], acc[GJ_NACC - 1]
+    rec = {f"{p}_cycles_per_step": acc[i] / max(steps, 1) for i, p in enumerate(GJ_PHASES[:-1])}
+    rec.update(barrier_skew_cycles_per_step=acc[GJ_NACC - 4] / max(steps, 1),
+               barrier_release_cycles_per_step=acc[GJ_NACC - 3] / max(steps, 1),
+               tail_cycles_per_solve=acc[len(GJ_PHASES) - 1] / max(solves, 1),
+               steps=steps, solves=solves)
+    if any(acc[GJ_NACC:]):
+        rec["search_warp_cycles_per_step"] = {p: acc[GJ_NACC + i] / max(steps, 1)
+                                              for i, p in enumerate(GJ_SEARCH_PHASES)}
+    return rec
+
 
 # E: stamps accumulate per phase over the iterations of one launch.
 E_STAMPS = r'''
@@ -65,40 +190,6 @@ G_HOST = r'''
 extern "C" int stamps_read(long long* out) { return (int)cudaMemcpyFromSymbol(out, g_st, sizeof(g_st)); }
 '''
 
-REDUX_PIVOT = '''    unsigned key = 0u;
-    int row = m;
-    for (int r = lane; r < m; r += 32) {
-      const unsigned kr = gj_pivot_key(G.aug[r * width + k], (used >> r) & 1ull);
-      if (kr > key) {
-        key = kr;
-        row = r;
-      }
-    }
-    const unsigned best = __reduce_max_sync(TD_FULL_MASK, key);
-    const int ridx =
-        best == 0u ? m : (int)__reduce_min_sync(TD_FULL_MASK, key == best ? (unsigned)row : ~0u);
-'''
-SHUFFLE_PIVOT = '''    float bv = -2.0f;
-    int br = m;
-    for (int r = lane; r < m; r += 32) {
-      const float cand = ((used >> r) & 1ull) ? -1.0f : fabsf(G.aug[r * width + k]);
-      if (cand > bv) {
-        bv = cand;
-        br = r;
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(TD_FULL_MASK, bv, off);
-      const int orow = __shfl_xor_sync(TD_FULL_MASK, br, off);
-      if (ov > bv || (ov == bv && orow < br)) {
-        bv = ov;
-        br = orow;
-      }
-    }
-    const int ridx = br;
-'''
-
-
 def _insert(text: str, anchor: str, add: str, after: bool = True) -> str:
     return _replace(text, anchor, anchor + add if after else add + anchor)
 
@@ -109,8 +200,9 @@ def _replace(text: str, old: str, new: str) -> str:
     return text.replace(old, new, 1)
 
 
-def _headers(csrc: str, variant: str) -> dict:
-    """The variant's headers, with the cluster E-step's pass boundaries stamped."""
+def _headers(csrc: str) -> dict:
+    """The headers, with the cluster E-step's pass boundaries and the solve's
+    pivot steps stamped."""
     out = {}
     for name in os.listdir(csrc):
         if not name.endswith(".cuh"):
@@ -121,33 +213,22 @@ def _headers(csrc: str, variant: str) -> dict:
                             "    __syncthreads();\n    STAMP(1);\n    const int cnt = min(PASS, npts - base);\n")
             text = _replace(text, "    __syncthreads();\n  }\n  if (tid < 4 * m + 2) E.part[buf][tid] = acc;",
                             "    __syncthreads();\n    STAMP(2);\n  }\n  if (tid < 4 * m + 2) E.part[buf][tid] = acc;")
-            if variant == "lanes8":
-                text = _replace(text, "constexpr int EC_LANES = 4;", "constexpr int EC_LANES = 8;")
-        if name == "gj.cuh" and variant == "pivot_shuffle":
-            text = _replace(text, REDUX_PIVOT, SHUFFLE_PIVOT)
+        if name == "gj.cuh":
+            text = _stamp_gj(text)
         out[name] = text
     return out
 
 
-def _em_loop_source(csrc: str, parent: bool) -> str:
+def _em_loop_source(csrc: str) -> str:
     text = '#include "stamps.cuh"\n' + open(os.path.join(csrc, "em_loop.cu")).read()
     text = _insert(text, "  while (!S.done && S.it < A.max_iter) {\n", "    STAMP_START();\n")
-    if parent:  # one CTA, points in chunks of 512
-        text = _insert(text, "    float np_loc = 0.0f, trx_loc = 0.0f;\n    __syncthreads();\n", "    STAMP(0);\n")
-        text = _insert(text, "      __syncthreads();\n      // P1 and PX over the chunk: one warp per (node, quantity).\n",
-                       "      STAMP(1);\n")
-        text = _insert(text, "        if (lane == 0) S.acc[o] += s;\n      }\n      __syncthreads();\n", "      STAMP(2);\n")
-        text = _insert(text, "    block_sum2(S.red, S.red2);\n", "    STAMP(2);\n")
-        text = _insert(text, "    for (int q = tid; q < m * 3; q += THREADS) S.y[q] = S.t[q];\n    __syncthreads();\n",
-                       "    STAMP(5);\n")
-    else:
-        text = _insert(text, "      td::ec_visibility_weights(m, A.k_vis, A.tau_vis, E);\n    }\n", "    STAMP(0);\n")
-        text = _insert(text, "    td::ec_cluster_totals(m, buf, E, cluster);\n", "    STAMP(6);\n")
-        text = _insert(text, "    for (int q = tid; q < m * 3; q += THREADS) E.y[q] = S.t[q];\n    __syncthreads();\n",
-                       "    STAMP(5);\n")
+    text = _insert(text, "      td::ec_visibility_weights(m, A.k_vis, A.tau_vis, E);\n    }\n", "    STAMP(0);\n")
+    text = _insert(text, "    td::ec_cluster_totals(m, buf, E, cluster);\n", "    STAMP(6);\n")
+    text = _insert(text, "    for (int q = tid; q < m * 3; q += THREADS) E.y[q] = S.t[q];\n    __syncthreads();\n",
+                   "    STAMP(5);\n")
     text = _insert(text, "    td::gj_solve<", "    STAMP(3);\n", after=False)
     text = _insert(text, "(m, S.a, S.b, S.w, S.gj);\n", "    STAMP(4);\n")
-    return text + E_HOST
+    return text + E_HOST + GJ_HOST
 
 
 def _gj_source(csrc: str, threads: int | None) -> str:
@@ -158,7 +239,7 @@ def _gj_source(csrc: str, threads: int | None) -> str:
     call = next(line for line in text.splitlines(True) if "td::gj_solve<THREADS" in line)
     text = _insert(text, call, "  STAMP(1);\n")
     text = _insert(text, call, "  STAMP(0);\n", after=False)
-    return '#include "stamps.cuh"\n' + text + G_HOST
+    return '#include "stamps.cuh"\n' + text + G_HOST + GJ_HOST
 
 
 def _build(name: str, csrc: str, headers: dict, source_name: str, source: str, stamps: str) -> ctypes.CDLL:
@@ -205,9 +286,9 @@ def kernel_e(torch, variants) -> dict:
                               use_visibility=True), visible_count=torch.tensor(30, device=dev))
     kw = st.kwargs
     out, ys = {}, {}
-    for name, csrc, parent in variants:
-        lib = _build(f"em_loop_{name}", csrc, _headers(csrc, name), "em_loop.cu",
-                     _em_loop_source(csrc, parent), E_STAMPS)
+    for name, csrc in variants:
+        lib = _build(f"em_loop_{name}", csrc, _headers(csrc), "em_loop.cu", _em_loop_source(csrc),
+                     E_STAMPS)
         fn = lib.trackdlo_em_loop
         fn.argtypes, fn.restype = tb.SIGNATURES["trackdlo_em_loop"], ctypes.c_int
         y_out, stats = torch.empty((m, 3), device=dev), torch.empty(4, device=dev)
@@ -221,7 +302,7 @@ def kernel_e(torch, variants) -> dict:
 
         run()
         torch.cuda.synchronize()
-        if lib.stamps_reset() != 0:
+        if lib.stamps_reset() != 0 or lib.gj_reset() != 0:
             raise RuntimeError("stamps_reset failed")
         run()
         torch.cuda.synchronize()
@@ -230,12 +311,19 @@ def kernel_e(torch, variants) -> dict:
             raise RuntimeError("stamps_read failed")
         iters = int(stats[1])
         ys[name] = y_out.clone()
+        solve = _gj_record(lib)
         out[name] = {"ms_10_iterations": _events_ms(torch, run, 20), "iterations": iters,
                      "cycles_per_iteration": {E_PHASES[i]: acc[i] / iters for i in range(7)},
+                     "solve_steps": solve,
                      "max_abs_vs_first_variant_m": float((ys[name] - next(iter(ys.values()))).abs().max())}
         print(f"E {name:14s} {out[name]['ms_10_iterations']:.4f} ms per 10 iterations; cycles per iteration "
-              f"{ {k: round(v) for k, v in out[name]['cycles_per_iteration'].items()} }", flush=True)
+              f"{ {k: round(v) for k, v in out[name]['cycles_per_iteration'].items()} }; solve "
+              f"{_rounded(out[name]['solve_steps'])}", flush=True)
     return out
+
+
+def _rounded(rec: dict) -> dict:
+    return {k: _rounded(v) if isinstance(v, dict) else round(v) for k, v in rec.items()}
 
 
 def kernel_g(torch, variants) -> dict:
@@ -251,7 +339,7 @@ def kernel_g(torch, variants) -> dict:
     systems["spd_16x48"] = (np.concatenate([a, a]), np.concatenate([b, b]))
     out = {}
     for name, csrc, threads in variants:
-        lib = _build(f"gj_{name}", csrc, _headers(csrc, name), "gj_solve.cu", _gj_source(csrc, threads), G_STAMPS)
+        lib = _build(f"gj_{name}", csrc, _headers(csrc), "gj_solve.cu", _gj_source(csrc, threads), G_STAMPS)
         lib.trackdlo_gj_solve.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
         lib.trackdlo_gj_solve.restype = ctypes.c_int
         rec = {}
@@ -263,11 +351,14 @@ def kernel_g(torch, variants) -> dict:
             call = lambda: lib.trackdlo_gj_solve(at.data_ptr(), bt.data_ptr(), at.shape[0], at.shape[1],
                                                  w.data_ptr(), stream)
             ms = _events_ms(torch, call, 200)
+            if lib.gj_reset() != 0 or call() != 0:
+                raise RuntimeError("gj_reset or the stamped launch failed")
+            torch.cuda.synchronize()
             st = (ctypes.c_longlong * 2)()
             if lib.stamps_read(st) != 0:
                 raise RuntimeError("stamps_read failed")
             rec[key] = {"solve_cycles": st[1] - st[0], "cycles_per_pivot_step": (st[1] - st[0]) / at.shape[1],
-                        "ms": ms}
+                        "ms": ms, "steps": _gj_record(lib)}
             if key.startswith("live"):
                 rec[key]["equals_saved_solution"] = bool(np.array_equal(w[0].cpu().numpy(), saved["w_kernel"]))
         out[name] = rec
@@ -278,6 +369,8 @@ def kernel_g(torch, variants) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="an unpacked earlier tree to stamp beside the current sources")
+    ap.add_argument("--variant", action="append", default=[], metavar="NAME=DIR",
+                    help="another tree to stamp beside them (repeatable)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "em_phase_stamps.json"))
     args = ap.parse_args()
     import torch
@@ -287,10 +380,11 @@ def main() -> int:
         return 2
     csrc = os.path.join(ROOT, "trackdlo_tpu_torch", "csrc")
     parent = os.path.join(args.parent, "trackdlo_tpu_torch", "csrc") if args.parent else None
-    e_variants = ([("parent", parent, True)] if parent else []) + [
-        ("current", csrc, False), ("lanes8", csrc, False), ("pivot_shuffle", csrc, False)]
-    g_variants = ([("parent", parent, 256)] if parent else []) + [
-        ("current", csrc, None), ("current_256", csrc, 256), ("pivot_shuffle", csrc, None)]
+    extra = [(name, os.path.join(d, "trackdlo_tpu_torch", "csrc"))
+             for name, d in (v.split("=", 1) for v in args.variant)]
+    e_variants = ([("parent", parent)] if parent else []) + [("current", csrc)] + extra
+    g_variants = ([("parent", parent, None)] if parent else []) + [
+        ("current", csrc, None), ("current_256", csrc, 256)] + [(n, d, None) for n, d in extra]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card)

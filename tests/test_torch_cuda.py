@@ -502,6 +502,61 @@ def test_gj_kernel_on_live_prereg_system_equals_saved_solution(cuda):
     assert np.array_equal(got, d["w_kernel"])
 
 
+def _parent_bits():
+    """Outputs of the solve's previous design, saved on the card by
+    chip_smoke.py (chiprun_out/solve_bits.npz) before the solve was
+    redesigned: kernel G on the (16, 48, 48) SPD systems and on the saved
+    live system, and the 30-frame closed loop's final nodes and EM trips."""
+    from pathlib import Path
+
+    return np.load(Path(__file__).parent / "data" / "solve_bits.npz")
+
+
+def _spd_systems(dev):
+    """chip_smoke.py's (8, 48, 48) SPD systems (seed 0), twice: (16, 48, 48)."""
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((8, 48, 48)).astype(np.float32)
+    a = a @ a.transpose(0, 2, 1) + 48 * np.eye(48, dtype=np.float32)
+    b = rng.standard_normal((8, 48, 3)).astype(np.float32)
+    return (torch.from_numpy(np.concatenate([a, a])).to(dev),
+            torch.from_numpy(np.concatenate([b, b])).to(dev))
+
+
+def test_gj_kernel_equals_the_previous_design_bit_for_bit(cuda):
+    from pathlib import Path
+
+    from trackdlo_tpu_torch.ops.hopper_kernels import gauss_jordan_solve_batched
+
+    bits = _parent_bits()
+    got = gauss_jordan_solve_batched(*_spd_systems(cuda)).cpu().numpy()
+    assert np.array_equal(got, bits["gj_spd16"])
+    d = np.load(Path(__file__).parent / "data" / "gj_prereg_system.npz")
+    live = gauss_jordan_solve_batched(torch.from_numpy(d["a"]).to(cuda)[None],
+                                      torch.from_numpy(d["b"]).to(cuda)[None])[0].cpu().numpy()
+    assert np.array_equal(live, bits["gj_saved_live"])
+
+
+def test_closed_loop_equals_the_previous_design_bit_for_bit(cuda):
+    """chip_smoke.py's phase-4 loop (30 live frames, columns 500:800
+    occluded on frames 10-20) through Tracker.step: kernel E's new M-step
+    solve gives the previous design's final nodes and every pass's trips."""
+    from trackdlo_tpu_torch.models.trackdlo import Tracker
+
+    bits = _parent_bits()
+    rope, tracker = SyntheticRope(), Tracker(PARAMS, LIVE, device=cuda)
+    state = tracker.init_from_nodes(rope.nodes(0.0, M))
+    trips = []
+    for i in range(1, 31):
+        rgb, depth = render_frame(rope, i / 15.0, LIVE)
+        occ = np.ones((LIVE.height, LIVE.width), np.uint8) * 255
+        if 10 <= i <= 20:
+            occ[:, 500:800] = 0
+        state, out = tracker.step(state, rgb, depth, occ)
+        trips.append([int(out.guide_iterations), int(out.iterations)])
+    assert np.array_equal(np.array(trips), bits["loop_trips"])
+    assert np.array_equal(state.y.cpu().numpy(), bits["loop_y"])
+
+
 def test_gj_kernel_matches_float64_and_plain(cuda):
     from trackdlo_tpu_torch.ops.hopper_kernels import (
         gauss_jordan_solve_batched,

@@ -146,6 +146,14 @@ def test_run_ranks_raises_when_a_rank_fails():
         run_ranks(workers.raise_on_rank_one, 2, device="cpu", timeout_s=RANK_TIMEOUT_S)
 
 
+def test_run_ranks_names_the_rank_that_raised_first():
+    """Rank 1 raises; rank 0's collective then fails for want of its peer.
+    The message leads with rank 1, whose failure caused rank 0's."""
+    with pytest.raises(RuntimeError, match="rank 1 raised first") as info:
+        run_ranks(workers.raise_then_peer_fails, 2, device="cpu", timeout_s=RANK_TIMEOUT_S)
+    assert "rank one fails on purpose" in str(info.value).split("then rank")[0]
+
+
 def test_run_ranks_kills_a_rank_that_hangs():
     with pytest.raises(RuntimeError, match="timed out"):
         run_ranks(workers.hang_on_rank_one, 2, device="cpu", timeout_s=10.0)

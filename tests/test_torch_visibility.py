@@ -126,3 +126,35 @@ def test_wrapper_takes_plain_version_on_cpu():
     t = torch.from_numpy
     args = (t(y), t(x), t(xm), t(_proj()), t(coord), *SCALARS)
     _assert_same(fused_visibility(*args), fused_visibility_plain(*args))
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_kernel_outputs_are_views_of_one_allocation(lead):
+    """Kernel V writes every output, in the plain version's dtypes and
+    shapes, into views of one buffer (no cast after the launch): the views
+    share one storage, do not overlap, and each starts aligned to its
+    element size."""
+    from trackdlo_tpu_torch.ops.visibility_kernel import alloc_visibility_out
+
+    y, x, xm, coord = _case("rope")
+    t = torch.from_numpy
+    rep = lambda a: a if not lead else a.expand(*lead, *a.shape).contiguous()
+    ref = compute_visibility(rep(t(y)), rep(t(x)), rep(t(xm)), t(_proj()), rep(t(coord)), *SCALARS)
+    out, views = alloc_visibility_out(lead, M, N_CAP, "cpu")
+    assert out._fields == ref._fields
+    for f in out._fields:
+        got, want = getattr(out, f), getattr(ref, f)
+        assert (got.dtype, got.shape) == (want.dtype, want.shape), f
+    assert set(views) == set(out._fields) - {"vis_count", "vis_ext_count"} | {"counts"}
+    base = out.vis_idx.untyped_storage().data_ptr()
+    spans = []
+    for name, v in views.items():
+        assert v.is_contiguous() and v.untyped_storage().data_ptr() == base, name
+        start = v.data_ptr() - base
+        assert start % v.element_size() == 0, name
+        spans.append((start, start + v.numel() * v.element_size()))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] == out.vis_idx.untyped_storage().nbytes()
+    assert out.vis_count.data_ptr() == views["counts"].data_ptr()
+    assert out.vis_ext_count.data_ptr() == views["counts"].data_ptr() + 8

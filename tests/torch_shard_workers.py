@@ -141,6 +141,14 @@ def raise_on_rank_one(rank, world, device):
     return rank
 
 
+def raise_then_peer_fails(rank, world, device):
+    """Rank 1 raises at once; rank 0 then loses its peer in a collective."""
+    if rank == 1:
+        raise ValueError("rank one fails on purpose")
+    torch.distributed.all_reduce(torch.zeros(1))
+    return rank
+
+
 def hang_on_rank_one(rank, world, device):
     if rank == 1:
         time.sleep(3600)

@@ -20,26 +20,42 @@
 // with the real ones, so solving at m (not m_pad) gives the same steps.
 //
 // What bounds it on an H100: the chain of m dependent pivot steps (~0.5
-// MFLOP per system, far below any rate): per step a pivot search, the
-// factors, one update and one barrier.
+// MFLOP per system, far below any rate). Each step is a pivot search, one
+// factor per row, an update of the m + 3 live columns of every row and one
+// barrier; its chain holds warp reductions, a shuffle, IEEE divisions and
+// dependent shared-memory accesses, each far slower than its arithmetic
+// (perf/em_phase_stamps.py: ~2,200 cycles a stamped step, of which the
+// search warp's division and update of column k + 1 take ~560 and its pick
+// ~550; the update warps are done after ~940 and wait).
 //
 // Design, one barrier per step:
-// - Every warp finds the pivot itself: a 32-bit key per candidate whose
-//   integer order is the search's order (|a| by its bits, a used row below
-//   every unused one, NaN below all), one __reduce_max_sync for the best key
-//   and one __reduce_min_sync for its lowest row; the used rows stay in a
-//   register mask.
 // - The identity part is kept in pivot order: column m + k holds the
 //   identity column of the row pivoted at step k, written at that step (it
 //   was exact zeros and a one until then). The entries step k must update
-//   are then always the contiguous columns k + 1 .. m + k (the A columns
-//   after k and the identity columns pivoted so far) and the three B
-//   columns; the pivot row's other identity entries are zeros, so skipping
-//   them changes no value. Each thread owns fixed cells of that m x (m + 3)
-//   block, their row and slot computed before the pivot loop.
-// - An entry's update stays aug[r][c] - factor[r] * aug[p][c], a multiply
-//   then a subtract under -fmad=false, with factor[r] = aug[r][k] / pivot, so
-//   the solve gives the values of the full sweep in the original layout.
+//   are then always the m + 3 contiguous slots k + 1 .. m + k (the A
+//   columns after k and the identity columns pivoted so far) and the three
+//   B columns; the pivot row's other identity entries are zeros, so
+//   skipping them changes no value.
+// - The last warp is the search warp. At step k it updates slot 0 (column
+//   k + 1) of every row, two rows a lane, keeping the values in registers,
+//   then picks step k + 1's pivot among them: a 32-bit key per candidate
+//   whose integer order is the search's order (|a| by its bits, a used row
+//   below every unused one, NaN below all), one __reduce_max_sync for the
+//   best key and one __reduce_min_sync for its lowest row. It publishes the
+//   row and its value in shared memory, double-buffered by step parity,
+//   before the step's barrier: the search runs once, not once per warp,
+//   beside the other warps' update.
+// - The other warps own the slots 1 .. m + 2 of the rows: a fixed group of
+//   threads per row, so each thread divides its row's factor aug[r][k] /
+//   pivot once per step (45 divisions a step where there were ~2,160) and
+//   updates its slots, neighbouring threads on neighbouring columns. The
+//   row stride is padded so that the rows a warp covers fall on distinct
+//   banks.
+// - An entry's update stays aug[r][c] - factor * aug[p][c], a multiply then
+//   a subtract under -fmad=false, with the factor a true IEEE quotient, so
+//   the solve gives the values of the full sweep in the original layout,
+//   bit for bit the previous design's.
+// Other layouts measured slower are listed in PERF.md (Findings).
 #pragma once
 
 #include "common.cuh"
@@ -48,14 +64,18 @@ namespace td {
 
 constexpr int GJ_MMAX = 48;
 static_assert(GJ_MMAX <= 64, "the used rows live in a 64-bit mask");
+// The widest row: 2 m + 3 entries, padded by at most 31.
+constexpr int GJ_WMAX = 2 * GJ_MMAX + 3 + 31;
 
 struct GjSmem {
-  float aug[GJ_MMAX * (2 * GJ_MMAX + 3)];  // [A/e | I in pivot order | B/e]
+  float aug[GJ_MMAX * GJ_WMAX];  // [A/e | I in pivot order | B/e], row stride gj_stride
   float inv[GJ_MMAX * GJ_MMAX];
   float r[GJ_MMAX * 3];
   float e[GJ_MMAX], diag[GJ_MMAX];
   int perm[GJ_MMAX];  // the row pivoted at each step
   int pos[GJ_MMAX];   // the step at which each row was pivoted
+  int piv_row[2];     // a step's pivot row and value, by step parity
+  float piv_val[2];
 };
 
 // The two row-scale rules of the TPU kernels. They differ by a factor of 2
@@ -93,16 +113,68 @@ __device__ __forceinline__ unsigned gj_pivot_key(float v, bool used) {
   return a == a ? __float_as_uint(a) + 2u : 0u;
 }
 
+// Threads per row of the update warps (all warps but the last).
+__host__ __device__ constexpr int gj_per_row(int threads, int m) { return (threads - 32) / m; }
+
+// The most slots (1 .. m + 2) one update thread owns, over every m.
+__host__ __device__ constexpr int gj_slots(int threads) {
+  int most = 0;
+  for (int m = 1; m <= GJ_MMAX; ++m) {
+    const int per = gj_per_row(threads, m);
+    const int s = (m + 2 + per - 1) / per;
+    most = s > most ? s : most;
+  }
+  return most;
+}
+
+// The row stride: at least 2 m + 3 and equal to the threads per row modulo
+// 32, so the consecutive rows of one warp start on consecutive banks.
+__device__ __forceinline__ int gj_stride(int m, int per_row) {
+  const int w = 2 * m + 3;
+  return w + (((per_row - w) % 32) + 32) % 32;
+}
+
+// The search warp's pick among its two rows' values (lane and lane + 32):
+// the row step k + 1 pivots on (m when every unused candidate is NaN and no
+// row is used) and, in every lane, its value.
+__device__ __forceinline__ int gj_pick(int m, unsigned long long used, const float (&v)[2],
+                                       float& pv) {
+  const int lane = threadIdx.x & 31;
+  unsigned key = 0u;
+  int row = m;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = lane + 32 * h;
+    if (r < m) {
+      const unsigned kr = gj_pivot_key(v[h], (used >> r) & 1ull);
+      if (kr > key) {
+        key = kr;
+        row = r;
+      }
+    }
+  }
+  const unsigned best = __reduce_max_sync(TD_FULL_MASK, key);
+  const int ridx =
+      best == 0u ? m : (int)__reduce_min_sync(TD_FULL_MASK, key == best ? (unsigned)row : ~0u);
+  const float mine = (ridx >> 5) ? v[1] : v[0];
+  const float got = __shfl_sync(TD_FULL_MASK, mine, ridx & 31);
+  pv = ridx < m ? got : __int_as_float(0x7fffffff);
+  return ridx;
+}
+
 // Solves A w = B for one system: ``a`` (m*m, row-major) and ``b`` (m*3)
 // unscaled in shared memory; ``w`` (m*3) in shared memory is written. Every
 // thread of the block calls it; it ends after a barrier.
 template <int THREADS, GjScale RULE>
 __device__ void gj_solve(int m, const float* a, const float* b, float* w, GjSmem& G) {
   constexpr int NWARPS = THREADS / 32;
-  constexpr int NC = (GJ_MMAX * (GJ_MMAX + 3) + THREADS - 1) / THREADS;
+  constexpr int NC = gj_slots(THREADS);
+  static_assert(THREADS >= 256 && THREADS % 32 == 0, "the update warps need 224 threads");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int width = 2 * m + 3;
-  const int act = m + 3;  // columns updated per step
+  const bool searcher = warp == NWARPS - 1;
+  const int per_row = gj_per_row(THREADS, m);
+  const int width = gj_stride(m, per_row);
+  const int act = m + 3;  // slots updated per step
   // Row scales, one warp per row (a maximum is exact in any order).
   for (int r = warp; r < m; r += NWARPS) {
     float d = 0.0f;
@@ -116,7 +188,7 @@ __device__ void gj_solve(int m, const float* a, const float* b, float* w, GjSmem
   __syncthreads();
   for (int r = warp; r < m; r += NWARPS) {
     const float er = G.e[r];
-    for (int c = lane; c < width; c += 32) {
+    for (int c = lane; c < 2 * m + 3; c += 32) {
       float v;
       if (c < m) v = a[r * m + c] / er;
       else if (c < 2 * m) v = 0.0f;  // written when its row is pivoted
@@ -124,63 +196,104 @@ __device__ void gj_solve(int m, const float* a, const float* b, float* w, GjSmem
       G.aug[r * width + c] = v;
     }
   }
-  // This thread's cells of the m x (m + 3) block of updated entries: row
-  // and slot, fixed for the whole elimination (row -1: no cell).
-  int cell_r[NC], cell_j[NC];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    const int q = tid + i * THREADS;
-    cell_r[i] = q < m * act ? q / act : -1;
-    cell_j[i] = q < m * act ? q - (q / act) * act : 0;
-  }
+  __syncthreads();
+  // The search warp's rows (lane, lane + 32) and the values of their current
+  // column; an update thread's row (-1: none) and first slot.
+  float col[2] = {0.0f, 0.0f};
   unsigned long long used = 0ull;
+  const int my_r = !searcher && tid < per_row * m ? tid / per_row : -1;
+  const int my_g = tid - my_r * per_row;
+  if (searcher) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = lane + 32 * h;
+      if (r < m) col[h] = G.aug[r * width];
+    }
+    float pv;
+    const int ridx = gj_pick(m, used, col, pv);
+    used |= 1ull << ridx;
+    if (lane == 0) {
+      G.piv_row[0] = ridx;
+      G.piv_val[0] = pv;
+      G.perm[0] = ridx;
+      if (ridx < m) G.pos[ridx] = 0;
+      G.diag[0] = pv;
+    }
+  }
   __syncthreads();
   for (int k = 0; k < m; ++k) {
-    unsigned key = 0u;
-    int row = m;
-    for (int r = lane; r < m; r += 32) {
-      const unsigned kr = gj_pivot_key(G.aug[r * width + k], (used >> r) & 1ull);
-      if (kr > key) {
-        key = kr;
-        row = r;
-      }
-    }
-    const unsigned best = __reduce_max_sync(TD_FULL_MASK, key);
-    const int ridx =
-        best == 0u ? m : (int)__reduce_min_sync(TD_FULL_MASK, key == best ? (unsigned)row : ~0u);
-    const float pv = G.aug[ridx * width + k];
+    const int p = G.piv_row[k & 1];
+    const float pv = G.piv_val[k & 1];
     const float pv_safe = pv == 0.0f ? 1.0f : pv;
-    used |= 1ull << ridx;
-    if (tid == 0) {
-      G.perm[k] = ridx;
-      if (ridx < m) G.pos[ridx] = k;
-      G.diag[k] = pv;
-    }
+    if (searcher) {
+      // Slot 0, column k + 1 (the fresh identity column when m == 1).
+      const int c = k + 1;
+      const bool fresh = m == 1;
+      float nxt[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int r = cell_r[i];
-      if (r < 0) continue;
-      const int j = cell_j[i];
-      const int c = j < m ? k + 1 + j : m + j;
-      const bool fresh = j == m - 1;  // column m + k: the pivot row's identity column
-      if (r == ridx) {
-        if (fresh) G.aug[r * width + c] = 1.0f;
-        continue;
+      for (int h = 0; h < 2; ++h) {
+        const int r = lane + 32 * h;
+        if (r >= m) continue;
+        if (r == p) {
+          if (fresh) G.aug[r * width + c] = 1.0f;
+          nxt[h] = G.aug[r * width + c];
+          continue;
+        }
+        const float f = col[h] / pv_safe;
+        const float x = fresh ? 0.0f : G.aug[r * width + c];
+        const float y = fresh ? 1.0f : G.aug[p * width + c];
+        nxt[h] = x - f * y;
+        G.aug[r * width + c] = nxt[h];
       }
-      const float f = G.aug[r * width + k] / pv_safe;
-      const float x = fresh ? 0.0f : G.aug[r * width + c];
-      const float y = fresh ? 1.0f : G.aug[ridx * width + c];
-      G.aug[r * width + c] = x - f * y;
+      col[0] = nxt[0];
+      col[1] = nxt[1];
+      if (k + 1 < m) {
+        float pvn;
+        const int ridx = gj_pick(m, used, col, pvn);
+        used |= 1ull << ridx;
+        if (lane == 0) {
+          G.piv_row[(k + 1) & 1] = ridx;
+          G.piv_val[(k + 1) & 1] = pvn;
+          G.perm[k + 1] = ridx;
+          if (ridx < m) G.pos[ridx] = k + 1;
+          G.diag[k + 1] = pvn;
+        }
+      }
+    } else if (my_r >= 0) {
+      const int r = my_r;
+      float* row = G.aug + r * width;
+      const float* prow = G.aug + p * width;
+      if (r == p) {
+        // The pivot row keeps its values; its fresh identity entry is 1.
+        const int j = m - 1;
+        if (j >= 1 && (j - 1) % per_row == my_g) row[m + k] = 1.0f;
+      } else {
+        const float f = row[k] / pv_safe;
+#pragma unroll
+        for (int i = 0; i < NC; ++i) {
+          const int j = 1 + my_g + i * per_row;
+          if (j < act) {
+            const int c = j < m ? k + 1 + j : m + j;
+            const bool fresh = j == m - 1;  // column m + k: the pivot row's identity column
+            const float x = fresh ? 0.0f : row[c];
+            const float y = fresh ? 1.0f : prow[c];
+            row[c] = x - f * y;
+          }
+        }
+      }
     }
     __syncthreads();
   }
-  // inv[k] and w[k] from the row pivoted at step k, one warp per step.
+  // inv[k] and w[k] from the row pivoted at step k, one warp per step (NaN
+  // where no row was: every candidate of column 0 was NaN).
   for (int k = warp; k < m; k += NWARPS) {
     const float dg = fabsf(G.diag[k]) < 1e-30f ? 1.0f : G.diag[k];
-    const float* row = G.aug + G.perm[k] * width;
+    const int pr = G.perm[k];
+    const float* row = G.aug + (pr < m ? pr : 0) * width;
+    const float nan = __int_as_float(0x7fffffff);
     for (int c = lane; c < m + 3; c += 32) {
-      if (c < m) G.inv[k * m + c] = row[m + G.pos[c]] / dg;
-      else w[k * 3 + c - m] = row[2 * m + c - m] / dg;
+      if (c < m) G.inv[k * m + c] = pr < m ? row[m + G.pos[c]] / dg : nan;
+      else w[k * 3 + c - m] = pr < m ? row[2 * m + c - m] / dg : nan;
     }
   }
   __syncthreads();

@@ -6,18 +6,21 @@
 //
 // What bounds it on an H100: latency. A (48, 48) system with three
 // right-hand sides is ~0.5 MFLOP and 9.8 KB; the elimination is a chain of
-// m dependent pivot steps (a search, then a rank-1 update of the m + 3 live
-// columns of [A | I | B]), each behind one barrier (gj.cuh). The TPU
-// vectorised all B eliminations across sublanes in one 48-step loop; here
-// the B systems are independent blocks that run side by side on B SMs.
+// m dependent pivot steps (a search, one factor per row, an update of the
+// m + 3 live columns of [A | I | B]), each behind one barrier (gj.cuh). The
+// TPU vectorised all B eliminations across sublanes in one 48-step loop;
+// here the B systems are independent blocks that run side by side on B SMs.
 //
-// Design: one block per system, [A | I | B] (19 KB at m = 48) and the
-// inverse in shared memory, the solve of gj.cuh (the one kernel E runs in
-// its M-step, there with B1's row-scale rule): power-of-two row
-// equilibration by 2^ceil(log2 max|row|), partial pivoting with ties to
-// the lowest row, the zero-pivot guards, the inverse and three refinement
-// steps against the unscaled system, so that one launch computes the whole
-// function.
+// Design: one block of 512 threads per system, [A | I | B] (20 KB at
+// m = 48, rows padded against bank conflicts) and the inverse in shared
+// memory, the solve of gj.cuh (the one kernel E runs in its M-step, there
+// with B1's row-scale rule): power-of-two row equilibration by
+// 2^ceil(log2 max|row|), partial pivoting with ties to the lowest row
+// (searched one step ahead by a warp of its own), the zero-pivot guards,
+// the inverse and three refinement steps against the unscaled system, so
+// that one launch computes the whole function. Several systems per block
+// would lengthen each system's chain: at 8-16 systems a launch the card
+// has SMs to spare, and the time of a launch is one system's chain.
 #include "gj.cuh"
 
 namespace {

@@ -3,21 +3,39 @@
 // Replaces: trackdlo_tpu/ops/visibility_kernel.py fused_visibility
 // (_visibility_kernel).
 //
-// What bounds it on an H100: latency. The (M, N) distance sweep is ~0.4
-// MFLOP over ~50 KB of points; the node-space logic (edge ranks, painter's
-// coverage, gap fill, prefix packs) is O(M²) on 45 nodes. As plain tensor
-// code it is ~60 small launches.
+// What bounds it on an H100: latency. The (M, N) distance sweeps are ~0.3
+// MFLOP over the ~360 valid points of a live cloud (~50 KB of points); the
+// node-space logic (edge ranks, painter's coverage, gap fill, prefix packs)
+// is O(M^2) on 45 nodes. As plain tensor code it is ~60 small launches.
 //
 // Design: one CTA of 512 threads per stream (B streams of a batch take one
-// launch, one CTA each). A first sweep over the points gives each
-// node's nearest valid point (warp min trees, then a min over warps). The
-// node-space logic then runs in shared memory with one thread per node or
-// edge: stable edge ranks by counting (ties by index), painter's coverage in
-// pixel space, gap fill, and prefix packs whose empty slots hold m-1. A
-// second sweep recomputes the distances (instead of keeping the (M, N)
-// block, which the TPU kept resident) for each point's minimum over all
-// nodes and over the extended-visible nodes. Pixel coordinates use an IEEE
-// divide and truncation, with pz == 0 guarded.
+// launch, one CTA each).
+// - The valid rows of the cloud are compacted into shared memory once (warp
+//   ballots and a block prefix, in row order; clouds longer than one
+//   segment of SEG rows are taken a segment at a time), so both sweeps
+//   touch only the valid points: about a sixth of the rows of a live cloud,
+//   whose valid points sit at the front of each parity channel's block,
+//   where a stride over all rows leaves most threads idle.
+// - Each node's nearest valid point: the nodes are split over the warps
+//   (warp w takes nodes w, w + 16, w + 32, ...) and each warp sweeps the
+//   compacted points for its nodes, then a warp minimum per node; no
+//   block-wide step per node.
+// - The node-space logic runs in shared memory: stable edge ranks by
+//   counting (ties by index); painter's coverage over every (node, edge)
+//   pair on every thread, a covering pair setting its node's flag (the
+//   arithmetic per pair is the plain version's); the gap fill and both
+//   prefix packs from 64-bit node masks made by warp ballots (nearest
+//   visible neighbours by bit scans, pack slots by __popcll), empty slots
+//   holding m - 1.
+// - Each point's minimum over all nodes and over the extended nodes: one
+//   thread per compacted point, recomputing the distances (the TPU kept the
+//   (M, N) block resident); rows that are not valid get the sentinel.
+// - The outputs are written in the layouts of VisibilityOut (masks as
+//   bytes of 0/1 that PyTorch reads as bool, indices and counts as int64),
+//   into the views of one allocation, so no cast follows the launch.
+// A minimum is exact in any order, so every value is the plain version's;
+// pixel coordinates use an IEEE divide and truncation, with pz == 0
+// guarded.
 #include "common.cuh"
 
 namespace {
@@ -25,6 +43,7 @@ namespace {
 constexpr int MMAX = 64;
 constexpr int THREADS = 512;
 constexpr int NWARPS = THREADS / 32;
+constexpr int SEG = 2048;  // rows compacted at a time
 constexpr float SENTINEL = 1e10f;
 constexpr int BIG_RANK = 1 << 30;
 
@@ -33,18 +52,76 @@ __device__ __forceinline__ float sqd(const float* y, int j, float x0, float x1, 
   return d0 * d0 + d1 * d1 + d2 * d2;
 }
 
+struct Smem {
+  float px[SEG], py[SEG], pz[SEG];  // the segment's valid points, in row order
+  int pidx[SEG];                    // and their rows
+  float y[MMAX * 3], coord[MMAX];
+  float shortest[MMAX], edge_d2[MMAX];
+  float pu[MMAX], pv[MMAX], ru[MMAX], rv[MMAX];
+  int rank[MMAX];
+  int covered[MMAX];
+  unsigned bits[2][2];  // vis and ext masks, words of nodes 0..31 and 32..63
+  int wcount[NWARPS];
+};
+
+// Compacts the valid rows [r0, min(n, r0 + SEG)) into S (row order) and
+// writes the sentinel to both point minima of every other row; returns the
+// count (the same in every thread). Starts with a barrier (no thread still
+// reads the previous segment) and ends in one.
+__device__ int compact_segment(const float* x, const uint8_t* xm, int n, int r0, Smem& S,
+                               float* pmin_all, float* pmin_ext) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r1 = min(n, r0 + SEG);
+  int count = 0;
+  __syncthreads();
+  for (int seg = r0; seg < r1; seg += THREADS) {
+    const int i = seg + tid;
+    const bool v = i < r1 && xm[i];
+    if (i < r1 && !v) {
+      pmin_all[i] = SENTINEL;
+      pmin_ext[i] = SENTINEL;
+    }
+    const unsigned bal = __ballot_sync(TD_FULL_MASK, v);
+    if (lane == 0) S.wcount[warp] = __popc(bal);
+    __syncthreads();
+    int off = count, total = 0;
+    for (int w = 0; w < NWARPS; ++w) {
+      if (w < warp) off += S.wcount[w];
+      total += S.wcount[w];
+    }
+    off += __popc(bal & ((1u << lane) - 1u));
+    if (v) {
+      S.px[off] = x[(size_t)i * 3 + 0];
+      S.py[off] = x[(size_t)i * 3 + 1];
+      S.pz[off] = x[(size_t)i * 3 + 2];
+      S.pidx[off] = i;
+    }
+    count += total;
+    __syncthreads();
+  }
+  return count;
+}
+
+// The 64-bit node mask of the flags ``f`` of threads 0..63 (the others pass
+// false): every thread calls it; ends in a barrier.
+__device__ unsigned long long node_mask(bool f, unsigned (&word)[2]) {
+  const int tid = threadIdx.x;
+  const unsigned bal = __ballot_sync(TD_FULL_MASK, f);
+  if (tid < 64 && (tid & 31) == 0) word[tid >> 5] = bal;
+  __syncthreads();
+  return (unsigned long long)word[0] | ((unsigned long long)word[1] << 32);
+}
+
 __global__ void __launch_bounds__(THREADS, 1) visibility_kernel(
     const float* __restrict__ y_in, const float* __restrict__ x,
     const uint8_t* __restrict__ xm, const float* __restrict__ proj,
     const float* __restrict__ coord_in, int m, int n, int img_rows, int img_cols,
     float tau_vis, float w_half, float d_vis, uint8_t* visible_out,
     uint8_t* extended_out, uint8_t* not_occ_out, float* shortest_out,
-    int* vis_idx, int* ext_idx, int* counts, float* pmin_all, float* pmin_ext) {
-  __shared__ float y[MMAX * 3], coord[MMAX], wmin[NWARPS * MMAX];
-  __shared__ float shortest[MMAX], edge_d2[MMAX];
-  __shared__ float pu[MMAX], pv[MMAX], ru[MMAX], rv[MMAX];
-  __shared__ int rank[MMAX];
-  __shared__ uint8_t vis[MMAX], ext[MMAX];
+    long long* vis_idx, long long* ext_idx, long long* counts, float* pmin_all,
+    float* pmin_ext) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& S = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t sm = (size_t)blockIdx.x * m, sn = (size_t)blockIdx.x * n;
   y_in += sm * 3;
@@ -61,30 +138,51 @@ __global__ void __launch_bounds__(THREADS, 1) visibility_kernel(
   pmin_all += sn;
   pmin_ext += sn;
 
-  for (int k = tid; k < m * 3; k += THREADS) y[k] = y_in[k];
-  for (int k = tid; k < m; k += THREADS) coord[k] = coord_in[k];
-  __syncthreads();
-
-  // Sweep 1: per-node nearest valid point.
-  for (int j = 0; j < m; ++j) {
-    float mn = SENTINEL;
-    for (int i = tid; i < n; i += THREADS)
-      if (xm[i]) mn = fminf(mn, sqd(y, j, x[i * 3], x[i * 3 + 1], x[i * 3 + 2]));
-    mn = td_warp_min(mn);
-    if (lane == 0) wmin[warp * MMAX + j] = mn;
+  for (int k = tid; k < m * 3; k += THREADS) S.y[k] = y_in[k];
+  for (int k = tid; k < m; k += THREADS) {
+    S.coord[k] = coord_in[k];
+    S.covered[k] = 0;
   }
+
   __syncthreads();
 
+  // Sweep 1: each node's nearest valid point; warp w keeps nodes
+  // w + 16 t in registers across the segments.
+  constexpr int NPW = MMAX / NWARPS;  // nodes per warp
+  float ny[NPW][3], mn[NPW];
+#pragma unroll
+  for (int t = 0; t < NPW; ++t) {
+    const int j = warp + NWARPS * t;
+    mn[t] = SENTINEL;
+    for (int d = 0; d < 3; ++d) ny[t][d] = j < m ? S.y[j * 3 + d] : 0.0f;
+  }
+  int count = 0;
+  for (int r0 = 0; r0 < max(n, 1); r0 += SEG) {
+    count = compact_segment(x, xm, n, r0, S, pmin_all, pmin_ext);
+    for (int q = lane; q < count; q += 32) {
+      const float x0 = S.px[q], x1 = S.py[q], x2 = S.pz[q];
+#pragma unroll
+      for (int t = 0; t < NPW; ++t) {
+        if (warp + NWARPS * t >= m) continue;  // the same in the whole warp
+        const float d0 = ny[t][0] - x0, d1 = ny[t][1] - x1, d2 = ny[t][2] - x2;
+        mn[t] = fminf(mn[t], d0 * d0 + d1 * d1 + d2 * d2);
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < NPW; ++t) {
+    const int j = warp + NWARPS * t;
+    const float v = td_warp_min(mn[t]);
+    if (lane == 0 && j < m) S.shortest[j] = sqrtf(v);
+  }
   if (tid < m) {
-    float mn = SENTINEL;
-    for (int w = 0; w < NWARPS; ++w) mn = fminf(mn, wmin[w * MMAX + tid]);
-    shortest[tid] = sqrtf(mn);
     // Edge tid joins nodes tid and tid+1; draw order by midpoint distance.
+    const float* y = S.y;
     if (tid < m - 1) {
       const float mx = (y[tid * 3 + 0] + y[tid * 3 + 3]) / 2.0f;
       const float my = (y[tid * 3 + 1] + y[tid * 3 + 4]) / 2.0f;
       const float mz = (y[tid * 3 + 2] + y[tid * 3 + 5]) / 2.0f;
-      edge_d2[tid] = mx * mx + my * my + mz * mz;
+      S.edge_d2[tid] = mx * mx + my * my + mz * mz;
     }
     const float y0 = y[tid * 3], y1 = y[tid * 3 + 1], y2 = y[tid * 3 + 2];
     const float px = y0 * proj[0] + y1 * proj[1] + y2 * proj[2] + proj[3];
@@ -93,87 +191,93 @@ __global__ void __launch_bounds__(THREADS, 1) visibility_kernel(
     const float pz_s = pz == 0.0f ? 1.0f : pz;
     const float u = (float)(int)(px / pz_s);
     const float v = (float)(int)(py / pz_s);
-    pu[tid] = u;
-    pv[tid] = v;
-    ru[tid] = fminf(fmaxf(u, 0.0f), (float)(img_cols - 1));
-    rv[tid] = fminf(fmaxf(v, 0.0f), (float)(img_rows - 1));
+    S.pu[tid] = u;
+    S.pv[tid] = v;
+    S.ru[tid] = fminf(fmaxf(u, 0.0f), (float)(img_cols - 1));
+    S.rv[tid] = fminf(fmaxf(v, 0.0f), (float)(img_rows - 1));
   }
   __syncthreads();
 
   // Stable ascending edge ranks (ties broken by index).
   if (tid < m - 1) {
-    const float d = edge_d2[tid];
+    const float d = S.edge_d2[tid];
     int r = 0;
     for (int e = 0; e < m - 1; ++e)
-      r += (edge_d2[e] < d || (edge_d2[e] == d && e < tid)) ? 1 : 0;
-    rank[tid] = r;
+      r += (S.edge_d2[e] < d || (S.edge_d2[e] == d && e < tid)) ? 1 : 0;
+    S.rank[tid] = r;
   }
   __syncthreads();
 
-  // Painter's self-occlusion: a node is occluded if an edge drawn before
-  // its first adjacent edge covers its pixel.
+  // Painter's self-occlusion over every (node, edge) pair: a node is
+  // occluded if an edge drawn before its first adjacent edge covers its
+  // pixel. Every covering pair stores the same 1.
+  for (int q = tid; q < m * (m - 1); q += THREADS) {
+    const int i = q / (m - 1), e = q - i * (m - 1);
+    const int r_next = i < m - 1 ? S.rank[i] : BIG_RANK;
+    const int r_prev = i > 0 ? S.rank[i - 1] : BIG_RANK;
+    if (S.rank[e] >= min(r_next, r_prev)) continue;
+    const float ax = S.pu[e], ay = S.pv[e];
+    const float abx = S.pu[e + 1] - ax, aby = S.pv[e + 1] - ay;
+    const float apx = S.ru[i] - ax, apy = S.rv[i] - ay;
+    const float denom = fmaxf(abx * abx + aby * aby, 1e-12f);
+    const float t = fminf(fmaxf((apx * abx + apy * aby) / denom, 0.0f), 1.0f);
+    const float dx = S.ru[i] - (ax + t * abx);
+    const float dy = S.rv[i] - (ay + t * aby);
+    if (sqrtf(dx * dx + dy * dy) <= w_half) S.covered[i] = 1;
+  }
+  __syncthreads();
+
+  // Visible: not self-occluded and near the cloud; then the geodesic gap
+  // fill between the nearest visible neighbours, and the packs.
+  const bool vis = tid < m && !S.covered[tid] && S.shortest[tid] <= tau_vis;
+  const unsigned long long vmask = node_mask(vis, S.bits[0]);
+  bool ext = false;
   if (tid < m) {
-    const int r_next = tid < m - 1 ? rank[tid] : BIG_RANK;
-    const int r_prev = tid > 0 ? rank[tid - 1] : BIG_RANK;
-    const int check = min(r_next, r_prev);
-    bool covered = false;
-    for (int e = 0; e < m - 1; ++e) {
-      if (rank[e] >= check) continue;
-      const float ax = pu[e], ay = pv[e];
-      const float abx = pu[e + 1] - ax, aby = pv[e + 1] - ay;
-      const float apx = ru[tid] - ax, apy = rv[tid] - ay;
-      const float denom = fmaxf(abx * abx + aby * aby, 1e-12f);
-      const float t = fminf(fmaxf((apx * abx + apy * aby) / denom, 0.0f), 1.0f);
-      const float dx = ru[tid] - (ax + t * abx);
-      const float dy = rv[tid] - (ay + t * aby);
-      if (sqrtf(dx * dx + dy * dy) <= w_half) covered = true;
+    ext = vis;
+    const unsigned long long below = vmask & (~0ull >> (63 - tid));  // bits 0..tid
+    const unsigned long long above = vmask >> tid;                    // bits tid..
+    if (!ext && below && above) {
+      const int prev = 63 - __clzll(below);
+      const int next = tid + __ffsll(above) - 1;
+      ext = fabsf(S.coord[next] - S.coord[prev]) <= d_vis;
     }
-    not_occ_out[tid] = covered ? 0 : 1;
-    shortest_out[tid] = shortest[tid];
-    vis[tid] = (!covered && shortest[tid] <= tau_vis) ? 1 : 0;
+    not_occ_out[tid] = S.covered[tid] ? 0 : 1;
+    shortest_out[tid] = S.shortest[tid];
+    visible_out[tid] = vis ? 1 : 0;
+    extended_out[tid] = ext ? 1 : 0;
   }
-  __syncthreads();
-
-  // Geodesic gap fill between the nearest visible neighbours.
+  const unsigned long long emask = node_mask(ext, S.bits[1]);
   if (tid < m) {
-    int prev = -1, next = -1;
-    for (int j = tid; j >= 0; --j)
-      if (vis[j]) { prev = j; break; }
-    for (int j = tid; j < m; ++j)
-      if (vis[j]) { next = j; break; }
-    bool e = vis[tid] != 0;
-    if (!e && prev >= 0 && next >= 0) e = fabsf(coord[next] - coord[prev]) <= d_vis;
-    ext[tid] = e ? 1 : 0;
-    visible_out[tid] = vis[tid];
-    extended_out[tid] = ext[tid];
-  }
-  __syncthreads();
-
-  if (tid == 0) {
-    int cv = 0, ce = 0;
-    for (int j = 0; j < m; ++j) {
-      if (vis[j]) vis_idx[cv++] = j;
-      if (ext[j]) ext_idx[ce++] = j;
+    const unsigned long long lower = (1ull << tid) - 1ull;
+    const int cv = __popcll(vmask), ce = __popcll(emask);
+    if (vis) vis_idx[__popcll(vmask & lower)] = tid;
+    if (ext) ext_idx[__popcll(emask & lower)] = tid;
+    if (tid >= cv) vis_idx[tid] = m - 1;
+    if (tid >= ce) ext_idx[tid] = m - 1;
+    if (tid == 0) {
+      counts[0] = cv;
+      counts[1] = ce;
     }
-    for (int j = cv; j < m; ++j) vis_idx[j] = m - 1;
-    for (int j = ce; j < m; ++j) ext_idx[j] = m - 1;
-    counts[0] = cv;
-    counts[1] = ce;
   }
 
-  // Sweep 2: per-point minima over all nodes and over extended nodes.
-  for (int i = tid; i < n; i += THREADS) {
-    float ma = SENTINEL, me = SENTINEL;
-    if (xm[i]) {
-      const float x0 = x[i * 3], x1 = x[i * 3 + 1], x2 = x[i * 3 + 2];
+  // Sweep 2: each valid point's minimum over all nodes and over the
+  // extended nodes, one thread per compacted point (the last segment is
+  // still in shared memory; earlier ones are compacted again).
+  const int nseg = (n + SEG - 1) / SEG;
+  for (int s = 0; s < nseg; ++s) {
+    const int r0 = s * SEG;
+    if (nseg > 1) count = compact_segment(x, xm, n, r0, S, pmin_all, pmin_ext);
+    for (int q = tid; q < count; q += THREADS) {
+      const float x0 = S.px[q], x1 = S.py[q], x2 = S.pz[q];
+      float ma = SENTINEL, me = SENTINEL;
       for (int j = 0; j < m; ++j) {
-        const float s = sqd(y, j, x0, x1, x2);
-        ma = fminf(ma, s);
-        if (ext[j]) me = fminf(me, s);
+        const float d = sqd(S.y, j, x0, x1, x2);
+        ma = fminf(ma, d);
+        if ((emask >> j) & 1ull) me = fminf(me, d);
       }
+      pmin_all[S.pidx[q]] = ma;
+      pmin_ext[S.pidx[q]] = me;
     }
-    pmin_all[i] = ma;
-    pmin_ext[i] = me;
   }
 }
 
@@ -183,11 +287,15 @@ extern "C" int trackdlo_visibility(
     const float* y, const float* x, const uint8_t* xm, const float* proj,
     const float* coord, int n_streams, int m, int n, int img_rows, int img_cols,
     float tau_vis, float w_half, float d_vis, uint8_t* visible,
-    uint8_t* extended, uint8_t* not_occ, float* shortest, int* vis_idx,
-    int* ext_idx, int* counts, float* pmin_all, float* pmin_ext, void* stream) {
+    uint8_t* extended, uint8_t* not_occ, float* shortest, long long* vis_idx,
+    long long* ext_idx, long long* counts, float* pmin_all, float* pmin_ext, void* stream) {
   if (m < 2 || m > MMAX || n < 0 || n_streams < 0) return (int)cudaErrorInvalidValue;
   if (n_streams == 0) return 0;
-  visibility_kernel<<<n_streams, THREADS, 0, (cudaStream_t)stream>>>(
+  const int smem = (int)sizeof(Smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(visibility_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  visibility_kernel<<<n_streams, THREADS, smem, (cudaStream_t)stream>>>(
       y, x, xm, proj, coord, m, n, img_rows, img_cols, tau_vis, w_half, d_vis,
       visible, extended, not_occ, shortest, vis_idx, ext_idx, counts, pmin_all,
       pmin_ext);

@@ -28,24 +28,62 @@ import os
 import queue
 import tempfile
 import time
+import traceback
+from typing import NamedTuple
 
 import numpy as np
 
 
-def _rank_main(rank, fn, world, store_path, timeout_s, device, args, results):
-    import torch
-    import torch.distributed as dist
+class RankFailure(NamedTuple):
+    """What a rank that raised reports: when (``time.monotonic``, one clock
+    for every process of the host) and its traceback."""
 
-    if torch.device(device).type == "cpu":
-        # The ranks share the host's cores.
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
-                            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+    at: float
+    traceback: str
+
+
+def _rank_main(rank, fn, world, store_path, timeout_s, device, args, results):
+    failed_at = None
     try:
-        out = fn(rank, world, device, *args)
-    finally:
-        dist.destroy_process_group()
+        import torch
+        import torch.distributed as dist
+
+        if torch.device(device).type == "cpu":
+            # The ranks share the host's cores.
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            # Every rank has joined the group before any runs fn: a rank that
+            # fails at once cannot tear the group down under a peer that is
+            # still connecting.
+            dist.barrier()
+            out = fn(rank, world, device, *args)
+        except BaseException:
+            # Timed before this rank's teardown, so before any failure it
+            # causes on a peer.
+            failed_at = time.monotonic()
+            raise
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        at = time.monotonic() if failed_at is None else failed_at
+        results.put((rank, RankFailure(at, traceback.format_exc())))
+        raise
     results.put((rank, out))
+
+
+def _failure_message(failures: dict, fallback: str) -> str:
+    """The rank that raised first, then every other rank that raised (a
+    peer's lost connection comes after the failure that caused it)."""
+    if not failures:
+        return f"run_ranks failed: {fallback}"
+    order = sorted(failures, key=lambda r: failures[r].at)
+    first = order[0]
+    msg = f"run_ranks failed: rank {first} raised first:\n{failures[first].traceback}"
+    for r in order[1:]:
+        msg += f"\nthen rank {r}:\n{failures[r].traceback}"
+    return msg
 
 
 def run_ranks(fn, world: int, *, device=None, timeout_s: float = 120.0, args: tuple = ()) -> list:
@@ -55,7 +93,10 @@ def run_ranks(fn, world: int, *, device=None, timeout_s: float = 120.0, args: tu
     card that is not there raises). Raises if a rank raises (with its
     traceback), exits nonzero or has not finished ``timeout_s`` seconds
     after the start (every rank still running is then killed); the
-    collectives time out after ``timeout_s`` as well."""
+    collectives time out after ``timeout_s`` as well. Where several ranks
+    raised, the message leads with the one that raised first (time.monotonic,
+    one clock for the host): a peer that lost its connection because of it
+    comes after."""
     import torch.multiprocessing as mp
 
     from trackdlo_tpu_torch.device import resolve_device
@@ -84,7 +125,11 @@ def run_ranks(fn, world: int, *, device=None, timeout_s: float = 120.0, args: tu
                 try:
                     done = ctx.join(timeout=0.5)
                 except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
-                    raise RuntimeError(f"run_ranks failed: rank {e.error_index}: {e}") from None
+                    # join has ended every rank: what they reported is queued.
+                    drain(wait_s=5.0)
+                    failures = {r: v for r, v in got.items() if isinstance(v, RankFailure)}
+                    raise RuntimeError(_failure_message(
+                        failures, f"rank {e.error_index}: {e}")) from None
                 drain()
                 if done:
                     break
@@ -97,6 +142,9 @@ def run_ranks(fn, world: int, *, device=None, timeout_s: float = 120.0, args: tu
                     p.kill()
                     p.join(timeout=10.0)
     drain(wait_s=5.0)
+    failures = {r: v for r, v in got.items() if isinstance(v, RankFailure)}
+    if failures:
+        raise RuntimeError(_failure_message(failures, ""))
     if len(got) < world:
         raise RuntimeError(f"run_ranks failed: ranks {sorted(set(range(world)) - set(got))} "
                            "exited without a result")
