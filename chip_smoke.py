@@ -20,6 +20,9 @@ Phases, in order (any failure exits nonzero and prints no result line):
    iterations, the 4·B walks against each stream's alone (the JAX package's
    audit fields, printed beside the port's names where they differ),
    and the per-iteration EM against kernel E and its plain version; kernel
+   W bit for bit its saved previous design; kernel E's trips on four saved
+   pre-registration passes against the JAX package's B1, and frame 25 phase
+   by phase through a probe build of kernel E (ROADMAP §C fault 1); kernel
    P's one-channel modes (floor votes, no leaf) and kernel F (one EM
    iteration with its one-hot M-step solve): F's route against the plain
    per-iteration route, a live tolerance run through F, F batched; kernel N
@@ -55,8 +58,9 @@ read just after. The last two lines of standard output are the card line
 and a JSON object ``{"ok": true, "device": {...}}``; the line before them
 holds the kernels' JSON record. Details go to ``chiprun_out/chip_smoke.json``;
 kernel G's outputs and the closed loop's final nodes and trips to
-``chiprun_out/solve_bits.npz`` (the card tests hold the kernels bit-equal
-to the copy in ``tests/data``).
+``chiprun_out/exact_products_bits.npz``, kernel W's inputs and outputs on
+five cases to ``chiprun_out/walks_bits.npz`` (the card tests hold the
+kernels bit-equal to the copies in ``tests/data``).
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -92,8 +97,19 @@ BOUNDS = {
     # version of kernel G (torch.linalg.solve, on the card) against float64;
     # kernel W's 4·B walks against each stream's walks alone.
     "em10_pallas_vs_xla_max_m": 2e-6,
+    # ROADMAP §C fault 1: on the four saved pre-registration passes, kernel
+    # E's and the plain version's trips within one of B1's; the probe build
+    # of kernel E takes kernel E's trips; on frame 25 no phase of kernel E
+    # ten times further from float64 than the plain float32 route's.
+    "prereg_trips_vs_b1_max": 1,
+    "prereg_probe_trips_mismatch": 0,
+    "prereg_phase_vs_plain_max_ratio": 10.0,
     "lu_solve_vs_f64_max": 1e-7,
     "priors_batched_vs_single_max_m": 1e-6,
+    # Kernel W on the five cases and their 4·5-walk batch, from the inputs
+    # saved with the previous design's outputs: every position and mask
+    # bit for bit.
+    "walks_vs_saved_mismatch": 0,
     "closed_loop_mean_mm": 1.0,
     # The batched slice. The solve against float64 and the batched EM
     # against the single stream are the JAX package's own bounds
@@ -178,9 +194,7 @@ BOUNDS = {
     "sharded_launch_mismatch": 0,
     # The EM trip-count gate (perf/trip_counts.py): over the closed loop the
     # port's mean iterations per pass within one of the float64 oracle's.
-    # The pre-registration pass missed that before the cluster kernels (9.37
-    # against 7.70, a fault logged in ROADMAP §C), so it is held to that.
-    "trip_pre_mean_delta": 1.67,
+    "trip_pre_mean_delta": 1.0,
     "trip_main_mean_delta": 1.0,
 }
 # The port's names of four fields of the JAX package's audit, beside the
@@ -237,14 +251,16 @@ OPS_WALK_STEP_SEG = 40     # kernel W: one sphere-segment test
 def gj_solve_ops(m: int) -> int:
     """The least work of kernel G's function for one system: the LU
     factorisation and the inverse (2 m^3), the solve for three right-hand
-    sides (2 m^2 3) and three refinement steps (two m x m x 3 products
-    each)."""
-    return 2 * m ** 3 + 2 * m * m * 3 + 3 * 2 * 2 * m * m * 3
+    sides (2 m^2 3) and three refinement steps (each the residual's m x m x 3
+    product as the nine products of B1's bfloat16 pieces, and the
+    correction's one product)."""
+    return 2 * m ** 3 + 2 * m * m * 3 + 3 * (9 + 1) * 2 * m * m * 3
 
 
 def em_mstep_ops(m: int) -> int:
-    """Kernel E's M-step per iteration: the solve, then T = Y0 + G W."""
-    return gj_solve_ops(m) + 2 * m * m * 3
+    """Kernel E's M-step per iteration (and kernel G's with its node
+    update): the solve, then T = Y0 + G W as nine piece products."""
+    return gj_solve_ops(m) + 9 * 2 * m * m * 3
 
 
 def onehot_mstep_ops(m: int) -> int:
@@ -402,7 +418,8 @@ class Smoke:
         self.launches: dict = {}
         self.path_launches: dict = {}
         self.times: dict = {}
-        self.bits: dict = {}  # outputs kept bit for bit (chiprun_out/solve_bits.npz)
+        self.bits: dict = {}  # outputs kept bit for bit (chiprun_out/exact_products_bits.npz)
+        self.walk_bits: dict = {}  # kernel W's inputs and outputs (chiprun_out/walks_bits.npz)
         self.bounds_ms: dict = {}
         self.failures: list[str] = []
 
@@ -647,15 +664,44 @@ class Smoke:
                 pos_max = max(pos_max, float((pk - pp).abs()[both].max()))
             log(f"  {name:20s} state {int(wi.state)}  valid nodes {int(vp.sum())}")
             self.w_args = (wi.guides, wi.seglens, wi.ints)
+            self.walk_bits.update({f"{name}_{k}": v.cpu().numpy() for k, v in (
+                ("guides", wi.guides), ("seglens", wi.seglens), ("ints", wi.ints), ("pos", pk),
+                ("valid", vk))})
         self.bound("priors_mask_mismatch", mask_mis)
         self.bound("priors_pos_max_m", pos_max)
         self.kernel_err["walks"] = pos_max
+        for k in ("guides", "seglens", "ints"):
+            self.walk_bits[f"batch_{k}"] = np.concatenate([self.walk_bits[f"{name}_{k}"] for name in cases])
+        batch = [torch.from_numpy(self.walk_bits[f"batch_{k}"]).to(self.dev) for k in ("guides", "seglens", "ints")]
+        self.walk_bits.update(zip(("batch_pos", "batch_valid"),
+                                  (v.cpu().numpy() for v in pursuit_walks(*batch))))
+        self.check_walks_bits(list(cases) + ["batch"])
         # The five cases as the streams of one batch: their 4·5 walks in one
         # launch of W, against each stream's priors alone.
         batched = correspondence_priors(*(torch.stack(f) for f in zip(*streams)))
         diff = max(float((batched.prior_pos[b] - correspondence_priors(*f).prior_pos).abs().max())
                    for b, f in enumerate(streams))
         self.bound("priors_batched_vs_single_max_m", diff)
+
+    def check_walks_bits(self, cases):
+        """Kernel W on the saved inputs of the five cases and their 4·5-walk
+        batch (tests/data/walks_bits.npz, saved from the previous design of
+        the kernel): positions and masks bit for bit the saved ones."""
+        np, torch = self.np, self.torch
+        from trackdlo_tpu_torch.ops.hopper_kernels import pursuit_walks
+
+        path = os.path.join(ROOT, "tests", "data", "walks_bits.npz")
+        if not os.path.exists(path):
+            self.failures.append("walks_bits_missing")
+            return
+        saved = np.load(path)
+        mismatch = 0
+        for name in cases:
+            args = [torch.from_numpy(saved[f"{name}_{k}"]).to(self.dev) for k in ("guides", "seglens", "ints")]
+            pos, valid = (v.cpu().numpy() for v in pursuit_walks(*args))
+            mismatch += int((pos.view(np.int32) != saved[f"{name}_pos"].view(np.int32)).sum())
+            mismatch += int((valid != saved[f"{name}_valid"]).sum())
+        self.bound("walks_vs_saved_mismatch", mismatch)
 
     def check_em(self):
         torch = self.torch
@@ -692,6 +738,47 @@ class Smoke:
             self.bound(key, e)
             err = max(err, e)
         self.kernel_err["em_loop"] = err
+
+    def check_prereg_frames(self, probe_lib):
+        """ROADMAP §C fault 1: kernel E on the staged pre-registration inputs
+        of four frames of this loop (tests/data/prereg_frames.npz, staged
+        from the float64 oracle's state), its trips and the plain version's
+        against the JAX package's B1 (interpreted on the CPU, trips saved
+        beside the inputs); then frame 25 through the probe build of kernel
+        E (perf/port_em_probes.py phases: every phase of 16 iterations, tol
+        0, fed kernel E's own inputs, on this machine's CPU): each phase's
+        relative error against float64, kernel E's and the plain float32
+        route's, and the largest ratio of the two."""
+        np, torch = self.np, self.torch
+        import port_em_probes as probes
+        from trackdlo_tpu_torch.ops.hopper_kernels import fused_em_loop, fused_em_loop_plain
+
+        d = dict(np.load(os.path.join(ROOT, "tests", "data", "prereg_frames.npz")))
+        worst, probe_mismatch = 0, 0
+        trips = {}
+        for i in probes.B1_FRAMES:
+            kw = probes._frame_kwargs(d, i)
+            args = [torch.from_numpy(d[f"f{i}_{k}"]).to(self.dev) for k in probes.B1_ARGS]
+            kernel = int(fused_em_loop(*args, **kw)[1][1])
+            plain = int(fused_em_loop_plain(*args, **kw)[1][1])
+            b1 = int(d[f"f{i}_b1_trips"])
+            trips[i] = {"kernel E": kernel, "plain": plain, "B1": b1, "oracle": int(d[f"f{i}_oracle_trips"])}
+            worst = max(worst, abs(kernel - b1), abs(plain - b1))
+            if i == 25:
+                deep = dict(kw, tol=0.0, max_iter=probes.PROBE_ITERS)
+                dump, _ = probes.run_probe(probe_lib, args, deep)
+                probe_mismatch += int(probes.run_probe(probe_lib, args, kw)[1][1]) != kernel
+                summary = probes.phase_summary(probes.phase_errors(d, i, dump, with_b1=False))
+                ratio = max(r["kernel E / plain"] for r in summary.values())
+                self.metrics["prereg_frame25_phases"] = summary
+                for ph, r in summary.items():
+                    log(f"  frame 25, {ph:17s} kernel E {r['kernel E']:.3g}, plain {r['plain']:.3g} "
+                        f"(relative to float64, median of 16 iterations)")
+            log(f"  frame {i}: trips {trips[i]}")
+        self.metrics["prereg_frames_trips"] = trips
+        self.bound("prereg_trips_vs_b1_max", worst)
+        self.bound("prereg_probe_trips_mismatch", probe_mismatch)
+        self.bound("prereg_phase_vs_plain_max_ratio", ratio)
 
     def check_gj(self):
         """Kernel G: the (8, 48, 48) SPD systems of perf/tpu_kernel_numerics.py
@@ -781,7 +868,7 @@ class Smoke:
             if cond > best[0]:
                 best = (cond, (a[0].clone(), b[0].clone()))
             t, s2, delta = em_iteration(st, yb, s2, params, fused_estep_packed_batch,
-                                        gauss_jordan_solve_batched)
+                                        lambda a, b, g, y0: gauss_jordan_solve_batched(a, b, g, y0)[1])
             yb = t
             if float(delta[0]) < p.tol:
                 break
@@ -922,8 +1009,9 @@ class Smoke:
             params = CpdParams(**{**short, **extra})
             st = em_staging(pc.points, pc.mask, y, nm4, s2_4, params, visible_count=vcs, **kw)
             def loop(estep, solve, st=st, params=params):
+                update = lambda a, b, g, y0: solve(a, b, g, y0)[1]  # the solve and T = Y0 + G W
                 return em_loop_lockstep(
-                    st, params, lambda y, s2: em_iteration(st, y, s2, params, estep, solve))
+                    st, params, lambda y, s2: em_iteration(st, y, s2, params, estep, update))
 
             yk, sk, ik, _ = loop(fused_estep_packed_batch, gauss_jordan_solve_batched)
             yp, sp, ip, _ = loop(fused_estep_packed_batch_plain, gauss_jordan_solve_batched_plain)
@@ -1020,7 +1108,8 @@ class Smoke:
         plain = dataclasses.replace(main, use_fused_mstep=False)
         st = em_staging(one(x), one(xm), one(nodes), one(nm), one(s2), plain, visible_count=one(vc))
         y_xla, _, it_xla, _ = em_loop_lockstep(
-            st, plain, lambda y, s: em_iteration_xla(st, y, s, plain, gauss_jordan_solve_batched_plain))
+            st, plain, lambda y, s: em_iteration_xla(
+                st, y, s, plain, lambda a, b, g, y0: y0 + g @ gauss_jordan_solve_batched_plain(a, b)))
         log(f"  10 iterations: fused route {int(fused.iterations)}, plain route {int(it_xla[0])}")
         self.bound("em10_fusedmstep_vs_xla_max_m", float((fused.y - y_xla[0]).abs().max()))
         self.f_stage = (st, main)
@@ -1782,10 +1871,31 @@ def main() -> int:
         f"nvcc {probe['nvcc']}, triton {probe['triton']}, python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
+    # The probe build of kernel E (fault 1's phase summary) compiles beside
+    # the library.
+    sys.path.insert(0, os.path.join(ROOT, "perf"))
+    import port_em_probes
+
+    probe: dict = {}
+
+    def build_probe():
+        try:
+            probe["lib"] = port_em_probes.build_probe(os.path.join(ROOT, "trackdlo_tpu_torch", "csrc"),
+                                                      "smoke")
+        except BaseException as e:  # SystemExit carries nvcc's output
+            probe["error"] = str(e)
+
+    probe_thread = threading.Thread(target=build_probe)
+    probe_thread.start()
     lib_path = _build.build(verbose=True)
     _build.lib()
+    probe_thread.join()
+    if "lib" not in probe:
+        log(f"FAILED: the probe build of kernel E: {probe.get('error')}")
+        return 1
     log(f"[2] build: {lib_path.name} in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
+        f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s), "
+        f"with the probe build of kernel E")
 
     smoke = Smoke()
     phase_s = {}
@@ -1797,6 +1907,7 @@ def main() -> int:
         smoke.check_visibility()
         smoke.check_walks()
         smoke.check_em()
+        smoke.check_prereg_frames(probe["lib"])
         smoke.check_gj()
         smoke.check_estep()
         smoke.check_em_periter()
@@ -1847,7 +1958,11 @@ def main() -> int:
     if smoke.bits:
         import numpy as np
 
-        np.savez(os.path.join(ROOT, "chiprun_out", "solve_bits.npz"), **smoke.bits)
+        np.savez(os.path.join(ROOT, "chiprun_out", "exact_products_bits.npz"), **smoke.bits)
+    if smoke.walk_bits:
+        import numpy as np
+
+        np.savez(os.path.join(ROOT, "chiprun_out", "walks_bits.npz"), **smoke.walk_bits)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
     if smoke.failures:

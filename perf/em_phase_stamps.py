@@ -1,9 +1,10 @@
-"""Where kernel E's iteration and kernel G's solve spend their cycles, from
-clock64() stamps in instrumented builds of the port's CUDA sources.
+"""Where kernel E's iteration, kernel G's solve and kernel W's walk steps
+spend their cycles, from clock64() stamps in instrumented builds of the
+port's CUDA sources.
 
 Run on a machine with an NVIDIA GPU and nvcc, from the repository root:
 
-    python3 perf/em_phase_stamps.py [--parent DIR] [--variant NAME=DIR ...]
+    python3 perf/em_phase_stamps.py [--parent DIR] [--variant NAME=DIR ...] [--only e,g,w]
 
 The instrumented sources are generated from ``trackdlo_tpu_torch/csrc`` (and
 from ``DIR/trackdlo_tpu_torch/csrc`` of an unpacked earlier tree for
@@ -17,9 +18,15 @@ so the cycles are those of one SM's clock.
 - Kernel G: one solve of the live pre-registration system saved in
   ``tests/data/gj_prereg_system.npz`` (8 copies) and of the (16, 48, 48) SPD
   systems of ``chip_smoke.py``, cycles of block 0 and CUDA events; each
-  variant's solution bit for bit against the saved one; the current sources
-  at 512 threads and at 256.
-- In both, the solve's pivot steps (``gj.cuh``), per step: each phase as
+  variant's solution bit for bit against the saved ones (of the design with
+  a float32 refinement residual, and of the current one); the current
+  sources at 512 threads and at 256.
+- Kernel W: chip_smoke.py's five walk cases, per step of each case's
+  longest walk (its lane 0): the look-ahead read, the segment tests, the
+  warp's first acceptable segment, the broadcast and store; its steps and
+  live steps, and the launch's time by CUDA events. ``--only`` picks the
+  kernels (e, g, w).
+- In E and G, the solve's pivot steps (``gj.cuh``), per step: each phase as
   thread 0 of block 0 sees it (the search, the factors, the update, the
   barrier; in the current solve the search is the search warp's, with its
   column k + 1, pick and publication apart), the barrier's skew (first to
@@ -38,6 +45,8 @@ import json
 import os
 import subprocess
 import sys
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -190,6 +199,120 @@ G_HOST = r'''
 extern "C" int stamps_read(long long* out) { return (int)cudaMemcpyFromSymbol(out, g_st, sizeof(g_st)); }
 '''
 
+# W: per step of one walk (its lane 0), cycles by phase; the walk is chosen
+# at run time (w_stamp_walk), so a walk that lives is stamped.
+W_STAMPS = r'''
+#pragma once
+__device__ long long w_acc[8];
+__device__ int w_stamp_walk;
+#define W_ON(wk) ((wk) == w_stamp_walk && (threadIdx.x & 31) == 0)
+#define W_DECL() long long _w_acc[4] = {0, 0, 0, 0}; long long _w_prev = 0, _w_start = clock64(); \
+  int _w_steps = 0, _w_live = 0
+#define W_T(wk, p) do { if (W_ON(wk)) { const long long _t = clock64(); \
+  if ((p) > 0) _w_acc[(p) - 1] += _t - _w_prev; else ++_w_steps; _w_prev = _t; } } while (0)
+// A stamp after v is in a register: the branch waits for v (a load's latency).
+#define W_T_DEP(wk, p, v) do { if (__float_as_uint(v) == 0xffffffffu) _w_live += 1 << 20; \
+  W_T(wk, p); } while (0)
+#define W_LIVE(wk, eff) do { if (W_ON(wk) && (eff)) ++_w_live; } while (0)
+#define W_FLUSH(wk) do { if (W_ON(wk)) { for (int _i = 0; _i < 4; ++_i) w_acc[_i] = _w_acc[_i]; \
+  w_acc[4] = _w_steps; w_acc[5] = _w_live; w_acc[6] = clock64() - _w_start; } } while (0)
+'''
+W_HOST = r'''
+extern "C" int w_stamps_set(int walk) { long long z[8] = {0};
+  cudaError_t e = cudaMemcpyToSymbol(w_acc, z, sizeof(z));
+  return (int)(e != cudaSuccess ? e : cudaMemcpyToSymbol(w_stamp_walk, &walk, sizeof(walk))); }
+extern "C" int w_stamps_read(long long* out) { return (int)cudaMemcpyFromSymbol(out, w_acc, sizeof(w_acc)); }
+'''
+W_PHASES = ["look-ahead load", "segment tests", "first acceptable segment", "broadcast and store"]
+# The design before the redesign: every step of m - 1 runs (the anchors of
+# the current design, below, are tried first).
+W_PARENT_ANCHORS = [
+    ("  int last = start_guide, node_pos = start_node;\n  bool alive = true;\n", "  W_DECL();\n"),
+    ("  for (int step = 0; step < m - 1; ++step) {\n", "    W_T(wk, 0);\n"),
+    ("    const float look = seglens[(size_t)wk * (m - 1) + min(max(node_pos, 0), m - 2)];\n",
+     "    W_T_DEP(wk, 1, look);\n"),
+    ("      if (ok) first_local = (float)s;  // k descends, so the lowest s wins\n    }\n",
+     "    W_T(wk, 2);\n"),
+    ("    const bool eff = alive_t && found;\n", "    W_T(wk, 3);\n    W_LIVE(wk, eff);\n"),
+    ("    alive = alive && found;\n", "    W_T(wk, 4);\n"),
+    ("    alive = alive && found;\n    W_T(wk, 4);\n  }\n", "  W_FLUSH(wk);\n"),
+]
+# The current design: the loop ends when the walk can no longer move.
+W_ANCHORS = [
+    ("    const float look = __shfl_sync(TD_FULL_MASK, (li >> 5) ? look_at[1] : look_at[0], li & 31);\n",
+     "    W_T_DEP(wk, 1, look);\n"),
+    ("  int last = start_guide, node_pos = start_node;\n", "  W_DECL();\n"),
+    ("  for (int step = 0; step < m - 1; ++step) {\n", "    W_T(wk, 0);\n"),
+    ("      first_local = s;\n    }\n", "    W_T(wk, 2);\n"),
+    ("    const int first = __reduce_min_sync(TD_FULL_MASK, first_local);\n",
+     "    W_T(wk, 3);\n    W_LIVE(wk, first != INT_MAX);\n"),
+    ("      V[node_pos] = 1;\n    }\n", "    W_T(wk, 4);\n"),
+    ("      V[node_pos] = 1;\n    }\n    W_T(wk, 4);\n  }\n", "  W_FLUSH(wk);\n"),
+]
+
+
+def _walks_source(csrc: str) -> str:
+    text = open(os.path.join(csrc, "walks.cu")).read()
+    anchors = W_ANCHORS if W_ANCHORS and W_ANCHORS[0][0] in text else W_PARENT_ANCHORS
+    for old, add in anchors:
+        text = _insert(text, old, add)
+    return '#include "stamps.cuh"\n' + text + W_HOST
+
+
+def kernel_w(torch, variants) -> dict:
+    """Kernel W on chip_smoke.py's five walk cases: per variant, the stamped
+    walk's cycles per step by phase (the case's longest walk), its steps
+    and live steps, and the launch's time by CUDA events."""
+    import chip_smoke
+    from trackdlo_tpu_torch import _build as tb
+
+    smoke = chip_smoke.Smoke()
+    smoke.check_walks()
+    cases = ("all_visible", "mid_occluded", "tail_occluded", "head_occluded", "both_ends_occluded")
+    out = {}
+    for name, csrc in variants:
+        lib = _build(f"walks_{name}", csrc, _headers(csrc), "walks.cu", _walks_source(csrc), W_STAMPS)
+        fn = lib.trackdlo_walks
+        fn.argtypes, fn.restype = tb.SIGNATURES["trackdlo_walks"], ctypes.c_int
+        rec = {}
+        for case in cases:
+            g, sl, ints = (torch.from_numpy(smoke.walk_bits[f"{case}_{k}"]).to(smoke.dev)
+                           for k in ("guides", "seglens", "ints"))
+            n_w, m = g.shape[:2]
+            pos = torch.empty((n_w, m, 3), device=smoke.dev)
+            valid = torch.empty((n_w, m), dtype=torch.uint8, device=smoke.dev)
+            walk = int(torch.from_numpy(smoke.walk_bits[f"{case}_valid"]).sum(1).argmax())
+
+            def run():
+                code = fn(g.data_ptr(), sl.data_ptr(), ints.data_ptr(), n_w, m, 1e-4, pos.data_ptr(),
+                          valid.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                if code != 0:
+                    raise RuntimeError(f"{name}: launch failed with cudaError_t {code}")
+
+            run()
+            torch.cuda.synchronize()
+            if lib.w_stamps_set(walk) != 0:
+                raise RuntimeError("w_stamps_set failed")
+            run()
+            torch.cuda.synchronize()
+            acc = (ctypes.c_longlong * 8)()
+            if lib.w_stamps_read(acc) != 0:
+                raise RuntimeError("w_stamps_read failed")
+            steps = max(acc[4], 1)
+            rec[case] = {"walk": walk, "steps": acc[4], "live_steps": acc[5] & ((1 << 20) - 1),
+                         "cycles_per_step": {W_PHASES[i]: acc[i] / steps for i in range(4)},
+                         "walk_cycles": acc[6], "ms": _events_ms(torch, run, 200),
+                         "equals_saved": bool(np.array_equal(pos.cpu().numpy(), smoke.walk_bits[f"{case}_pos"])
+                                              and np.array_equal(valid.cpu().numpy().astype(bool),
+                                                                 smoke.walk_bits[f"{case}_valid"]))}
+            print(f"W {name:10s} {case:20s} walk {walk}: {rec[case]['steps']} steps ({rec[case]['live_steps']} "
+                  f"live), {acc[6]} cycles; per step {_rounded(rec[case]['cycles_per_step'])}; "
+                  f"{rec[case]['ms']:.4f} ms; equal to the unstamped kernel's {rec[case]['equals_saved']}",
+                  flush=True)
+        out[name] = rec
+    return out
+
+
 def _insert(text: str, anchor: str, add: str, after: bool = True) -> str:
     return _replace(text, anchor, anchor + add if after else add + anchor)
 
@@ -227,7 +350,9 @@ def _em_loop_source(csrc: str) -> str:
     text = _insert(text, "    for (int q = tid; q < m * 3; q += THREADS) E.y[q] = S.t[q];\n    __syncthreads();\n",
                    "    STAMP(5);\n")
     text = _insert(text, "    td::gj_solve<", "    STAMP(3);\n", after=False)
-    text = _insert(text, "(m, S.a, S.b, S.w, S.gj);\n", "    STAMP(4);\n")
+    call = text.index("    td::gj_solve<")
+    end = text.index(");\n", call) + 3
+    text = text[:end] + "    STAMP(4);\n" + text[end:]
     return text + E_HOST + GJ_HOST
 
 
@@ -327,10 +452,9 @@ def _rounded(rec: dict) -> dict:
 
 
 def kernel_g(torch, variants) -> dict:
-    import numpy as np
-
     dev = torch.device("cuda")
     saved = np.load(os.path.join(ROOT, "tests", "data", "gj_prereg_system.npz"))
+    pins = np.load(os.path.join(ROOT, "tests", "data", "exact_products_bits.npz"))
     systems = {"live_prereg_8x45": (np.broadcast_to(saved["a"], (8, 45, 45)), np.broadcast_to(saved["b"], (8, 45, 3)))}
     rng = np.random.default_rng(0)
     a = rng.standard_normal((8, 48, 48)).astype(np.float32)
@@ -360,7 +484,10 @@ def kernel_g(torch, variants) -> dict:
             rec[key] = {"solve_cycles": st[1] - st[0], "cycles_per_pivot_step": (st[1] - st[0]) / at.shape[1],
                         "ms": ms, "steps": _gj_record(lib)}
             if key.startswith("live"):
-                rec[key]["equals_saved_solution"] = bool(np.array_equal(w[0].cpu().numpy(), saved["w_kernel"]))
+                got = w[0].cpu().numpy()
+                rec[key]["equals_saved_solution"] = {
+                    "float32 residual (gj_prereg_system.npz)": bool(np.array_equal(got, saved["w_kernel"])),
+                    "exact residual (exact_products_bits.npz)": bool(np.array_equal(got, pins["gj_saved_live"]))}
         out[name] = rec
         print(f"G {name:14s} {rec}", flush=True)
     return out
@@ -372,7 +499,9 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=[], metavar="NAME=DIR",
                     help="another tree to stamp beside them (repeatable)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "em_phase_stamps.json"))
+    ap.add_argument("--only", default="e,g,w", help="comma list of the kernels to stamp: e, g, w")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     import torch
 
     if not torch.cuda.is_available():
@@ -388,7 +517,13 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card)
-    record = {"card": card, "kernel_e": kernel_e(torch, e_variants), "kernel_g": kernel_g(torch, g_variants)}
+    record = {"card": card}
+    if "e" in only:
+        record["kernel_e"] = kernel_e(torch, e_variants)
+    if "g" in only:
+        record["kernel_g"] = kernel_g(torch, g_variants)
+    if "w" in only:
+        record["kernel_w"] = kernel_w(torch, e_variants)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)

@@ -486,11 +486,21 @@ def test_estep_stream_bits_do_not_depend_on_the_batch(cuda, two_phase):
             assert torch.equal(b16[3][s], alone[3])
 
 
+def _pins():
+    """Kernel G's and the 30-frame loop's outputs since the M-step's products
+    follow B1's _exact_dot (ROADMAP §C fault 1), saved on the card by
+    chip_smoke.py: G on the (16, 48, 48) SPD systems and on the saved live
+    system, the loop's final nodes and every pass's trips."""
+    from pathlib import Path
+
+    return np.load(Path(__file__).parent / "data" / "exact_products_bits.npz")
+
+
 def test_gj_kernel_on_live_prereg_system_equals_saved_solution(cuda):
-    """The live cond-2.4e6 pre-registration system saved by chip_smoke.py:
-    the solve gives exactly the solution the kernel gave when it was saved
-    (only entries that are read again are updated; each update is the same
-    multiply then subtract)."""
+    """The live cond-2.4e6 pre-registration system saved by chip_smoke.py
+    (tests/data/gj_prereg_system.npz): the solve gives exactly the solution
+    saved for the current design (only entries that are read again are
+    updated; each update is the same multiply then subtract)."""
     from pathlib import Path
 
     from trackdlo_tpu_torch.ops.hopper_kernels import gauss_jordan_solve_batched
@@ -499,14 +509,15 @@ def test_gj_kernel_on_live_prereg_system_equals_saved_solution(cuda):
     a = torch.from_numpy(d["a"]).to(cuda)[None]
     b = torch.from_numpy(d["b"]).to(cuda)[None]
     got = gauss_jordan_solve_batched(a, b)[0].cpu().numpy()
-    assert np.array_equal(got, d["w_kernel"])
+    assert np.array_equal(got, _pins()["gj_saved_live"])
 
 
 def _parent_bits():
-    """Outputs of the solve's previous design, saved on the card by
-    chip_smoke.py (chiprun_out/solve_bits.npz) before the solve was
-    redesigned: kernel G on the (16, 48, 48) SPD systems and on the saved
-    live system, and the 30-frame closed loop's final nodes and EM trips."""
+    """Outputs of the solve's design before its redesign and before fault 1's
+    repair, saved on the card by chip_smoke.py
+    (chiprun_out/solve_bits.npz): kernel G on the (16, 48, 48) SPD systems
+    and on the saved live system, the 30-frame closed loop's final nodes and
+    EM trips."""
     from pathlib import Path
 
     return np.load(Path(__file__).parent / "data" / "solve_bits.npz")
@@ -523,26 +534,73 @@ def _spd_systems(dev):
 
 
 def test_gj_kernel_equals_the_previous_design_bit_for_bit(cuda):
+    """Kernel G on the SPD systems and the saved live system: bit for bit
+    the solutions saved for the current design (tests/data/
+    exact_products_bits.npz)."""
     from pathlib import Path
 
     from trackdlo_tpu_torch.ops.hopper_kernels import gauss_jordan_solve_batched
 
-    bits = _parent_bits()
+    pins = _pins()
     got = gauss_jordan_solve_batched(*_spd_systems(cuda)).cpu().numpy()
-    assert np.array_equal(got, bits["gj_spd16"])
+    assert np.array_equal(got, pins["gj_spd16"])
     d = np.load(Path(__file__).parent / "data" / "gj_prereg_system.npz")
     live = gauss_jordan_solve_batched(torch.from_numpy(d["a"]).to(cuda)[None],
                                       torch.from_numpy(d["b"]).to(cuda)[None])[0].cpu().numpy()
-    assert np.array_equal(live, bits["gj_saved_live"])
+    assert np.array_equal(live, pins["gj_saved_live"])
+
+
+def test_gj_kernel_is_no_further_from_float64_than_before_the_repair(cuda):
+    """Kernel G with B1's exact residual against its outputs before fault 1's
+    repair (tests/data/solve_bits.npz): on the SPD systems and on the saved
+    live pre-registration system, no further from float64."""
+    from pathlib import Path
+
+    from trackdlo_tpu_torch.ops.hopper_kernels import gauss_jordan_solve_batched
+
+    old = _parent_bits()
+    a, b = _spd_systems(cuda)
+    d = np.load(Path(__file__).parent / "data" / "gj_prereg_system.npz")
+    for (a, b), before in (((a, b), old["gj_spd16"]),
+                           ((torch.from_numpy(d["a"]).to(cuda)[None],
+                             torch.from_numpy(d["b"]).to(cuda)[None]), old["gj_saved_live"][None])):
+        w64 = np.linalg.solve(a.double().cpu().numpy(), b.double().cpu().numpy())
+        got = gauss_jordan_solve_batched(a, b).cpu().numpy()
+        assert np.abs(got - w64).max() <= np.abs(before - w64).max()
+
+
+def test_gj_kernel_node_update_matches_plain(cuda):
+    """Kernel G's launch with the EM's node update: w as the solve alone
+    gives it, bit for bit, and t = y0 + g w, like the plain version's on its
+    own w, within two float32 units of |y0| + |g||w| of float64 (both take
+    g w from bfloat16 pieces)."""
+    from trackdlo_tpu_torch.ops.hopper_kernels import (
+        gauss_jordan_solve_batched,
+        gauss_jordan_solve_batched_plain,
+    )
+
+    a, b = _spd_systems(cuda)
+    rng = np.random.default_rng(2)
+    g = torch.from_numpy(rng.uniform(0, 1, (16, 48, 48)).astype(np.float32)).to(cuda)
+    y0 = torch.from_numpy(rng.uniform(-0.5, 0.5, (16, 48, 3)).astype(np.float32)).to(cuda)
+    w, t = gauss_jordan_solve_batched(a, b, g, y0)
+    assert torch.equal(w, gauss_jordan_solve_batched(a, b))
+    for ww, tt in ((w, t), gauss_jordan_solve_batched_plain(a, b, g, y0)):
+        t64 = y0.double() + g.double() @ ww.double()
+        scale = y0.double().abs() + g.double().abs() @ ww.double().abs()
+        assert bool(((tt.double() - t64).abs() <= 2.0 ** -22 * scale).all())
 
 
 def test_closed_loop_equals_the_previous_design_bit_for_bit(cuda):
     """chip_smoke.py's phase-4 loop (30 live frames, columns 500:800
-    occluded on frames 10-20) through Tracker.step: kernel E's new M-step
-    solve gives the previous design's final nodes and every pass's trips."""
+    occluded on frames 10-20) through Tracker.step: the final nodes and
+    every pass's trips of the kernel E saved in tests/data/
+    exact_products_bits.npz (its M-step's two products as B1's _exact_dot,
+    ROADMAP §C fault 1; the pins in solve_bits.npz are those of the kernel
+    before that repair)."""
     from trackdlo_tpu_torch.models.trackdlo import Tracker
 
-    bits = _parent_bits()
+    bits = _pins()
     rope, tracker = SyntheticRope(), Tracker(PARAMS, LIVE, device=cuda)
     state = tracker.init_from_nodes(rope.nodes(0.0, M))
     trips = []
@@ -555,6 +613,38 @@ def test_closed_loop_equals_the_previous_design_bit_for_bit(cuda):
         trips.append([int(out.guide_iterations), int(out.iterations)])
     assert np.array_equal(np.array(trips), bits["loop_trips"])
     assert np.array_equal(state.y.cpu().numpy(), bits["loop_y"])
+
+
+@pytest.mark.parametrize("frame", (3, 9, 24, 25))
+def test_em_loop_kernel_prereg_trips_follow_b1(cuda, frame):
+    """Kernel E on the staged pre-registration inputs of
+    tests/data/prereg_frames.npz: within one trip of the JAX package's B1
+    (interpreted on the CPU, its trips saved beside the inputs)."""
+    from pathlib import Path
+
+    d = np.load(Path(__file__).parent / "data" / "prereg_frames.npz")
+    kw = dict(zip([str(k) for k in d["kwarg_names"]], d[f"f{frame}_kwargs"].tolist()))
+    kw["max_iter"] = int(kw["max_iter"])
+    args = [torch.from_numpy(d[f"f{frame}_{k}"]).to(cuda)
+            for k in ("dyn", "y0", "coord", "nm", "g", "hg", "hy0", "jg", "pd", "x", "xm")]
+    trips = int(fused_em_loop(*args, **kw)[1][1])
+    assert abs(trips - int(d[f"f{frame}_b1_trips"])) <= 1, (trips, int(d[f"f{frame}_b1_trips"]))
+
+
+def test_walks_kernel_equals_the_previous_design_bit_for_bit(cuda):
+    """Kernel W on chip_smoke.py's five walk cases and their 4·5-walk batch,
+    from the inputs saved with the previous design's outputs
+    (tests/data/walks_bits.npz): every position and mask bit for bit."""
+    from pathlib import Path
+
+    d = np.load(Path(__file__).parent / "data" / "walks_bits.npz")
+    cases = sorted({k.rsplit("_", 1)[0] for k in d.files})
+    assert len(cases) == 6
+    for case in cases:
+        args = [torch.from_numpy(d[f"{case}_{k}"]).to(cuda) for k in ("guides", "seglens", "ints")]
+        pos, valid = pursuit_walks(*args)
+        assert np.array_equal(pos.cpu().numpy().view(np.int32), d[f"{case}_pos"].view(np.int32)), case
+        assert np.array_equal(valid.cpu().numpy(), d[f"{case}_valid"]), case
 
 
 def test_gj_kernel_matches_float64_and_plain(cuda):

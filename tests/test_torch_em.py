@@ -233,3 +233,56 @@ def test_wrapper_takes_plain_version_on_cpu():
     b = fused_em_loop_plain(*st.args, **st.kwargs)
     for u, v in zip(a, b):
         torch.testing.assert_close(u, v, rtol=0, atol=0)
+
+
+PREREG_FRAMES = (3, 9, 24, 25)
+_STAGED = ("dyn", "y0", "coord", "nm", "g", "hg", "hy0", "jg", "pd", "x", "xm")
+
+
+def _prereg_frame(frame):
+    """Kernel E's staged inputs of one pre-registration pass (saved by
+    perf/port_em_probes.py phases --save-frames) and its loop constants."""
+    from pathlib import Path
+
+    d = np.load(Path(__file__).parent / "data" / "prereg_frames.npz")
+    kw = dict(zip([str(k) for k in d["kwarg_names"]], d[f"f{frame}_kwargs"].tolist()))
+    kw["max_iter"] = int(kw["max_iter"])
+    return d, [d[f"f{frame}_{k}"] for k in _STAGED], kw
+
+
+def _b1_trips(args, kw):
+    """The JAX package's B1 (fused_em_loop, interpreted) on staged inputs,
+    padded as its own staging pads them; its trips."""
+    from trackdlo_tpu.ops.pallas_kernels import fused_em_loop as b1_loop, pack_points
+
+    dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm = (jnp.asarray(a) for a in args)
+    m = y0.shape[0]
+    m_pad = (m + 7) // 8 * 8
+    pad = lambda v, cols: jnp.zeros((m_pad, cols), jnp.float32).at[:m, :v.shape[1]].set(v)
+    sigma2, v_count, n_safe, gate = dyn
+    muf = jnp.float32(kw["muf"])
+    scal = jnp.broadcast_to(jnp.stack([sigma2, muf * v_count / n_safe, muf / n_safe, gate, v_count,
+                                       0.0, 0.0, 0.0])[:, None], (8, 128))
+    xt, xmp = pack_points(x, xm > 0)
+    _, stats = b1_loop(scal, pad(y0, 3), pad(coord[:, None], 1), pad(nm[:, None], 1), pad(g, m_pad),
+                       pad(hg, m_pad), pad(hy0, 3), pad(jg, m_pad), pad(pd, 3), xt, xmp,
+                       k_vis=kw["k_vis"], tau_vis=kw["tau_vis"], lam=kw["lam"],
+                       coef_lle=kw["coef_lle"], alpha=kw["alpha"], tol=kw["tol"],
+                       max_iter=kw["max_iter"], interpret=True)
+    return int(np.asarray(stats)[0, 1])
+
+
+@pytest.mark.parametrize("frame", PREREG_FRAMES)
+def test_prereg_frame_trips_of_plain_and_b1_follow_the_oracle(frame):
+    """Kernel E's staged pre-registration inputs of frames 3, 9, 24 and 25 of
+    chip_smoke.py's occluded loop, staged on the card from the float64
+    oracle's state: the port's plain version and the JAX package's B1
+    (interpreted) each take within one trip of the oracle's, and B1 the trips
+    recorded beside the inputs."""
+    d, args, kw = _prereg_frame(frame)
+    oracle = int(d[f"f{frame}_oracle_trips"])
+    plain = int(fused_em_loop_plain(*(torch.from_numpy(a) for a in args), **kw)[1][1])
+    b1 = _b1_trips(args, kw)
+    assert abs(plain - oracle) <= 1, (plain, oracle)
+    assert abs(b1 - oracle) <= 1, (b1, oracle)
+    assert b1 == int(d[f"f{frame}_b1_trips"])

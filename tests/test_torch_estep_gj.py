@@ -324,3 +324,24 @@ def test_cluster_shape_covers_every_row_once(n):
     for r in range(c):
         covered[min(n, r * rows):min(n, (r + 1) * rows)] += 1
     assert (covered == 1).all()
+
+
+def test_gj_with_exact_residual_on_live_prereg_system():
+    """Kernel G's solution of the same live system since its refinement
+    takes the residual's product as B1's _exact_dot (saved on the card,
+    tests/data/exact_products_bits.npz): within its backward error and no
+    further from float64 than the solution of its design before that repair
+    (``w_kernel``), nor than B8's."""
+    data = np.load(Path(__file__).parent / "data" / "gj_prereg_system.npz")
+    pins = np.load(Path(__file__).parent / "data" / "exact_products_bits.npz")
+    a64, b64 = data["a"].astype(np.float64), data["b"].astype(np.float64)
+    w64 = np.linalg.solve(a64, b64)
+    w = pins["gj_saved_live"].astype(np.float64)
+    forward = lambda v: np.abs(v - w64).max() / np.abs(w64).max()
+    backward = np.abs(b64 - a64 @ w).max() / (np.abs(a64).sum(1).max() * np.abs(w).max()
+                                               + np.abs(b64).max())
+    ref = np.asarray(jp.gauss_jordan_solve_batched(jnp.asarray(data["a"][None]),
+                                                   jnp.asarray(data["b"][None]), interpret=True))[0]
+    assert backward <= 4 * 2.0 ** -24
+    assert forward(w) <= forward(data["w_kernel"])
+    assert forward(w) <= forward(ref)

@@ -106,3 +106,43 @@ def test_wrapper_takes_plain_version_on_cpu():
     b = pursuit_walks_plain(wi.guides, wi.seglens, wi.ints)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+def test_walks_kernel_writes_its_outputs_in_their_final_dtypes(monkeypatch):
+    """Kernel W's wrapper on the card path (its launch faked on meta
+    tensors): the outputs it returns are its two allocations, pos float32
+    and valid torch.bool in the plain version's shapes, and no operation
+    runs after the launch (no cast)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    import trackdlo_tpu_torch.ops.hopper_kernels as hk
+
+    ops, launches, made = [], [], []
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    class Lib:
+        def trackdlo_walks(self, *args):
+            launches.append(len(ops))
+            return 0
+
+    real_alloc = hk.alloc_walks_out
+    monkeypatch.setattr(hk._build, "require_cuda", lambda *a, **k: torch.device("meta"))
+    monkeypatch.setattr(hk._build, "lib", lambda: Lib())
+    monkeypatch.setattr(hk._build, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(hk._build, "launch_counts", dict(hk._build.launch_counts))
+    monkeypatch.setattr(hk, "alloc_walks_out", lambda *a: made.append(real_alloc(*a)) or made[-1])
+    meta = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    with Log():
+        pos, valid = hk.pursuit_walks(meta(8, M, 3), meta(8, M - 1), meta(8, 5, dtype=torch.int32))
+    assert launches == [len(ops)]  # the launch is the last thing the wrapper does
+    assert pos is made[0][0] and valid is made[0][1]
+    assert (pos.dtype, pos.shape, valid.dtype, valid.shape) == (
+        torch.float32, (8, M, 3), torch.bool, (8, M))
+    assert valid.element_size() == 1  # the kernel writes one byte, 0 or 1, per node
+    g = torch.zeros((2, M, 3))
+    ref = pursuit_walks_plain(g, torch.zeros((2, M - 1)), torch.zeros((2, 5), dtype=torch.int32))
+    assert [t.dtype for t in ref] == [t.dtype for t in hk.alloc_walks_out(2, M, "cpu")]

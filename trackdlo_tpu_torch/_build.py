@@ -89,6 +89,12 @@ SIGNATURES = {
         _P,  # w
         _P,
     ],
+    "trackdlo_gj_solve_update": [
+        _P, _P, _P, _P,  # a, b, g, y0
+        _I, _I,  # n_systems, m
+        _P, _P,  # w, t
+        _P,
+    ],
     "trackdlo_em_iter": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # scal, y, y0, coord, nm, g..pd, x, x_mask
         _I, _I, _I,  # n_streams, m, n

@@ -25,6 +25,12 @@
 //   broadcast and no round trip through global memory; the convergence test
 //   reads only those identical values, so every CTA leaves the loop
 //   together. The sigma^2 and move sums run in one warp in a fixed order.
+// - The two products B1 takes with _exact_dot, the refinement's A w and
+//   T's G W, are taken as it takes them (gj.cuh, exact_split_dot), from
+//   bfloat16 pieces of A (split once per iteration), of G (once per launch)
+//   and of W. Both cancel heavily on the pre-registration systems: float32
+//   products there put noise of the order of the tolerance into every
+//   iteration (ROADMAP, fault 1).
 // The arithmetic is the plain version's: the divisions stay divisions, and
 // no float atomics are used, so results are identical run to run.
 #include "estep_cluster.cuh"
@@ -62,6 +68,7 @@ struct Smem {
   float g[MMAX * MMAX], hg[MMAX * MMAX], jg[MMAX * MMAX];
   float a[MMAX * MMAX];  // the M-step system A w = B
   float b[MMAX * 3], w[MMAX * 3], t[MMAX * 3];
+  float asp[3 * MMAX * MMAX], gsp[3 * MMAX * MMAX], wsp[3 * MMAX * 3];  // split3 pieces
   td::GjSmem gj;
   td::EstepSmem<THREADS> es;  // the iterate y, coord, node mask, the points
   float s2, delta;
@@ -88,6 +95,7 @@ __global__ void __launch_bounds__(THREADS, 1) em_loop_kernel(EmArgs A) {
     S.g[k] = A.g[k];
     S.hg[k] = A.hg[k];
     S.jg[k] = A.jg[k];
+    td::split3(A.g[k], S.gsp[k], S.gsp[m * m + k], S.gsp[2 * m * m + k]);
   }
   for (int k = tid; k < MMAX; k += THREADS) {
     E.coord[k] = k < m ? A.coord[k] : 0.0f;
@@ -150,6 +158,7 @@ __global__ void __launch_bounds__(THREADS, 1) em_loop_kernel(EmArgs A) {
         v = r == c ? 1.0f : 0.0f;
       }
       S.a[k] = v;
+      td::split3(v, S.asp[k], S.asp[m * m + k], S.asp[2 * m * m + k]);
     }
     for (int k = tid; k < m * 3; k += THREADS) {
       const int r = k / 3, d = k - r * 3;
@@ -159,12 +168,13 @@ __global__ void __launch_bounds__(THREADS, 1) em_loop_kernel(EmArgs A) {
       S.b[k] = v * E.nm[r];
     }
     __syncthreads();
-    td::gj_solve<THREADS, td::GjScale::kExponentBits>(m, S.a, S.b, S.w, S.gj);
+    td::gj_solve<THREADS, td::GjScale::kExponentBits>(m, S.a, S.b, S.w, S.gj, S.asp, S.wsp);
     // T = Y0 + G W (inactive rows stay at Y0).
+    td::split3_all<THREADS>(m * 3, S.w, S.wsp);
+    __syncthreads();
     for (int q = tid; q < m * 3; q += THREADS) {
       const int r = q / 3, d = q - r * 3;
-      float acc = 0.0f;
-      for (int j = 0; j < m; ++j) acc = fmaf(S.g[r * m + j], S.w[j * 3 + d], acc);
+      const float acc = td::exact_split_dot(m, S.gsp, m * m, r, S.wsp, m * 3, d);
       S.t[q] = E.nm[r] > 0.0f ? S.y0[q] + acc : S.y0[q];
     }
     __syncthreads();

@@ -4,8 +4,9 @@
 // kernel G (gj_solve.cu) runs it once per system.
 //
 // Replaces the solve of trackdlo_tpu/ops/pallas_kernels.py
-// gauss_jordan_solve_batched (_batched_gj_kernel) and fused_em_loop's M-step
-// (_gj2d_with_inv). The steps are theirs:
+// gauss_jordan_solve_batched (_batched_gj_kernel and its refinement) and
+// fused_em_loop's M-step (_gj2d_with_inv and its refinement). The steps are
+// theirs:
 // - each row of A and B divided by a power of two near max|A_row| (exact:
 //   only exponents change), by the rule of the TPU kernel being replaced
 //   (GjScale below);
@@ -15,7 +16,8 @@
 // - w[k] = B_f[perm[k]] / pivot_k and inv[k] = I_f[perm[k]] / pivot_k, with
 //   |pivot| < 1e-30 read as 1;
 // - three refinement steps against the unscaled system:
-//   w += inv ((B - A w) / e).
+//   w += inv ((B - A w) / e), the product A w as fused_em_loop takes it,
+//   with _exact_dot (exact_split_dot below).
 // Padded equations of the TPU function are identity rows that never mix
 // with the real ones, so solving at m (not m_pad) gives the same steps.
 //
@@ -57,6 +59,8 @@
 //   bit for bit the previous design's.
 // Other layouts measured slower are listed in PERF.md (Findings).
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -102,6 +106,59 @@ __device__ __forceinline__ float gj_row_scale(float d) {
     const int ebits = (__float_as_int(d) >> 23) & 255;
     return __int_as_float((ebits + 1) << 23);
   }
+}
+
+// The product A w in the refinement's residual B - A w. On the live
+// pre-registration systems (cond ~2e6) A w cancels B to ~1e-5 of |A||w|: a
+// float32 product there leaves an error in the residual larger than the
+// residual itself, and the three steps move w away from the solution (ten
+// times further from float64 than the elimination's own w; the EM then
+// takes extra trips, ROADMAP fault 1, perf/port_em_probes.py phases).
+// fused_em_loop (pallas_kernels.py:1364) takes it with _exact_dot (:1152):
+// both operands split into three bfloat16 pieces, the nine piece products
+// (each exact in float32) summed over the columns in float32 and the nine
+// sums added in order. Both kernels take it so (gauss_jordan_solve_batched
+// takes a float32 product at :1128; it serves the same EM).
+
+// v as _exact_dot's split3 (pallas_kernels.py:1158-1163) cuts it: hi the
+// nearest bfloat16 of v, mid that of v - hi, lo that of v - hi - mid.
+__device__ __forceinline__ void split3(float v, float& hi, float& mid, float& lo) {
+  hi = __bfloat162float(__float2bfloat16_rn(v));
+  const float r1 = v - hi;
+  mid = __bfloat162float(__float2bfloat16_rn(r1));
+  lo = __bfloat162float(__float2bfloat16_rn(r1 - mid));
+}
+
+// The pieces of v[0..n) into sp: hi at sp[i], mid at sp[n + i], lo at
+// sp[2 n + i]; block-strided, no barrier.
+template <int THREADS>
+__device__ __forceinline__ void split3_all(int n, const float* v, float* sp) {
+  for (int i = threadIdx.x; i < n; i += THREADS) split3(v[i], sp[i], sp[n + i], sp[2 * n + i]);
+}
+
+// Entry (r, d) of _exact_dot(A, W) for A (rows, k) and W (k, 3), from
+// their pieces (split3_all of n_a and of n_w floats): for each piece pair
+// in the order (hi, hi), (hi, mid), .., (lo, lo) the sum over j in order of
+// the exact products, then the nine sums added in that order.
+__device__ __forceinline__ float exact_split_dot(int k, const float* asp, int n_a, int r,
+                                                 const float* wsp, int n_w, int d) {
+  float acc[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int j = 0; j < k; ++j) {
+    float pa[3], pw[3];
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      pa[p] = asp[p * n_a + r * k + j];
+      pw[p] = wsp[p * n_w + j * 3 + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int l = 0; l < 3; ++l) acc[i * 3 + l] = fmaf(pa[i], pw[l], acc[i * 3 + l]);
+  }
+  float out = acc[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) out = out + acc[i];
+  return out;
 }
 
 // The pivot search's order as an unsigned key: a larger |a| wins (the bits
@@ -163,10 +220,13 @@ __device__ __forceinline__ int gj_pick(int m, unsigned long long used, const flo
 }
 
 // Solves A w = B for one system: ``a`` (m*m, row-major) and ``b`` (m*3)
-// unscaled in shared memory; ``w`` (m*3) in shared memory is written. Every
+// unscaled, ``a_split`` a's pieces (split3_all of m*m), all in shared
+// memory; ``w`` (m*3) in shared memory is written, and ``w_split`` (3*m*3
+// floats of shared memory) holds w's pieces during the refinement. Every
 // thread of the block calls it; it ends after a barrier.
 template <int THREADS, GjScale RULE>
-__device__ void gj_solve(int m, const float* a, const float* b, float* w, GjSmem& G) {
+__device__ void gj_solve(int m, const float* a, const float* b, float* w, GjSmem& G,
+                         const float* a_split, float* w_split) {
   constexpr int NWARPS = THREADS / 32;
   constexpr int NC = gj_slots(THREADS);
   static_assert(THREADS >= 256 && THREADS % 32 == 0, "the update warps need 224 threads");
@@ -297,12 +357,13 @@ __device__ void gj_solve(int m, const float* a, const float* b, float* w, GjSmem
     }
   }
   __syncthreads();
-  // Refinement: residual in FMA form against the unscaled system.
+  // Refinement against the unscaled system.
   for (int step = 0; step < 3; ++step) {
+    split3_all<THREADS>(m * 3, w, w_split);
+    __syncthreads();
     for (int q = tid; q < m * 3; q += THREADS) {
       const int r = q / 3, d = q % 3;
-      float acc = 0.0f;
-      for (int j = 0; j < m; ++j) acc = fmaf(a[r * m + j], w[j * 3 + d], acc);
+      const float acc = exact_split_dot(m, a_split, m * m, r, w_split, m * 3, d);
       G.r[q] = (b[q] - acc) / G.e[r];
     }
     __syncthreads();

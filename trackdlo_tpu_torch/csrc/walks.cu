@@ -3,16 +3,34 @@
 // Replaces: trackdlo_tpu/ops/pallas_kernels.py pursuit_walks_fused
 // (_walks_kernel, _walks_impl).
 //
-// What bounds it on an H100: latency. Each walk is M-1 = 44 dependent steps
-// of a sphere-vs-segment test over at most 44 segments; the data (a few KB)
-// sits in registers. As plain tensor code every step is ~40 launches.
+// What bounds it on an H100: latency. Each walk is at most M-1 = 44
+// dependent steps of a sphere-vs-segment test over at most 44 segments; the
+// data (a few KB) sits in registers. As plain tensor code every step is ~40
+// launches.
 //
-// Design: one warp per walk (four warps for one stream, 4·B for B streams),
-// lanes cover the segments (two per lane), the first acceptable hit is a
-// warp min, and the chosen intersection is broadcast from its lane with a
-// shuffle. The steps run in sequence inside the warp; nothing leaves
-// registers except the visited node positions. Arithmetic follows the
-// plain version's operation order (the library is built with -fmad=false).
+// Design: one warp per walk (four warps for one stream, 4·B for B streams);
+// lanes own the segments (two per lane); the first acceptable hit is a warp
+// minimum and the chosen intersection is broadcast from its lane with a
+// shuffle. The steps run in sequence inside the warp. What a step's chain
+// holds is cut to what the walk needs:
+// - the walk's look-ahead lengths sit in registers (two per lane) and a
+//   step reads its own with a shuffle, not a load from global memory;
+// - each segment's loop-invariant terms (its box, 2 qa) are computed once;
+// - a segment that cannot be taken (outside [last, seg_hi], missing, of
+//   length 0, or with no real root) skips the roots; the roots' divisions
+//   and square roots, and the distances that decide between them, are
+//   computed only for the segments that can be (a step's chain then holds
+//   them only where a lane of the warp has such a segment);
+// - the lowest acceptable segment is one __reduce_min_sync;
+// - the loop ends when the walk can no longer move (past outer_hi, at the
+//   last node, or no acceptable segment: the warp-uniform conditions under
+//   which every later step changes nothing).
+// Every value is the previous design's: the same IEEE operations on the same
+// operands (the library is built with -fmad=false), each division a true
+// quotient. `valid` is written as bytes 0/1 straight into the caller's
+// torch.bool tensor.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -29,6 +47,7 @@ __global__ void walks_kernel(const float* __restrict__ guides,
   const int wk = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
   if (wk >= n_walks) return;  // warp-uniform
   const float* G = guides + (size_t)wk * m * 3;
+  const float* L = seglens + (size_t)wk * (m - 1);
   const int n_seg = m - 1;
   const int start_guide = ints[wk * 5 + 0];
   const int seg_hi = ints[wk * 5 + 1];
@@ -41,6 +60,10 @@ __global__ void walks_kernel(const float* __restrict__ guides,
   float ax[SEG_PER_LANE], ay[SEG_PER_LANE], az[SEG_PER_LANE];
   float bx[SEG_PER_LANE], by[SEG_PER_LANE], bz[SEG_PER_LANE];
   float abx[SEG_PER_LANE], aby[SEG_PER_LANE], abz[SEG_PER_LANE], qa[SEG_PER_LANE];
+  float den[SEG_PER_LANE];  // 2 qa (2 where qa is 0)
+  float lox[SEG_PER_LANE], loy[SEG_PER_LANE], loz[SEG_PER_LANE];
+  float hix[SEG_PER_LANE], hiy[SEG_PER_LANE], hiz[SEG_PER_LANE];
+  float look_at[SEG_PER_LANE];  // the look-ahead of node position lane + 32 k
   bool exists[SEG_PER_LANE];
 #pragma unroll
   for (int k = 0; k < SEG_PER_LANE; ++k) {
@@ -57,6 +80,14 @@ __global__ void walks_kernel(const float* __restrict__ guides,
     aby[k] = by[k] - ay[k];
     abz[k] = bz[k] - az[k];
     qa[k] = abx[k] * abx[k] + aby[k] * aby[k] + abz[k] * abz[k];
+    den[k] = 2.0f * (qa[k] == 0.0f ? 1.0f : qa[k]);
+    lox[k] = fminf(ax[k], bx[k]) - eps;
+    hix[k] = fmaxf(ax[k], bx[k]) + eps;
+    loy[k] = fminf(ay[k], by[k]) - eps;
+    hiy[k] = fmaxf(ay[k], by[k]) + eps;
+    loz[k] = fminf(az[k], bz[k]) - eps;
+    hiz[k] = fmaxf(az[k], bz[k]) + eps;
+    look_at[k] = L[sa];
   }
 
   for (int j = lane; j < m; j += 32) {
@@ -75,77 +106,72 @@ __global__ void walks_kernel(const float* __restrict__ guides,
     V[start_node] = 1;
   }
   int last = start_guide, node_pos = start_node;
-  bool alive = true;
 
   for (int step = 0; step < m - 1; ++step) {
-    const bool alive_t = alive && last <= outer_hi && node_pos + 1 <= m - 1;
-    const float look = seglens[(size_t)wk * (m - 1) + min(max(node_pos, 0), m - 2)];
+    if (!(last <= outer_hi && node_pos + 1 <= m - 1)) break;
+    const int li = min(max(node_pos, 0), m - 2);
+    const float look = __shfl_sync(TD_FULL_MASK, (li >> 5) ? look_at[1] : look_at[0], li & 31);
     float chx[SEG_PER_LANE], chy[SEG_PER_LANE], chz[SEG_PER_LANE];
-    float first_local = 1e9f;
+    int first_local = INT_MAX;
 #pragma unroll
-    for (int k = SEG_PER_LANE - 1; k >= 0; --k) {
+    for (int k = SEG_PER_LANE - 1; k >= 0; --k) {  // k descends, so the lowest s wins
       const int s = lane + 32 * k;
+      chx[k] = chy[k] = chz[k] = 0.0f;
+      if (!(exists[k] && s >= last && s <= seg_hi && qa[k] > 0.0f)) continue;
       const float cax = ax[k] - cx, cay = ay[k] - cy, caz = az[k] - cz;
       const float qb = 2.0f * (abx[k] * cax + aby[k] * cay + abz[k] * caz);
       const float qc = (cax * cax + cay * cay + caz * caz) - look * look;
       const float delta = qb * qb - 4.0f * qa[k] * qc;
+      if (!(delta >= 0.0f)) continue;  // no real root
       const float sq = sqrtf(fmaxf(delta, 0.0f));
-      const float qa_s = qa[k] == 0.0f ? 1.0f : qa[k];
-      const float d1 = (-qb + sq) / (2.0f * qa_s);
-      const float d2 = (-qb - sq) / (2.0f * qa_s);
+      const float d1 = (-qb + sq) / den[k];
+      const float d2 = (-qb - sq) / den[k];
       const float p1x = ax[k] + d1 * abx[k], p1y = ay[k] + d1 * aby[k], p1z = az[k] + d1 * abz[k];
       const float p2x = ax[k] + d2 * abx[k], p2y = ay[k] + d2 * aby[k], p2z = az[k] + d2 * abz[k];
-      const float lox = fminf(ax[k], bx[k]) - eps, hix = fmaxf(ax[k], bx[k]) + eps;
-      const float loy = fminf(ay[k], by[k]) - eps, hiy = fmaxf(ay[k], by[k]) + eps;
-      const float loz = fminf(az[k], bz[k]) - eps, hiz = fmaxf(az[k], bz[k]) + eps;
-      const bool btw1 = p1x >= lox && p1x <= hix && p1y >= loy && p1y <= hiy && p1z >= loz && p1z <= hiz;
-      const bool btw2 = p2x >= lox && p2x <= hix && p2y >= loy && p2y <= hiy && p2z >= loz && p2z <= hiz;
-      const bool v1 = delta >= 0.0f && btw1 && qa[k] > 0.0f;  // a zero discriminant gives one root
-      const bool v2 = delta > 0.0f && btw2 && qa[k] > 0.0f;
-      const int cnt = (int)v1 + (int)v2;
-      const float e1x = p1x - bx[k], e1y = p1y - by[k], e1z = p1z - bz[k];
-      const float e2x = p2x - bx[k], e2y = p2y - by[k], e2z = p2z - bz[k];
-      const float ecx = cx - bx[k], ecy = cy - by[k], ecz = cz - bz[k];
-      const float d1b = sqrtf(e1x * e1x + e1y * e1y + e1z * e1z);
-      const float d2b = sqrtf(e2x * e2x + e2y * e2y + e2z * e2z);
-      const float dcb = sqrtf(ecx * ecx + ecy * ecy + ecz * ecz);
-      const float dsb = v1 ? d1b : d2b;
-      const bool acceptable = cnt == 2 || (cnt == 1 && dsb <= dcb);
-      const bool pick1 = cnt == 2 ? d1b <= d2b : v1;
+      const bool v1 = p1x >= lox[k] && p1x <= hix[k] && p1y >= loy[k] && p1y <= hiy[k] &&
+                      p1z >= loz[k] && p1z <= hiz[k];
+      const bool v2 = delta > 0.0f &&  // a zero discriminant gives one root
+                      p2x >= lox[k] && p2x <= hix[k] && p2y >= loy[k] && p2y <= hiy[k] &&
+                      p2z >= loz[k] && p2z <= hiz[k];
+      if (!v1 && !v2) continue;
+      bool pick1, acceptable;
+      if (v1 && v2) {
+        const float e1x = p1x - bx[k], e1y = p1y - by[k], e1z = p1z - bz[k];
+        const float e2x = p2x - bx[k], e2y = p2y - by[k], e2z = p2z - bz[k];
+        const float d1b = sqrtf(e1x * e1x + e1y * e1y + e1z * e1z);
+        const float d2b = sqrtf(e2x * e2x + e2y * e2y + e2z * e2z);
+        pick1 = d1b <= d2b;
+        acceptable = true;
+      } else {
+        const float ex = (v1 ? p1x : p2x) - bx[k], ey = (v1 ? p1y : p2y) - by[k],
+                    ez = (v1 ? p1z : p2z) - bz[k];
+        const float ecx = cx - bx[k], ecy = cy - by[k], ecz = cz - bz[k];
+        const float dsb = sqrtf(ex * ex + ey * ey + ez * ez);
+        const float dcb = sqrtf(ecx * ecx + ecy * ecy + ecz * ecz);
+        pick1 = v1;
+        acceptable = dsb <= dcb;
+      }
+      if (!acceptable) continue;
       chx[k] = pick1 ? p1x : p2x;
       chy[k] = pick1 ? p1y : p2y;
       chz[k] = pick1 ? p1z : p2z;
-      const bool ok = acceptable && exists[k] && s >= last && s <= seg_hi;
-      if (ok) first_local = (float)s;  // k descends, so the lowest s wins
+      first_local = s;
     }
-    const float first = td_warp_first(first_local < 1e9f, first_local);
-    const bool found = first < 1e9f;
-    const bool eff = alive_t && found;
-    if (eff) {
-      const int fs = (int)first;
-      const int owner = fs & 31, kk = fs >> 5;
-      float sx = chx[0], sy = chy[0], sz = chz[0];
-#pragma unroll
-      for (int k = 1; k < SEG_PER_LANE; ++k) {
-        if (kk == k) {
-          sx = chx[k];
-          sy = chy[k];
-          sz = chz[k];
-        }
-      }
-      cx = __shfl_sync(TD_FULL_MASK, sx, owner);
-      cy = __shfl_sync(TD_FULL_MASK, sy, owner);
-      cz = __shfl_sync(TD_FULL_MASK, sz, owner);
-      last = fs;
-      node_pos += 1;
-      if (lane == 0) {
-        P[node_pos * 3 + 0] = cx;
-        P[node_pos * 3 + 1] = cy;
-        P[node_pos * 3 + 2] = cz;
-        V[node_pos] = 1;
-      }
+    const int first = __reduce_min_sync(TD_FULL_MASK, first_local);
+    if (first == INT_MAX) break;  // no acceptable segment: the walk ends
+    const int owner = first & 31;
+    const bool hi_seg = (first >> 5) != 0;
+    cx = __shfl_sync(TD_FULL_MASK, hi_seg ? chx[1] : chx[0], owner);
+    cy = __shfl_sync(TD_FULL_MASK, hi_seg ? chy[1] : chy[0], owner);
+    cz = __shfl_sync(TD_FULL_MASK, hi_seg ? chz[1] : chz[0], owner);
+    last = first;
+    node_pos += 1;
+    if (lane == 0) {
+      P[node_pos * 3 + 0] = cx;
+      P[node_pos * 3 + 1] = cy;
+      P[node_pos * 3 + 2] = cz;
+      V[node_pos] = 1;
     }
-    alive = alive && found;
   }
 }
 

@@ -53,6 +53,7 @@ from trackdlo_tpu_torch.ops.hopper_kernels import (
     fused_estep_packed,
     fused_estep_packed_batch,
     gauss_jordan_solve_batched,
+    gauss_jordan_solve_batched_plain,
     nearest_point_sq,
 )
 from trackdlo_tpu_torch.ops.kernels import (
@@ -103,7 +104,7 @@ _KERNELS = ("mct_geodesic", "gaussian_geodesic", "gaussian_euclidean")
 
 
 def _check_params(params: CpdParams) -> None:
-    if params.solver not in _SOLVE:
+    if params.solver not in _UPDATE:
         raise ValueError(f"unknown solver {params.solver!r}")
     if params.kernel not in _KERNELS:
         raise ValueError(f"unknown kernel {params.kernel!r}")
@@ -254,13 +255,13 @@ def _psum_packed(axis_name, *parts):
     return tuple(f.reshape(p.shape) for f, p in zip(flat.split(sizes, dim=1), parts))
 
 
-def em_iteration(st: EmStaging, y, s2, params: CpdParams, estep: Callable, solve: Callable,
+def em_iteration(st: EmStaging, y, s2, params: CpdParams, estep: Callable, update: Callable,
                  axis_name=None):
     """One EM iteration of every stream (the JAX package's
     ``em_iteration_pallas_sharded``, with or without an axis): the E-step,
-    the M-step system and its solve, T = Y0 + G·W, the σ² update (floored
-    at 1e-10) and the mean node move. Returns (t (B, m, 3), sigma2 (B,),
-    delta (B,)).
+    the M-step system, its solve and T = Y0 + G·W (``update``, see
+    ``_UPDATE``), the σ² update (floored at 1e-10) and the mean node move.
+    Returns (t (B, m, 3), sigma2 (B,), delta (B,)).
 
     Without an axis, or without the visibility prior, the E-step runs two
     phases (it finds each node's nearest point itself). Under ``axis_name``
@@ -281,8 +282,7 @@ def em_iteration(st: EmStaging, y, s2, params: CpdParams, estep: Callable, solve
         p1, px, stats, _ = estep(scal, y, coord, nm, torch.ones_like(nm), x, xm, two_phase=True)
     p1, px, stats = _psum_packed(axis_name, p1, px, stats)
     a, b = mstep_system(st, p1, px, s2, params)
-    w = solve(a, b)
-    t = y0 + g @ w
+    t = update(a, b, g, y0)
     tr_pxtt = (px * t).sum(dim=(1, 2))
     tr_tt = (p1[:, :, None] * t * t).sum(dim=(1, 2))
     s2_new = (stats[:, 1] - 2 * tr_pxtt + tr_tt) / (stats[:, 0] * 3)
@@ -337,7 +337,7 @@ def _geodesic_redistance(p, sq_d, coord, node, v_count):
     )
 
 
-def em_iteration_xla(st: EmStaging, y, s2, params: CpdParams, solve: Callable, axis_name=None):
+def em_iteration_xla(st: EmStaging, y, s2, params: CpdParams, update: Callable, axis_name=None):
     """One EM iteration of every stream as the JAX package's XLA iteration
     computes it, in plain tensor ops on any device: the route of the
     prototype E-step variants (the MCT or Gaussian G is in the staging; with
@@ -370,7 +370,7 @@ def em_iteration_xla(st: EmStaging, y, s2, params: CpdParams, solve: Callable, a
     tr_x = (pt1[:, :, None] * x * x).sum(dim=(1, 2))
     p1, px, tr_x = _psum_packed(axis_name, p.sum(dim=2), p @ x, tr_x)
     a, b = mstep_system(st, p1, px, s2, params)
-    t = y0 + g @ solve(a, b)
+    t = update(a, b, g, y0)
     tr_pxtt = (px * t).sum(dim=(1, 2))
     tr_tt = (p1[:, :, None] * t * t).sum(dim=(1, 2))
     s2_new = torch.clamp_min((tr_x - 2 * tr_pxtt + tr_tt) / (p1.sum(dim=1) * 3), 1e-10)
@@ -433,12 +433,23 @@ def _solve_svd(a, b, rcond: float = 1e-12):
     return vh.mT @ (s_inv[..., None] * (u.mT @ b))
 
 
-_SOLVE = {
-    "lu": gauss_jordan_solve_batched,
-    "lstsq": _solve_qr,
-    "normal_cholesky": _solve_normal_cholesky,
-    "svd_lstsq": _solve_svd,
-    "xla_lu": torch.linalg.solve,
+def _then_update(solve: Callable) -> Callable:
+    return lambda a, b, g, y0: y0 + g @ solve(a, b)
+
+
+# Per solver, the M-step's solve and node update T = Y0 + G·W,
+# ``(a, b, g, y0) -> t``. The LU routes take G·W as kernel E takes it
+# (B1's ``_exact_dot``; a float32 product puts noise of the order of the
+# tolerance into the pre-registration pass, ROADMAP §C fault 1): kernel G
+# with its solve in one launch, and ``xla_lu`` as G's plain version on any
+# device. The other solvers keep the float32 product of the JAX package's
+# XLA route.
+_UPDATE = {
+    "lu": lambda a, b, g, y0: gauss_jordan_solve_batched(a, b, g, y0)[1],
+    "xla_lu": lambda a, b, g, y0: gauss_jordan_solve_batched_plain(a, b, g, y0)[1],
+    "lstsq": _then_update(_solve_qr),
+    "normal_cholesky": _then_update(_solve_normal_cholesky),
+    "svd_lstsq": _then_update(_solve_svd),
 }
 
 
@@ -454,12 +465,12 @@ def iteration_route(st: EmStaging, params: CpdParams, estep: Callable,
     delta)`` for the streams of ``st``: the prototype variants' XLA
     iteration, kernel F (``use_fused_mstep`` without an axis), or the
     E-step ``estep`` with the M-step assembly and the chosen solve."""
-    solve = _SOLVE[params.solver]
+    update = _UPDATE[params.solver]
     if _is_prototype(params):
-        return lambda y, s2: em_iteration_xla(st, y, s2, params, solve, axis_name)
+        return lambda y, s2: em_iteration_xla(st, y, s2, params, update, axis_name)
     if params.use_fused_mstep and axis_name is None:
         return lambda y, s2: fused_iteration(st, y, s2, params)
-    return lambda y, s2: em_iteration(st, y, s2, params, estep, solve, axis_name)
+    return lambda y, s2: em_iteration(st, y, s2, params, estep, update, axis_name)
 
 
 def _per_iteration_single(st: EmStaging, params: CpdParams, return_deltas: bool, axis_name=None):

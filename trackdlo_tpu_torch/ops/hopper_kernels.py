@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from trackdlo_tpu_torch import _build
-from trackdlo_tpu_torch.ops.kernels import pairwise_sq_dists
+from trackdlo_tpu_torch.ops.kernels import exact_split_matmul, pairwise_sq_dists
 
 _BIG = 1e5
 _TWO_PI = 6.283185307179586
@@ -67,49 +67,50 @@ def _select_rows(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, got, torch.zeros_like(got))
 
 
-def fused_em_loop_plain(
-    dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm, *,
-    muf: float, k_vis: float, tau_vis: float, lam: float, coef_lle: float,
-    alpha: float, tol: float, max_iter: int,
-):
-    """The EM loop in plain tensor ops; same inputs and outputs as
-    :func:`fused_em_loop`. The M-step is a direct solve. Iterations after
-    convergence are computed but frozen out, so nothing is read back to the
-    host (on the CPU the loop stops at convergence)."""
-    m = y0.shape[0]
-    dt, dev = y0.dtype, y0.device
-    zero = torch.zeros((), dtype=dt, device=dev)
-    s2 = dyn[0]
-    v_count = dyn[1]
-    n_safe = dyn[2]
-    gate = dyn[3] > 0
-    kc_v = muf * v_count / n_safe
-    kc_n = muf / n_safe
-    vcf = torch.clamp_min(v_count, 1.0)
-    vi = v_count.to(torch.int64)
-    node = nm > 0
-    pair = node[:, None] & (xm > 0)[None, :]
-    pair_nodes = node[:, None] & node[None, :]
-    eye = torch.eye(m, dtype=dt, device=dev)
-    rows = torch.arange(m, device=dev)[:, None]
-    xsq = x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1] + x[:, 2] * x[:, 2]
+class EmPhasesPlain:
+    """One EM iteration of :func:`fused_em_loop` in plain tensor ops, phase
+    by phase, on the loop's inputs: ``estep`` (y, σ²) → P1, PX, Np,
+    tr(X^T dPt1 X); ``mstep`` (P1, PX, σ²) → the system A, B; the direct
+    solve; ``update`` (W) → T; ``sigma2`` → the next σ² and the mean node
+    move. :func:`fused_em_loop_plain` chains them; a probe can feed each
+    phase another route's inputs."""
 
-    y = y0.clone()
-    it = torch.zeros((), dtype=torch.int64, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    converged = torch.ones((), dtype=torch.bool, device=dev)
-    delta_out = zero.clone()
-    for _ in range(max_iter):
-        active = ~done
+    def __init__(self, dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm, *,
+                 muf: float, k_vis: float, tau_vis: float, lam: float, coef_lle: float,
+                 alpha: float):
+        m = y0.shape[0]
+        dt, dev = y0.dtype, y0.device
+        self.zero = torch.zeros((), dtype=dt, device=dev)
+        self.y0, self.coord, self.nm, self.g, self.hg, self.hy0, self.jg, self.pd, self.x = (
+            y0, coord, nm, g, hg, hy0, jg, pd, x)
+        self.k_vis, self.tau_vis, self.lam, self.coef_lle, self.alpha = (
+            k_vis, tau_vis, lam, coef_lle, alpha)
+        v_count = dyn[1]
+        n_safe = dyn[2]
+        self.gate = dyn[3] > 0
+        self.kc_v = muf * v_count / n_safe
+        self.kc_n = muf / n_safe
+        self.vcf = torch.clamp_min(v_count, 1.0)
+        self.vi = v_count.to(torch.int64)
+        self.node = nm > 0
+        self.pair = self.node[:, None] & (xm > 0)[None, :]
+        self.pair_nodes = self.node[:, None] & self.node[None, :]
+        self.eye = torch.eye(m, dtype=dt, device=dev)
+        self.rows = torch.arange(m, device=dev)[:, None]
+        self.xsq = x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1] + x[:, 2] * x[:, 2]
+
+    def estep(self, y, s2):
+        zero, pair, rows, coord, vi = self.zero, self.pair, self.rows, self.coord, self.vi
+        m = y.shape[0]
         tps = _TWO_PI * s2
         c_core = tps * torch.sqrt(tps)
-        c_plain = kc_v * c_core
-        c_vis = kc_n * c_core
-        sq = pairwise_sq_dists(y, x)  # (m, n)
+        c_plain = self.kc_v * c_core
+        c_vis = self.kc_n * c_core
+        sq = pairwise_sq_dists(y, self.x)  # (m, n)
 
         shortest = torch.sqrt(torch.where(pair, sq, _BIG).amin(dim=1))
-        shortest = torch.where(shortest <= tau_vis, zero, shortest)
-        pv = torch.where(node, torch.exp(-k_vis * shortest), zero)
+        shortest = torch.where(shortest <= self.tau_vis, zero, shortest)
+        pv = torch.where(self.node, torch.exp(-self.k_vis * shortest), zero)
         pv = pv / torch.clamp_min(pv.sum(), 1e-30)
 
         e = torch.where(pair, torch.exp(-0.5 * sq / s2), zero)
@@ -135,36 +136,66 @@ def fused_em_loop_plain(
                         torch.where(rows == lo[None, :], (d_lo * d_lo)[None, :], zero)),
         )
         e2 = torch.where(pair, torch.exp(-0.5 * geo / s2), zero)
-        e2 = torch.where(gate, e2 * pv[:, None], e2)
-        c_eff = torch.where(gate, c_vis, c_plain)
+        e2 = torch.where(self.gate, e2 * pv[:, None], e2)
+        c_eff = torch.where(self.gate, c_vis, c_plain)
         p = e2 / (e2.sum(dim=0, keepdim=True) + c_eff)
         p = torch.where(pair, p, zero)
 
         p1 = p.sum(dim=1)
-        px = p @ x
+        px = p @ self.x
         pt1 = p.sum(dim=0)
-        np_total = pt1.sum()
-        tr_x = (pt1 * xsq).sum()
+        return p1, px, pt1.sum(), (pt1 * self.xsq).sum()
 
-        a = p1[:, None] * g + (lam * s2) * eye
-        a = a + (s2 * coef_lle) * hg
-        a = a + alpha * jg
-        b = px - p1[:, None] * y0
-        b = b - (s2 * coef_lle) * hy0
-        b = b + alpha * pd
-        a = torch.where(pair_nodes, a, eye)
-        b = torch.where(node[:, None], b, zero)
-        w = torch.linalg.solve(a, b)
-        t = torch.where(node[:, None], y0 + g @ w, y0)
+    def mstep(self, p1, px, s2):
+        a = p1[:, None] * self.g + (self.lam * s2) * self.eye
+        a = a + (s2 * self.coef_lle) * self.hg
+        a = a + self.alpha * self.jg
+        b = px - p1[:, None] * self.y0
+        b = b - (s2 * self.coef_lle) * self.hy0
+        b = b + self.alpha * self.pd
+        a = torch.where(self.pair_nodes, a, self.eye)
+        b = torch.where(self.node[:, None], b, self.zero)
+        return a, b
 
+    def update(self, w):
+        return torch.where(self.node[:, None], self.y0 + self.g @ w, self.y0)
+
+    def sigma2(self, t, y, p1, px, np_total, tr_x):
         tr_pxt = (px * t).sum()
         tr_tt = (p1[:, None] * t * t).sum()
         s2_new = torch.clamp_min(
             (tr_x - 2.0 * tr_pxt + tr_tt) / torch.clamp_min(np_total * 3.0, 1e-30), 1e-10
         )
         dm = t - y
-        move = (torch.sqrt(dm[:, 0] * dm[:, 0] + dm[:, 1] * dm[:, 1] + dm[:, 2] * dm[:, 2]) * nm).sum()
-        delta = move / vcf
+        move = (torch.sqrt(dm[:, 0] * dm[:, 0] + dm[:, 1] * dm[:, 1] + dm[:, 2] * dm[:, 2])
+                * self.nm).sum()
+        return s2_new, move / self.vcf
+
+
+def fused_em_loop_plain(
+    dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm, *,
+    muf: float, k_vis: float, tau_vis: float, lam: float, coef_lle: float,
+    alpha: float, tol: float, max_iter: int,
+):
+    """The EM loop in plain tensor ops; same inputs and outputs as
+    :func:`fused_em_loop`. The M-step is a direct solve. Iterations after
+    convergence are computed but frozen out, so nothing is read back to the
+    host (on the CPU the loop stops at convergence)."""
+    ph = EmPhasesPlain(dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm, muf=muf, k_vis=k_vis,
+                       tau_vis=tau_vis, lam=lam, coef_lle=coef_lle, alpha=alpha)
+    dev = y0.device
+    s2 = dyn[0]
+    y = y0.clone()
+    it = torch.zeros((), dtype=torch.int64, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    converged = torch.ones((), dtype=torch.bool, device=dev)
+    delta_out = ph.zero.clone()
+    for _ in range(max_iter):
+        active = ~done
+        p1, px, np_total, tr_x = ph.estep(y, s2)
+        a, b = ph.mstep(p1, px, s2)
+        t = ph.update(torch.linalg.solve(a, b))
+        s2_new, delta = ph.sigma2(t, y, p1, px, np_total, tr_x)
         new_done = delta < tol
 
         y = torch.where(active, t, y)
@@ -175,7 +206,7 @@ def fused_em_loop_plain(
         done = done | new_done
         if dev.type == "cpu" and bool(done):
             break
-    stats = torch.stack([s2, it.to(dt), converged.to(dt), delta_out])
+    stats = torch.stack([s2, it.to(y0.dtype), converged.to(y0.dtype), delta_out])
     return y, stats
 
 
@@ -295,6 +326,14 @@ def pursuit_walks_plain(guides, seglens, ints, eps: float = 1e-4):
     return pos, valid
 
 
+def alloc_walks_out(n_w: int, m: int, device):
+    """Kernel W's outputs in their final dtypes: pos (W, M, 3) float32 and
+    valid (W, M) bool, whose one-byte storage the kernel writes as 0/1 (no
+    cast after the launch)."""
+    return (torch.empty((n_w, m, 3), dtype=_F32, device=device),
+            torch.empty((n_w, m), dtype=torch.bool, device=device))
+
+
 def pursuit_walks(guides, seglens, ints, eps: float = 1e-4):
     """The prior walks, one warp each.
 
@@ -311,16 +350,14 @@ def pursuit_walks(guides, seglens, ints, eps: float = 1e-4):
     n_w, m, _ = guides.shape
     if not 2 <= m <= 65:
         raise ValueError(f"pursuit_walks: m={m} outside [2, 65]")
-    pos = torch.empty((n_w, m, 3), dtype=_F32, device=dev)
-    valid = torch.empty((n_w, m), dtype=torch.uint8, device=dev)
+    pos, valid = alloc_walks_out(n_w, m, dev)
     code = _build.lib().trackdlo_walks(
         guides.data_ptr(), seglens.data_ptr(), ints.data_ptr(), n_w, m, float(eps),
         pos.data_ptr(), valid.data_ptr(), _build.stream_ptr(dev),
     )
     _build.check(code, "trackdlo_walks")
     _build.count_launch("walks")
-    return pos, valid.bool()
-
+    return pos, valid
 
 
 # ---------------------------------------------------------------------------
@@ -483,32 +520,44 @@ def fused_estep_packed(scal, y, coord, nm, pv, x, xm, *, two_phase: bool):
 # ---------------------------------------------------------------------------
 
 
-def gauss_jordan_solve_batched_plain(a, b):
+def gauss_jordan_solve_batched_plain(a, b, g=None, y0=None):
     """Kernel G's plain version: a direct solve (the JAX package's route off
-    the TPU, ``jnp.linalg.solve``)."""
-    return torch.linalg.solve(a, b)
+    the TPU, ``jnp.linalg.solve``) and, with ``g`` and ``y0``, the node
+    update y0 + g w as the kernel takes its product (B1's ``_exact_dot``)."""
+    w = torch.linalg.solve(a, b)
+    return w if g is None else (w, y0 + exact_split_matmul(g, w))
 
 
-def gauss_jordan_solve_batched(a, b):
+def gauss_jordan_solve_batched(a, b, g=None, y0=None):
     """Solve a[i] @ w[i] = b[i] for (B, m, m) ``a`` and (B, m, 3) ``b`` in
     one launch (kernel G): power-of-two row equilibration, Gauss-Jordan with
-    partial pivoting, the inverse and three refinement steps. Returns w
-    (B, m, 3)."""
+    partial pivoting, the inverse and three refinement steps (the residual's
+    product as B1's ``_exact_dot``). Returns w (B, m, 3); given the EM's
+    (B, m, m) ``g`` and (B, m, 3) ``y0``, returns (w, t) with its node update
+    t = y0 + g w, the product taken the same way, in the same launch."""
     if a.device.type == "cpu":
-        return gauss_jordan_solve_batched_plain(a, b)
-    dev = _build.require_cuda("gauss_jordan_solve_batched", dict(a=a, b=b))
+        return gauss_jordan_solve_batched_plain(a, b, g, y0)
+    tensors = dict(a=a, b=b) if g is None else dict(a=a, b=b, g=g, y0=y0)
+    dev = _build.require_cuda("gauss_jordan_solve_batched", tensors)
     n_sys, m, _ = a.shape
     if not 1 <= m <= 48:
         raise ValueError(f"gauss_jordan_solve_batched: m={m} outside [1, 48]")
     if tuple(a.shape) != (n_sys, m, m) or tuple(b.shape) != (n_sys, m, 3):
         raise ValueError("gauss_jordan_solve_batched: a must be (B, m, m) and b (B, m, 3)")
     w = torch.empty((n_sys, m, 3), dtype=_F32, device=dev)
-    code = _build.lib().trackdlo_gj_solve(
-        a.data_ptr(), b.data_ptr(), n_sys, m, w.data_ptr(), _build.stream_ptr(dev)
-    )
+    if g is None:
+        code = _build.lib().trackdlo_gj_solve(
+            a.data_ptr(), b.data_ptr(), n_sys, m, w.data_ptr(), _build.stream_ptr(dev))
+    else:
+        if tuple(g.shape) != (n_sys, m, m) or tuple(y0.shape) != (n_sys, m, 3):
+            raise ValueError("gauss_jordan_solve_batched: g must be (B, m, m) and y0 (B, m, 3)")
+        t = torch.empty((n_sys, m, 3), dtype=_F32, device=dev)
+        code = _build.lib().trackdlo_gj_solve_update(
+            a.data_ptr(), b.data_ptr(), g.data_ptr(), y0.data_ptr(), n_sys, m, w.data_ptr(),
+            t.data_ptr(), _build.stream_ptr(dev))
     _build.check(code, "trackdlo_gj_solve")
     _build.count_launch("gj_solve")
-    return w
+    return w if g is None else (w, t)
 
 
 # ---------------------------------------------------------------------------

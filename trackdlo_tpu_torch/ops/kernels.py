@@ -104,3 +104,32 @@ def lle_regularizer(y: torch.Tensor, node_mask: torch.Tensor, k: int = 6) -> tor
     eye = torch.eye(m, dtype=y.dtype, device=y.device) * node_mask[..., :, None].to(y.dtype)
     i_l = eye - l_mat
     return i_l.mT @ i_l
+
+
+def split3(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """float32 ``v`` as three bfloat16 pieces held in float32 (the JAX
+    package's ``_exact_dot`` split, pallas_kernels.py:1158-1163): hi the
+    nearest bfloat16 of v, mid that of v - hi, lo that of v - hi - mid."""
+    bf = lambda t: t.to(torch.bfloat16).to(torch.float32)
+    hi = bf(v)
+    r1 = v - hi
+    mid = bf(r1)
+    return hi, mid, bf(r1 - mid)
+
+
+def exact_split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the JAX package's ``_exact_dot`` (pallas_kernels.py:1152)
+    takes it: both operands split into three bfloat16 pieces, the nine piece
+    products (exact in float32) summed over the inner axis in float32, and
+    the nine sums added in the order (hi, hi), (hi, mid), ..., (lo, lo).
+    Where a product cancels heavily (the EM's M-step: A W against B, and
+    G W) this stays near the exact value where a float32 product does not.
+    Other dtypes take the plain product."""
+    if a.dtype != torch.float32:
+        return a @ b
+    out = None
+    for pa in split3(a):
+        for pb in split3(b):
+            term = pa @ pb
+            out = term if out is None else out + term
+    return out
