@@ -22,7 +22,10 @@ Phases, in order (any failure exits nonzero and prints no result line):
    and the per-iteration EM against kernel E and its plain version; kernel
    W bit for bit its saved previous design; kernel E's trips on four saved
    pre-registration passes against the JAX package's B1, and frame 25 phase
-   by phase through a probe build of kernel E (ROADMAP §C fault 1); kernel
+   by phase through a probe build of kernel E (ROADMAP §C fault 1); kernel C
+   with explicit kept cells and in its derived mode (the overflow thinning
+   and the centroid division in the launch), at the live slots and at 16
+   slots a channel, where the thinning fires; kernel
    P's one-channel modes (floor votes, no leaf) and kernel F (one EM
    iteration with its one-hot M-step solve): F's route against the plain
    per-iteration route, a live tolerance run through F, F batched; kernel N
@@ -50,8 +53,9 @@ Phases, in order (any failure exits nonzero and prints no result line):
 7. timing: the per-frame single step (parity and coarse), the batched step
    (CUDA events) and each kernel beside its plain version and, for the
    solve, beside ``torch.linalg.solve``, with its device time from a
-   ``torch.profiler`` trace; kernel F also beside one iteration of the
-   single-stream per-iteration route.
+   ``torch.profiler`` trace; kernel P also with the L2 flushed before each
+   launch; kernel C in the main path's derived mode; kernel F also beside
+   one iteration of the single-stream per-iteration route.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after. The last two lines of standard output are the card line
@@ -483,6 +487,26 @@ class Smoke:
             return None, 0.0
         return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / n, len(ev) / n
 
+    def cold_l2(self, fn, name, n=50):
+        """The device time of ``fn``'s kernels whose names hold ``name``,
+        with the L2 flushed before each call (a 64 MB buffer, more than the
+        H100's 50 MB, zeroed): the frame arrives from the host each step."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=self.dev)
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        return {"device_ms": sum(e.time_range.elapsed_us() for e in ev) / 1e3 / n if ev else None,
+                "kernels_per_call": len(ev) / n}
+
     def time_pair(self, name, kernel_fn, plain_fn, n_kernel=50, n_plain=5, library_fn=None):
         """ms per call of the kernel, of its plain version and of the library
         call (if any), measured in turns (plain, kernel, kernel, plain) with
@@ -533,8 +557,8 @@ class Smoke:
     def check_preprocess(self):
         np, torch = self.np, self.torch
         from trackdlo_tpu_torch.ops.preprocess import (
-            cell_sums_plain, compact_channels, compact_channels_plain, compact_parity_channels,
-            default_cell_px, kept_cells,
+            cell_sums_plain, compact_channels, compact_channels_plain, compact_occupied_channels,
+            compact_occupied_channels_plain, compact_parity_channels, default_cell_px, kept_cells,
         )
         from trackdlo_tpu_torch.ops.preprocess_kernel import cell_sums
 
@@ -559,18 +583,27 @@ class Smoke:
         self.p_args = args
 
         # Kernel C on the same cell sums: the live slots, then 16 slots per
-        # channel so that kept cells overflow them. Every output bit-equal.
+        # channel so that the occupied cells overflow them and the thinning
+        # fires. The explicit kept cells, and the derived mode (the thinning
+        # in the launch) with and without the centroid division, each
+        # against its plain version: every output bit-equal.
         mismatch, c_err = 0, 0.0
         for cap_per in (p.candidate_cap() // 8, 16):
             kept = kept_cells(k_out[3], cap_per)
-            ck = compact_channels(*k_out, kept, cap_per)
-            cp = compact_channels_plain(*k_out, kept, cap_per)
-            mismatch += sum(int((a != b).sum()) for a, b in zip(ck, cp))
-            c_err = max(c_err, *(float((a.float() - b.float()).abs().max()) for a, b in zip(ck, cp)))
-            log(f"  compaction: {cap_per} slots per channel, {int(cp[2].sum())} filled")
+            pairs = [(compact_channels(*k_out, kept, cap_per), compact_channels_plain(*k_out, kept, cap_per))]
+            for div in (False, True):
+                pairs.append((compact_occupied_channels(*k_out, cap_per, div),
+                              compact_occupied_channels_plain(*k_out, cap_per, div)))
+            for ck, cp in pairs:
+                mismatch += sum(int((a != b).sum()) for a, b in zip(ck, cp))
+                c_err = max(c_err, *(float((a.float() - b.float()).abs().max()) for a, b in zip(ck, cp)))
+            occupied = int((k_out[3] > 0).sum(1).max())
+            log(f"  compaction: {cap_per} slots per channel, {int(pairs[0][1][2].sum())} filled; "
+                f"the fullest channel {occupied} occupied cells "
+                f"({'thinned' if occupied > cap_per else 'no thinning'})")
         self.bound("compact_mismatch", mismatch)
         self.kernel_err["compact"] = c_err
-        self.c_args = (*k_out, kept_cells(k_out[3], p.candidate_cap() // 8), p.candidate_cap() // 8)
+        self.c_args = (*k_out, p.candidate_cap() // 8, True)
 
         # Parity over every u16 depth at the 8 mm leaf: one pixel per cell.
         side = 256
@@ -1647,9 +1680,16 @@ class Smoke:
         h, w = rgb.shape[:2]
         n_cells = self.c_args[3].shape[-1]
         self.bounds_ms["cell_sums"] = bound(h * w * 6 + 4 * 8 * n_cells * 4, h * w * OPS_PER_PIXEL)
-        rows, n_per = self.c_args[3].shape
-        cap = self.c_args[5]
-        self.bounds_ms["compact"] = bound(rows * n_per * 17 + rows * cap * 17, rows * n_per * 4)
+        # Kernel C's derived launch: the counts read once (the occupied
+        # flags), the kept cells' x, y, z read once, every slot written once
+        # (x, y, z, count and the valid byte); one compare a cell and three
+        # divisions a kept cell. This frame's kept cells: each row's
+        # occupied cells, at most cap of them.
+        counts, cap = self.c_args[3], self.c_args[4]
+        rows, n_per = counts.shape
+        n_kept = int((counts > 0).sum(1).clamp(max=cap).sum())
+        self.bounds_ms["compact"] = bound(rows * n_per * 4 + n_kept * 12 + rows * cap * 17,
+                                          rows * n_per + 3 * n_kept)
         x, xm = self.v_args[1], self.v_args[2]
         n, n_valid = x.shape[0], int(xm.sum())
         self.bounds_ms["visibility"] = bound(n * 21 + m * 32 + 48,
@@ -1704,7 +1744,7 @@ class Smoke:
             nearest_point_sq_plain, pursuit_walks, pursuit_walks_plain,
         )
         from trackdlo_tpu_torch.ops.preprocess import (
-            cell_sums_plain, compact_channels, compact_channels_plain,
+            cell_sums_plain, compact_occupied_channels, compact_occupied_channels_plain,
         )
         from trackdlo_tpu_torch.ops.preprocess_kernel import cell_sums
         from trackdlo_tpu_torch.ops.visibility import compute_visibility
@@ -1774,8 +1814,12 @@ class Smoke:
         self.g_args = (a_l.expand(COHORT, m, m).contiguous(), b_l.expand(COHORT, m, 3).contiguous())
         self.kernel_bounds()
         self.time_pair("cell_sums", lambda: cell_sums(*self.p_args), lambda: cell_sums_plain(*self.p_args))
-        self.time_pair("compact", lambda: compact_channels(*self.c_args),
-                       lambda: compact_channels_plain(*self.c_args))
+        self.times["cell_sums"]["cold_l2"] = self.cold_l2(lambda: cell_sums(*self.p_args), "cell_sums")
+        log(f"  cell_sums with the L2 flushed before each launch: device "
+            f"{self.times['cell_sums']['cold_l2']['device_ms']:.4f} ms")
+        self.time_pair("compact", lambda: compact_occupied_channels(*self.c_args),
+                       lambda: compact_occupied_channels_plain(*self.c_args))
+        self.times["compact"]["note"] = "the derived mode: thinning, pack and centroid division"
         self.time_pair("visibility", lambda: fused_visibility(*self.v_args),
                        lambda: compute_visibility(*self.v_args))
         self.time_pair("walks", lambda: pursuit_walks(*self.w_args), lambda: pursuit_walks_plain(*self.w_args))

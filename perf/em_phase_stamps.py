@@ -24,8 +24,19 @@ so the cycles are those of one SM's clock.
 - Kernel W: chip_smoke.py's five walk cases, per step of each case's
   longest walk (its lane 0): the look-ahead read, the segment tests, the
   warp's first acceptable segment, the broadcast and store; its steps and
-  live steps, and the launch's time by CUDA events. ``--only`` picks the
-  kernels (e, g, w).
+  live steps, and the launch's time by CUDA events.
+- Kernel P: chip_smoke.py's live frame (parity mode), per phase of the
+  warps of the fullest cell and of an empty cell of its cell row: in the
+  design before the strip-staged one the pixel loop, the 32 shuffle trees
+  and lane 0's stores; in the current one the strip's load and pixel pass
+  (block-wide), the cell pass, the transposed reduction, the store into
+  shared memory and the block's store; the current sources also at 8 and
+  16 cells a strip and with blocks of 256 threads. Kernel C: that frame's cell sums (8 rows, 256 slots),
+  block 0 per phase: before, the chained chunks' ballots, scans and
+  scatters; now the ballots, the scan, the cluster barrier, the read of
+  the other CTAs' totals, the scatter and the tail; the current sources
+  also with clusters of at most 1, 2 and 4 CTAs. Both also by the
+  profiler's device time. ``--only`` picks the kernels (e, g, w, p, c).
 - In E and G, the solve's pivot steps (``gj.cuh``), per step: each phase as
   thread 0 of block 0 sees it (the search, the factors, the update, the
   barrier; in the current solve the search is the search warp's, with its
@@ -251,6 +262,44 @@ W_ANCHORS = [
 ]
 
 
+# The current P: the strip's load and the pixel pass (block-wide), then per
+# cell of the warp the cell pass over shared memory, the transposed
+# reduction, the store into shared memory; the block's store of the strip.
+P_PHASES = ["strip load", "pixel pass", "cell pass", "reduction", "shared store", "block store"]
+P_ANCHORS = [
+    ("  const int d_pitch = a.d_pitch >> 1;\n", "  P_DECL();\n  const long long _p_b0 = clock64();\n"),
+    ("  if (a.vec) asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n  __syncthreads();\n",
+     "  const long long _p_b1 = clock64();\n  int _p_mine = -1;\n"),
+    ("        s_tag[si] = (int8_t)tag;\n      }\n    }\n    __syncthreads();\n  }\n",
+     "  const long long _p_b15 = clock64();\n"),
+    ("  for (int k = warp; k < n_tc; k += WARPS) {\n",
+     "    const int cell = cr * a.n_cols + cc0 + k;\n    P_T(cell, stream, 0);\n"
+     "    if (P_ON(cell, stream)) { _p_acc[0] = _p_b1 - _p_b0; _p_acc[1] = _p_b15 - _p_b1; "
+     "_p_start = _p_b0; _p_mine = cell; }\n"),
+    ("      any = __any_sync(TD_FULL_MASK, mine);\n    }\n", "    P_T_DEP(cell, stream, 3, acc[0]);\n"),
+    ("    const float s = any ? transpose_sum<A::N>(acc, lane) : 0.0f;\n", "    P_T_DEP(cell, stream, 4, s);\n"),
+    ("s_out[lane >> SHIFT][k] = s;\n", "    P_T(cell, stream, 5);\n"),
+    ("    P_T(cell, stream, 5);\n  }\n  __syncthreads();\n", "  const long long _p_b2 = clock64();\n"),
+    ("n_cells + cell0 + k] = s_out[j][k];\n    }\n  }\n",
+     "  if (_p_mine >= 0 && P_ON(_p_mine, stream)) { _p_acc[5] = clock64() - _p_b2; P_FLUSH(_p_mine, stream); }\n"),
+]
+# The current C: per block, its chunks' ballots, the scans of their warp
+# totals, the cluster exchange of the CTAs' totals, the scatter, and the
+# tail with the exit barrier.
+C_PHASES = ["ballot", "scan of the warp totals", "cluster barrier", "remote totals", "scatter",
+            "tail and exit barrier"]
+C_ANCHORS = [
+    ("  unsigned flags = 0;  // bit ch: this thread's cell of chunk ch is flagged\n", "  C_DECL();\n", False),
+    ("    flags |= (unsigned)f << ch;\n  }\n  __syncthreads();\n", "  C_T(1);\n", True),
+    ("    if (lane == 31) chunk_off[warp] = incl;\n  }\n  __syncthreads();\n", "  C_T(2);\n", True),
+    ("  cluster.sync();\n", "  C_T(3);\n", True),
+    ("  cluster_arrive();  // this CTA's reads of the others' totals are done\n  __syncthreads();\n",
+     "  C_T(4);\n", True),
+    ("    V[slot] = 1;\n  }\n", "  C_T(5);\n", True),
+    ("    V[s] = 0;\n  }\n  cluster_wait();\n", "  _c_chunks = n_chunks;\n  C_T(6);\n  C_FLUSH();\n", True),
+]
+
+
 def _walks_source(csrc: str) -> str:
     text = open(os.path.join(csrc, "walks.cu")).read()
     anchors = W_ANCHORS if W_ANCHORS and W_ANCHORS[0][0] in text else W_PARENT_ANCHORS
@@ -310,6 +359,262 @@ def kernel_w(torch, variants) -> dict:
                   f"{rec[case]['ms']:.4f} ms; equal to the unstamped kernel's {rec[case]['equals_saved']}",
                   flush=True)
         out[name] = rec
+    return out
+
+
+# P: per stamped cell (its warp's lane 0), cycles by phase, chosen at run
+# time (p_stamp_cells: an occupied cell and an empty one of stream 0).
+P_STAMPS = r'''
+#pragma once
+__device__ long long p_acc[2][8];
+__device__ int p_stamp_cells[2];
+#define P_ON(cell, s) ((s) == 0 && (threadIdx.x & 31) == 0 && ((cell) == _p_c0 || (cell) == _p_c1))
+#define P_DECL() long long _p_acc[7] = {0, 0, 0, 0, 0, 0, 0}; long long _p_prev = 0, _p_start = 0; \
+  const int _p_c0 = p_stamp_cells[0], _p_c1 = p_stamp_cells[1]
+#define P_T(cell, s, p) do { if (P_ON(cell, s)) { const long long _t = clock64(); \
+  if ((p) > 0) _p_acc[(p) - 1] += _t - _p_prev; else _p_start = _t; _p_prev = _t; } } while (0)
+// A stamp after v is in a register: the branch waits for v.
+#define P_T_DEP(cell, s, p, v) do { if (__float_as_uint(v) == 0xffffffffu) _p_prev -= 1; \
+  P_T(cell, s, p); } while (0)
+#define P_FLUSH(cell, s) do { if (P_ON(cell, s)) { const int _k = (cell) == _p_c0 ? 0 : 1; \
+  for (int _i = 0; _i < 7; ++_i) p_acc[_k][_i] = _p_acc[_i]; p_acc[_k][7] = clock64() - _p_start; } } while (0)
+'''
+P_HOST = r'''
+extern "C" int p_stamps_set(int occupied, int empty) { long long z[16] = {0}; int c[2] = {occupied, empty};
+  cudaError_t e = cudaMemcpyToSymbol(p_acc, z, sizeof(z));
+  return (int)(e != cudaSuccess ? e : cudaMemcpyToSymbol(p_stamp_cells, c, sizeof(c))); }
+extern "C" int p_stamps_read(long long* out) { return (int)cudaMemcpyFromSymbol(out, p_acc, sizeof(p_acc)); }
+'''
+# The design before the redesign: one warp per cell reading the frame in
+# place, 32 shuffle trees, lane 0 storing each sum.
+P_PARENT_PHASES = ["pixel loop", "reductions", "stores"]
+P_PARENT_ANCHORS = [
+    ("  const int cr = cell / n_cols, cc = cell % n_cols;\n", "  P_DECL();\n  P_T(cell, stream, 0);\n"),
+    ("      acc[0][3] += 1.0f;\n      if constexpr (MODE == MODE_VOTES) {\n        acc[0][4] += fkx;\n"
+     "        acc[0][5] += fky;\n        acc[0][6] += fkz;\n      }\n    }\n  }\n", "  P_T_DEP(cell, stream, 1, acc[0][0]);\n"),
+    ("      const float s = td_warp_sum(acc[c][q]);\n", "      P_T_DEP(cell, stream, 2, s);\n"),
+    ("n_cells + cell] = s;\n", "      P_T(cell, stream, 3);\n"),
+    ("      P_T(cell, stream, 3);\n    }\n", "  P_FLUSH(cell, stream);\n"),
+]
+
+
+def _edited(text: str, edits: dict) -> str:
+    for old, new in edits.items():
+        text = _replace(text, old, new)
+    return text
+
+
+# Other tilings and cluster sizes of the current P and C, measured beside it.
+P_EDITS = {f"tile{t}": {"constexpr int TILE_CELLS = 32;": f"constexpr int TILE_CELLS = {t};"} for t in (8, 16)}
+P_EDITS["threads256"] = {"constexpr int THREADS = 512;": "constexpr int THREADS = 256;",
+                         "__launch_bounds__(THREADS, 2) cell_sums_kernel": "__launch_bounds__(THREADS) cell_sums_kernel"}
+P_EDITS["threads256_tile16"] = {**P_EDITS["threads256"], **P_EDITS["tile16"]}
+C_EDITS = {f"cluster{c}": {"constexpr int MAX_CLUSTER = 8;": f"constexpr int MAX_CLUSTER = {c};"}
+           for c in (1, 2, 4)}
+
+
+def _with_edits(variants, edits: dict) -> list:
+    """The variants, then the current sources under each of ``edits``."""
+    out = [(name, csrc, {}) for name, csrc in variants]
+    current = dict(variants).get("current")
+    return out + [(f"current_{k}", current, e) for k, e in edits.items()] if current else out
+
+
+def _cell_sums_source(csrc: str, edits: dict | None = None) -> tuple[str, list]:
+    text = _edited(open(os.path.join(csrc, "cell_sums.cu")).read(), edits or {})
+    anchors, phases = ((P_ANCHORS, P_PHASES) if P_ANCHORS and P_ANCHORS[0][0] in text
+                       else (P_PARENT_ANCHORS, P_PARENT_PHASES))
+    for old, add in anchors:
+        text = _insert(text, old, add)
+    return '#include "stamps.cuh"\n' + text + P_HOST, phases
+
+
+def _live_p_args(smoke):
+    """Kernel P's arguments on the live frame of chip_smoke.py's phase 3."""
+    from trackdlo_tpu_torch.ops.preprocess import default_cell_px
+
+    p, intr = smoke.params, smoke.intr
+    leaf = p.downsample_leaf_size
+    cell = default_cell_px(leaf, intr.fx)
+    rgb, depth, occ = smoke.frame(1 / 15.0)
+    return (*smoke.to_dev(rgb, depth, occ), intr.fx, intr.fy, intr.cx, intr.cy, p.hsv_lower,
+            p.hsv_upper, p.multi_color_dlo, cell, leaf)
+
+
+def kernel_p(torch, variants) -> dict:
+    """Kernel P (parity mode) on the live frame of chip_smoke.py's phase 3:
+    per variant (and the current sources at 8 and 16 cells a strip and
+    with 256 threads a block), the
+    cycles by phase of the warp of the fullest cell and of an empty cell
+    (its lane 0), and the launch's time by CUDA events and the profiler."""
+    import chip_smoke
+    from trackdlo_tpu_torch import _build as tb
+    from trackdlo_tpu_torch.ops.preprocess import cell_sums_plain, floor_key_constants
+    from trackdlo_tpu_torch.ops.preprocess_kernel import _bands_tensor, parity_grid_shape
+
+    smoke = chip_smoke.Smoke()
+    args = _live_p_args(smoke)
+    rgb, depth, occ, fx, fy, cx, cy, lo, hi, multi, cell, leaf = args
+    h, w = depth.shape
+    n_rows, n_cols = parity_grid_shape(h, w, cell)
+    ref = cell_sums_plain(*args)
+    per_cell = ref[3].sum(0)
+    occupied = int(per_cell.argmax())
+    # An empty cell in the occupied cell's cell row, so that in a design
+    # with a block per strip both share the strip's load.
+    row = occupied // n_cols
+    empty = row * n_cols + int((per_cell[row * n_cols:(row + 1) * n_cols] == 0).nonzero()[0])
+    bands = _bands_tensor(lo, hi, multi, smoke.dev)
+    k = floor_key_constants(fx, fy, leaf)
+    out = {"occupied_cell": occupied, "occupied_pixels": int(per_cell[occupied]), "empty_cell": empty,
+           "cells": n_rows * n_cols, "occupied_cells": int((per_cell > 0).sum())}
+    for name, csrc, edits in _with_edits(variants, P_EDITS):
+        source, phases = _cell_sums_source(csrc, edits)
+        lib = _build(f"cell_sums_{name}", csrc, _headers(csrc), "cell_sums.cu", source, P_STAMPS)
+        fn = lib.trackdlo_cell_sums
+        fn.argtypes, fn.restype = tb.SIGNATURES["trackdlo_cell_sums"], ctypes.c_int
+        res = torch.empty((4, 8, n_rows * n_cols), device=smoke.dev)
+
+        def run():
+            code = fn(rgb.data_ptr(), depth.data_ptr(), occ.data_ptr(), 1, h, w, cell, bands.data_ptr(),
+                      bands.numel() // 6, fx, fy, cx, cy, k["kx"], k["ky"], k["k_zq"], k["kz"],
+                      int(k["z_from_mm"]), 0, res.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if code != 0:
+                raise RuntimeError(f"{name}: launch failed with cudaError_t {code}")
+
+        run()
+        torch.cuda.synchronize()
+        if lib.p_stamps_set(occupied, empty) != 0:
+            raise RuntimeError("p_stamps_set failed")
+        run()
+        torch.cuda.synchronize()
+        acc = (ctypes.c_longlong * 16)()
+        if lib.p_stamps_read(acc) != 0:
+            raise RuntimeError("p_stamps_read failed")
+        rec = {"ms": _events_ms(torch, run, 200), "device_ms": _device_ms(torch, run, 100, "cell_sums"),
+               "counts_equal_plain": bool(torch.equal(res[3], ref[3]))}
+        for i, kind in enumerate(("occupied", "empty")):
+            rec[kind] = {**{ph: acc[8 * i + j] for j, ph in enumerate(phases)}, "total": acc[8 * i + 7]}
+        out[name] = rec
+        print(f"P {name:10s} occupied cell {occupied} ({out['occupied_pixels']} px) {rec['occupied']}; "
+              f"empty cell {empty} {rec['empty']}; {rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms; "
+              f"counts equal the plain version's "
+              f"{rec['counts_equal_plain']}", flush=True)
+    return out
+
+
+# C: thread 0 of one block (c_stamp_block) stamps each chunk's phases.
+C_STAMPS = r'''
+#pragma once
+__device__ long long c_acc[8];
+__device__ int c_stamp_block;
+#define C_ON() (blockIdx.x == c_stamp_block && threadIdx.x == 0)
+#define C_DECL() long long _c_acc[6] = {0, 0, 0, 0, 0, 0}; long long _c_prev = clock64(), _c_start = _c_prev; \
+  int _c_chunks = 0
+#define C_T(p) do { if (C_ON()) { const long long _t = clock64(); \
+  if ((p) > 0) _c_acc[(p) - 1] += _t - _c_prev; else ++_c_chunks; _c_prev = _t; } } while (0)
+#define C_FLUSH() do { if (C_ON()) { for (int _i = 0; _i < 6; ++_i) c_acc[_i] = _c_acc[_i]; \
+  c_acc[6] = _c_chunks; c_acc[7] = clock64() - _c_start; } } while (0)
+'''
+C_HOST = r'''
+extern "C" int c_stamps_set(int block) { long long z[8] = {0};
+  cudaError_t e = cudaMemcpyToSymbol(c_acc, z, sizeof(z));
+  return (int)(e != cudaSuccess ? e : cudaMemcpyToSymbol(c_stamp_block, &block, sizeof(block))); }
+extern "C" int c_stamps_read(long long* out) { return (int)cudaMemcpyFromSymbol(out, c_acc, sizeof(c_acc)); }
+'''
+# The design before the redesign: one block per row, chained chunks of 1024
+# cells, each a ballot, a scan of the 32 warp totals and the scatter.
+C_PARENT_PHASES = ["ballot", "scan of the warp totals", "scatter", "tail"]
+C_PARENT_ANCHORS = [
+    ("  int base = 0;  // kept cells in earlier chunks; the same in every thread\n", "  C_DECL();\n", False),
+    ("start += THREADS) {\n", "    C_T(0);\n", True),
+    ("    __syncthreads();\n    if (warp == 0) {\n", "    C_T(1);\n", False),
+    ("    __syncthreads();\n    if (k) {\n", "    C_T(2);\n", False),
+    ("    __syncthreads();  // the next chunk rewrites warp_off and chunk_total\n", "    C_T(3);\n", True),
+    ("    V[r] = 0;\n  }\n", "  C_T(4);\n  C_FLUSH();\n", True),
+]
+
+
+def _compact_source(csrc: str, edits: dict | None = None) -> tuple[str, list, bool]:
+    text = _edited(open(os.path.join(csrc, "compact.cu")).read(), edits or {})
+    parent = not (C_ANCHORS and C_ANCHORS[0][0] in text)
+    anchors, phases = (C_PARENT_ANCHORS, C_PARENT_PHASES) if parent else (C_ANCHORS, C_PHASES)
+    for old, add, after in anchors:
+        if after:
+            text = _insert(text, old, add)
+        else:
+            # Before the anchor's last line: the stamp follows its barrier.
+            head, last = old[:old.rstrip("\n").rfind("\n") + 1], old[old.rstrip("\n").rfind("\n") + 1:]
+            text = _replace(text, old, head + add + last)
+    return '#include "stamps.cuh"\n' + text + C_HOST, phases, parent
+
+
+def kernel_c(torch, variants) -> dict:
+    """Kernel C on the live frame's cell sums (8 channel rows, 256 slots
+    each): per variant (and the current sources with clusters of at most
+    1, 2 and 4 CTAs), the cycles by phase of one block (its thread 0),
+    summed over its chunks, and the launch's time by CUDA events and the
+    profiler. The
+    parent takes the kept cells from kept_cells; the current design derives
+    them and divides the centroids in its launch."""
+    import chip_smoke
+    from trackdlo_tpu_torch.ops.preprocess import (
+        cell_sums_plain, compact_channels_plain, kept_cells,
+    )
+
+    smoke = chip_smoke.Smoke()
+    args = _live_p_args(smoke)
+    sums = tuple(s.contiguous() for s in cell_sums_plain(*args))
+    rows, n_per = sums[3].shape
+    cap = smoke.params.candidate_cap() // 8
+    kept = kept_cells(sums[3], cap)
+    ref = compact_channels_plain(*sums, kept, cap)
+    ref_div = (ref[0] / torch.clamp_min(ref[1], 1.0)[..., None], ref[1], ref[2])
+    out = {"rows": rows, "n_per": n_per, "cap_per": cap, "occupied": int((sums[3] > 0).sum()),
+           "kept": int(kept.sum())}
+    for name, csrc, edits in _with_edits(variants, C_EDITS):
+        source, phases, parent = _compact_source(csrc, edits)
+        lib = _build(f"compact_{name}", csrc, _headers(csrc), "compact.cu", source, C_STAMPS)
+        fn = lib.trackdlo_compact
+        fn.restype = ctypes.c_int
+        pts = torch.empty((rows, cap, 3), device=smoke.dev)
+        cnt = torch.empty((rows, cap), device=smoke.dev)
+        valid = torch.empty((rows, cap), dtype=torch.bool, device=smoke.dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = [s.data_ptr() for s in sums]
+        outs = [pts.data_ptr(), cnt.data_ptr(), valid.data_ptr()]
+        if parent:
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+            call = lambda: fn(*ptrs, kept.data_ptr(), rows, n_per, cap, *outs, stream)
+            want = ref
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+            call = lambda: fn(*ptrs, None, rows, n_per, cap, 1, *outs, stream)
+            want = ref_div
+
+        def run():
+            code = call()
+            if code != 0:
+                raise RuntimeError(f"{name}: launch failed with cudaError_t {code}")
+
+        run()
+        torch.cuda.synchronize()
+        if lib.c_stamps_set(0) != 0:
+            raise RuntimeError("c_stamps_set failed")
+        run()
+        torch.cuda.synchronize()
+        acc = (ctypes.c_longlong * 8)()
+        if lib.c_stamps_read(acc) != 0:
+            raise RuntimeError("c_stamps_read failed")
+        rec = {"ms": _events_ms(torch, run, 200), "device_ms": _device_ms(torch, run, 100, "compact"),
+               "chunks": acc[6], "block_cycles": acc[7],
+               "cycles": {ph: acc[i] for i, ph in enumerate(phases)},
+               "equals_plain": all(bool(torch.equal(a, b)) for a, b in zip((pts, cnt, valid), want))}
+        out[name] = rec
+        print(f"C {name:10s} block 0: {rec['chunks']} chunks, {rec['block_cycles']} cycles, by phase "
+              f"{rec['cycles']}; {rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms; equal to the plain "
+              f"version's {rec['equals_plain']}",
+              flush=True)
     return out
 
 
@@ -393,6 +698,22 @@ def _events_ms(torch, fn, n):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def _device_ms(torch, fn, n, name):
+    """The device time of one call of ``fn``: its kernels whose names hold
+    ``name``, from a torch.profiler trace of ``n`` calls after one warm-up
+    call (ctypes calls are host-bound, so events read the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / n if ev else None
 
 
 def kernel_e(torch, variants) -> dict:
@@ -499,7 +820,8 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=[], metavar="NAME=DIR",
                     help="another tree to stamp beside them (repeatable)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "em_phase_stamps.json"))
-    ap.add_argument("--only", default="e,g,w", help="comma list of the kernels to stamp: e, g, w")
+    ap.add_argument("--only", default="e,g,w,p,c",
+                    help="comma list of the kernels to stamp: e, g, w, p, c")
     args = ap.parse_args()
     only = set(args.only.split(","))
     import torch
@@ -524,6 +846,10 @@ def main() -> int:
         record["kernel_g"] = kernel_g(torch, g_variants)
     if "w" in only:
         record["kernel_w"] = kernel_w(torch, e_variants)
+    if "p" in only:
+        record["kernel_p"] = kernel_p(torch, e_variants)
+    if "c" in only:
+        record["kernel_c"] = kernel_c(torch, e_variants)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)

@@ -27,6 +27,8 @@ from trackdlo_tpu_torch.ops.preprocess import (
     cell_sums_plain,
     compact_channels,
     compact_channels_plain,
+    compact_occupied_channels,
+    compact_occupied_channels_plain,
     compact_parity_channels,
     default_cell_px,
     kept_cells,
@@ -120,6 +122,71 @@ def test_compact_kernel_matches_plain(cuda, intr, occluded, cap_per):
     assert int(ref[2].sum()) > 0
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("case", ["live", "live_b4", "quarter", "quarter_b4", "odd", "odd_b4",
+                                  "big", "big_b4"])
+def test_cell_sums_equal_the_previous_design_bit_for_bit(cuda, case):
+    """Kernel P in its three modes, for one frame and a batch of 4 streams,
+    at the live, quarter and an odd size (313 x 177: rows that are no
+    multiple of 16 bytes, staged byte by byte), and with cells of 110 pixels
+    (too large to stage their pixels' values), against the outputs of the
+    design before the strip-staged one (tests/data/preprocess_bits.npz,
+    written by perf/preprocess_bits.py, whose ``cases`` renders the same
+    frames): every sum bit for bit."""
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("preprocess_bits", root / "perf" / "preprocess_bits.py")
+    pb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pb)
+    saved = np.load(root / "tests" / "data" / "preprocess_bits.npz")
+    frame, rest = pb.cases(torch, cuda)[case]
+    for mode, outs in pb.run_modes(cell_sums, frame, rest).items():
+        assert len(outs) == (7 if mode == "votes" else 4)
+        for i, o in enumerate(outs):
+            want = saved[f"{case}_{mode}_{i}"]
+            got = o.cpu().numpy()
+            assert got.shape == want.shape, (mode, i)
+            assert np.array_equal(got.view(np.int32), want.view(np.int32)), (case, mode, i)
+        assert float(outs[3].sum()) > 0
+
+
+# (intrinsics, occluded, voxel leaf, slots per channel, whether the thinning fires)
+OCCUPIED_CASES = {
+    "live": (LIVE, False, PARAMS.downsample_leaf_size, None, False),
+    "live_occluded": (LIVE, True, PARAMS.downsample_leaf_size, None, False),
+    "quarter_cap16": (QUARTER, True, PARAMS.downsample_leaf_size, 16, True),
+    "live_leaf5mm": (LIVE, False, 0.005, None, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OCCUPIED_CASES))
+def test_occupied_compaction_matches_plain(cuda, case):
+    """Kernel C's derived mode (the kept cells by the even-stride thinning,
+    the pack and, for sums, the centroid division, in one launch) against
+    its plain composition, with and without the division: every output
+    bit-equal. Two cases thin an overflow: 16 slots at the quarter size, and
+    the 5 mm leaf at 720p (cell_px 7, 18,849 cells a channel, three chunks a
+    CTA) with the live 256 slots."""
+    intr, occluded, leaf, cap_per, thins = OCCUPIED_CASES[case]
+    args = _p_args(intr, occluded, cuda, radius=9 if intr is LIVE else 3)
+    args = args[:-2] + (default_cell_px(leaf, intr.fx), leaf)
+    sums = cell_sums(*args)
+    cap_per = cap_per or PARAMS.candidate_cap() // 8
+    assert (int((sums[3] > 0).sum(1).max()) > cap_per) == thins
+    for div in (False, True):
+        before = _build.launch_counts["compact"]
+        got = compact_occupied_channels(*sums, cap_per, div)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["compact"] == before + 1
+        ref = compact_occupied_channels_plain(*sums, cap_per, div)
+        assert int(ref[2].sum()) > 0
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype and g.shape == r.shape
+            assert torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
+                               r.view(torch.int32) if r.is_floating_point() else r)
 
 
 def _self_occluding_chain():

@@ -203,3 +203,109 @@ def test_wrapper_takes_plain_version_on_cpu():
     for a, b in zip(tpre.compact_channels(*sums, kept, cap_per),
                     tpre.compact_channels_plain(*sums, kept, cap_per)):
         assert torch.equal(a, b)
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("name,cap_per", [("small_overflow", 8), ("quarter_occluded", 16),
+                                          ("quarter_occluded", 256)])
+def test_occupied_compaction_matches_jax(name, cap_per, monkeypatch):
+    """Kernel C's derived mode in plain tensor ops (kept_cells, the
+    packed-key sort, the centroid division) against the JAX package on the
+    same raw sums: compact_parity_channels(use_onehot_compact=True,
+    inputs_are_sums=True) with no voxel leaf, whose thinning feeds the
+    one-hot Pallas compaction (interpreted) and whose output is the divided
+    slots. The kept cells, the compaction's counts and valid flags and the
+    centroids bit-equal; the first two cases thin an overflow."""
+    intr, params, cell, rgb, depth, occ = _frame(name)
+    sums = tpre.cell_sums_plain(*_torch_frame(rgb, depth, occ), *_common(intr, params, cell),
+                                params.downsample_leaf_size)
+    got = tpre.compact_occupied_channels_plain(*sums, cap_per, inputs_are_sums=True)
+    seen = {}
+    real = jker.compact_onehot_pallas
+
+    def spy(xs, ys, zs, counts, kept, cap, **kw):
+        out = real(xs, ys, zs, counts, kept, cap, **kw)
+        seen.update(kept=np.asarray(kept), cnt=np.asarray(out[1]), valid=np.asarray(out[2]))
+        return out
+
+    monkeypatch.setattr(jker, "compact_onehot_pallas", spy)
+    ref = jpre.compact_parity_channels(*(jnp.asarray(s.numpy()) for s in sums), 8 * cap_per, None, 0,
+                                       use_onehot_compact=True, inputs_are_sums=True)
+    thinned = int((sums[3] > 0).sum(1).max()) > cap_per
+    assert thinned == (cap_per < 256)
+    np.testing.assert_array_equal(tpre.kept_cells(sums[3], cap_per).numpy(), seen["kept"])
+    np.testing.assert_array_equal(_bits(got[1]), _bits(seen["cnt"]))
+    np.testing.assert_array_equal(got[2].numpy(), seen["valid"])
+    np.testing.assert_array_equal(_bits(got[0].reshape(-1, 3)), _bits(ref.points))
+    np.testing.assert_array_equal(got[2].reshape(-1).numpy(), np.asarray(ref.mask))
+    assert int(got[2].sum()) == min(int(ref.count), 8 * cap_per) > 0
+
+
+def test_card_route_runs_no_op_between_p_and_c(monkeypatch):
+    """The parity preprocessing's card route (preprocess_for_step on meta
+    tensors, the launches faked): between kernel P's launch and kernel C's
+    only views of P's outputs and C's output allocations run, no operation
+    with device work; C takes the derived mode (no kept flags) with the
+    centroid division."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from trackdlo_tpu_torch import _build
+    from trackdlo_tpu_torch.config import CameraIntrinsics as TCam, live_params as t_live
+    from trackdlo_tpu_torch.models.trackdlo import preprocess_for_step
+
+    ops, launches = [], []
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    class Stop(Exception):
+        pass
+
+    class Lib:
+        def trackdlo_cell_sums(self, *args):
+            launches.append(("P", len(ops), args))
+            return 0
+
+        def trackdlo_compact(self, *args):
+            launches.append(("C", len(ops), args))
+            raise Stop  # the snap after C needs real tensors
+
+    monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: torch.device("meta"))
+    monkeypatch.setattr(_build, "lib", lambda: Lib())
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(_build, "launch_counts", dict(_build.launch_counts))
+    params, intr = t_live(), TCam()
+    h, w = intr.height, intr.width
+    frame = (torch.empty((h, w, 3), dtype=torch.uint8, device="meta"),
+             torch.empty((h, w), dtype=torch.int16, device="meta"),
+             torch.empty((h, w), dtype=torch.bool, device="meta"))
+    cell = tpre.default_cell_px(params.downsample_leaf_size, intr.fx)
+    with Log(), pytest.raises(Stop):
+        preprocess_for_step(*frame, params=params, intr=intr, cell_px=cell)
+    assert [k for k, _, _ in launches] == ["P", "C"]
+    between = ops[launches[0][1]:launches[1][1]]
+    assert between and all(f.is_view or f.overloadpacket.__name__ == "empty" for f in between), between
+    c_args = launches[1][2]
+    assert c_args[4] is None and c_args[8] == 1  # kept derived in the launch; divide
+    assert _build.launch_counts["cell_sums"] == 1 and _build.launch_counts["compact"] == 0
+
+
+@pytest.mark.parametrize("cap_per", [256, 16])
+def test_occupied_compaction_wrapper_takes_plain_version_on_cpu(cap_per):
+    intr, params, cell, rgb, depth, occ = _frame("quarter_occluded")
+    sums = cell_sums(*_torch_frame(rgb, depth, occ), *_common(intr, params, cell),
+                     params.downsample_leaf_size)
+    for div in (False, True):
+        got = tpre.compact_occupied_channels(*sums, cap_per, div)
+        ref = tpre.compact_occupied_channels_plain(*sums, cap_per, div)
+        kept = tpre.compact_channels_plain(*sums, tpre.kept_cells(sums[3], cap_per), cap_per)
+        for a, b, k in zip(got, ref, kept):
+            assert torch.equal(a, b)
+        assert torch.equal(got[1], kept[1]) and torch.equal(got[2], kept[2])
+        if not div:
+            assert torch.equal(got[0], kept[0])

@@ -72,8 +72,8 @@ SIGNATURES = {
         _P,
     ],
     "trackdlo_compact": [
-        _P, _P, _P, _P, _P,  # xs, ys, zs, counts, kept
-        _I, _I, _I,  # n_channels, n_per, cap_per
+        _P, _P, _P, _P, _P,  # xs, ys, zs, counts, kept (null: derived from the counts)
+        _I, _I, _I, _I,  # n_channels, n_per, cap_per, divide
         _P, _P, _P,  # pts, cnt, valid
         _P,
     ],

@@ -11,14 +11,15 @@ then gathers (the JAX package's ``lax.sort``), the vote keys of
 :func:`pack_vote_keys` riding along, and :func:`voxel_snap`. After the
 parity pooling:
 
-- even-stride overflow thinning picks the kept cells (:func:`kept_cells`);
-- :func:`compact_channels` packs them with kernel C (csrc/compact.cu, the
-  counterpart of the one-hot compaction kernel); its plain version, taken
-  for CPU tensors, is the packed-key sort back end
-  (``torch.sort(stable=True)`` then gathers; torch has no multi-operand
-  sort);
-- the centroid divide comes after the pack (packed slots are exact copies of
-  cells, so the quotient commutes with the pack);
+- :func:`compact_occupied_channels` runs kernel C (csrc/compact.cu, the
+  counterpart of the one-hot compaction kernel) in its derived mode: one
+  launch picks the kept cells by the even-stride overflow thinning of
+  :func:`kept_cells`, packs them and divides the centroids (packed slots
+  are exact copies of cells, so the quotient commutes with the pack); its
+  plain version, taken for CPU tensors, is that composition, with the
+  packed-key sort back end for the pack (``torch.sort(stable=True)`` then
+  gathers; torch has no multi-operand sort). :func:`compact_channels`
+  packs explicit kept cells with the same kernel;
 - the voxel snap pins knife-edge voxel indices to the channel parity and sums
   each sorted, contiguous segment in order (``torch.segment_reduce``), never
   with float atomics.
@@ -241,6 +242,33 @@ def compact_channels_plain(xs, ys, zs, counts, kept, cap_per):
     return torch.where(valid[..., None], pts, 0.0), cnt, valid
 
 
+def _compact_launch(name, xs, ys, zs, counts, kept, cap_per, divide):
+    """Kernel C on CUDA tensors: ``kept`` (C, n_per) bool, or None to derive
+    the kept cells from ``counts`` by :func:`kept_cells`' rule; ``divide``
+    stores x / max(cnt, 1) in the slots."""
+    tensors = dict(xs=xs, ys=ys, zs=zs, counts=counts)
+    if kept is not None:
+        tensors["kept"] = kept
+    dev = _build.require_cuda(name, tensors, dict(kept=torch.bool))
+    c_ch, n_per = counts.shape
+    if any(tuple(a.shape) != (c_ch, n_per) for a in tensors.values()):
+        raise ValueError(f"{name}: xs/ys/zs/kept shapes do not match counts")
+    if kept is None and n_per * cap_per >= 2**31:
+        # The thinning's ranks times cap_per are int32, as the JAX package's.
+        raise ValueError(f"{name}: n_per * cap_per = {n_per * cap_per} overflows int32")
+    pts = torch.empty((c_ch, cap_per, 3), dtype=torch.float32, device=dev)
+    cnt = torch.empty((c_ch, cap_per), dtype=torch.float32, device=dev)
+    valid = torch.empty((c_ch, cap_per), dtype=torch.bool, device=dev)
+    code = _build.lib().trackdlo_compact(
+        xs.data_ptr(), ys.data_ptr(), zs.data_ptr(), counts.data_ptr(),
+        None if kept is None else kept.data_ptr(), c_ch, n_per, int(cap_per), int(divide),
+        pts.data_ptr(), cnt.data_ptr(), valid.data_ptr(), _build.stream_ptr(dev),
+    )
+    _build.check(code, "trackdlo_compact")
+    _build.count_launch("compact")
+    return pts, cnt, valid
+
+
 def compact_channels(xs, ys, zs, counts, kept, cap_per):
     """Pack each channel's kept cells into its first ``cap_per`` slots in
     ascending cell order (kernel C, csrc/compact.cu; the plain version for
@@ -249,24 +277,31 @@ def compact_channels(xs, ys, zs, counts, kept, cap_per):
     valid (C, cap_per); slots past the kept count are zero and invalid."""
     if counts.device.type == "cpu":
         return compact_channels_plain(xs, ys, zs, counts, kept, cap_per)
-    dev = _build.require_cuda(
-        "compact_channels", dict(xs=xs, ys=ys, zs=zs, counts=counts, kept=kept),
-        dict(kept=torch.bool),
-    )
-    c_ch, n_per = counts.shape
-    if any(tuple(a.shape) != (c_ch, n_per) for a in (xs, ys, zs, kept)):
-        raise ValueError("compact_channels: xs/ys/zs/kept shapes do not match counts")
-    pts = torch.empty((c_ch, cap_per, 3), dtype=torch.float32, device=dev)
-    cnt = torch.empty((c_ch, cap_per), dtype=torch.float32, device=dev)
-    valid = torch.empty((c_ch, cap_per), dtype=torch.bool, device=dev)
-    code = _build.lib().trackdlo_compact(
-        xs.data_ptr(), ys.data_ptr(), zs.data_ptr(), counts.data_ptr(), kept.data_ptr(),
-        c_ch, n_per, int(cap_per), pts.data_ptr(), cnt.data_ptr(), valid.data_ptr(),
-        _build.stream_ptr(dev),
-    )
-    _build.check(code, "trackdlo_compact")
-    _build.count_launch("compact")
+    return _compact_launch("compact_channels", xs, ys, zs, counts, kept, cap_per, False)
+
+
+def compact_occupied_channels_plain(xs, ys, zs, counts, cap_per, inputs_are_sums: bool = False):
+    """Kernel C's derived mode in plain tensor ops: :func:`kept_cells`, then
+    :func:`compact_channels_plain` and, for raw sums, the centroid division
+    x / max(cnt, 1)."""
+    pts, cnt, valid = compact_channels_plain(xs, ys, zs, counts, kept_cells(counts, cap_per), cap_per)
+    if inputs_are_sums:
+        pts = pts / torch.clamp_min(cnt, 1.0)[..., None]
     return pts, cnt, valid
+
+
+def compact_occupied_channels(xs, ys, zs, counts, cap_per, inputs_are_sums: bool = False):
+    """Pack each channel's occupied cells (count > 0), thinned by an even
+    stride where they overflow ``cap_per`` (:func:`kept_cells`), into its
+    first ``cap_per`` slots in ascending cell order; with
+    ``inputs_are_sums`` the slots hold the centroids x / max(cnt, 1) of the
+    raw sums. One launch of kernel C for CUDA tensors, bit-equal to
+    :func:`compact_occupied_channels_plain`, which the CPU takes. Same
+    shapes and outputs as :func:`compact_channels`."""
+    if counts.device.type == "cpu":
+        return compact_occupied_channels_plain(xs, ys, zs, counts, cap_per, inputs_are_sums)
+    return _compact_launch("compact_occupied_channels", xs, ys, zs, counts, None, cap_per,
+                           inputs_are_sums)
 
 
 def _pack_rel_keys(ijk, valid):
@@ -428,10 +463,7 @@ def compact_parity_channels(xs, ys, zs, counts, max_points, voxel_leaf,
     dev = counts.device
     cap = candidate_cap if voxel_leaf is not None else max_points
     cap_per = cap // n_channels
-    kept = kept_cells(counts, cap_per)
-    pts_ch, cnt_s, valid_ch = compact_channels(xs, ys, zs, counts, kept, cap_per)
-    if inputs_are_sums:
-        pts_ch = pts_ch / torch.clamp_min(cnt_s, 1.0)[..., None]
+    pts_ch, cnt_s, valid_ch = compact_occupied_channels(xs, ys, zs, counts, cap_per, inputs_are_sums)
     if voxel_leaf is not None:
         w_ch = torch.where(valid_ch, cnt_s, 0.0)
         parities = None

@@ -22,6 +22,8 @@ from trackdlo_tpu_torch.ops.preprocess import (
 # The HSV bands per (bands, device): a fresh host-to-device copy from pageable
 # memory each frame would block the host.
 _bands_cache: dict = {}
+# The floor chain's float32 constants per (fx, fy, leaf).
+_floor_cache: dict = {}
 # Per mode: the kernel's mode number, its outputs per stream and cell
 # channel, and the launch counter it adds to.
 _MODES = {"parity": (0, 4, "cell_sums"), "cells": (1, 4, "cell_sums_cells"),
@@ -79,8 +81,11 @@ def cell_sums(rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower, hsv_upper,
         raise ValueError("cell_sums: rgb/occlusion_mask shapes do not match depth")
     n_rows, n_cols = parity_grid_shape(h, w, cell_px)
     bands = _bands_tensor(hsv_lower, hsv_upper, multi_color_dlo, dev)
-    k = (floor_key_constants(fx, fy, voxel_leaf) if voxel_leaf is not None
-         else dict(kx=0.0, ky=0.0, k_zq=0.0, kz=0.0, z_from_mm=False))
+    key = (float(fx), float(fy), voxel_leaf)
+    if key not in _floor_cache:
+        _floor_cache[key] = (floor_key_constants(fx, fy, voxel_leaf) if voxel_leaf is not None
+                             else dict(kx=0.0, ky=0.0, k_zq=0.0, kz=0.0, z_from_mm=False))
+    k = _floor_cache[key]
     code_mode, n_out, counter = _MODES[mode]
     channels = (8,) if mode == "parity" else ()
     out = torch.empty((n_out, *lead, *channels, n_rows * n_cols), dtype=torch.float32, device=dev)
