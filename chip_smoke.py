@@ -28,9 +28,12 @@ Phases, in order (any failure exits nonzero and prints no result line):
    slots a channel, where the thinning fires; kernel
    P's one-channel modes (floor votes, no leaf) and kernel F (one EM
    iteration with its one-hot M-step solve): F's route against the plain
-   per-iteration route, a live tolerance run through F, F batched; kernel N
-   (each node's nearest point on one shard of the cloud) bit-equal to its
-   plain version, alone and for 4 streams;
+   per-iteration route, a live tolerance run through F (its trips the plain
+   version's), F batched, one device op a route iteration, F against its
+   previous design's saved outputs (recorded); kernel N (each node's
+   nearest point on one shard of the cloud) bit-equal to its plain version,
+   alone and for 4 streams, with bool and float32 masks, one device op a
+   call;
 4. closed loop: ``Tracker.step`` over 30 occluded frames against the float64
    oracle, with the kernels' launch counts and the EM trip-count gate (each
    pass's mean iterations within one of the oracle's); then the coarse profile
@@ -183,6 +186,10 @@ BOUNDS = {
     "fused_live_launch_mismatch": 0,
     "fused_batched_vs_single_max": 0.0,
     "fused_batched_launch_mismatch": 0,
+    # The live tolerance run through F takes its plain version's trips; one
+    # route iteration (the c's computed in the launch) is one device op.
+    "fused_live_trips_vs_plain": 0,
+    "fused_iteration_extra_device_ops": 0,
     # The point-sharded slice. Kernel N against its plain version: a minimum
     # is exact in any order, so every element is equal. The sharded step:
     # the shards' valid points sum to the cloud's count on every frame; y and
@@ -190,6 +197,7 @@ BOUNDS = {
     # all-reduced system); the closed loop and the per-frame distance from
     # Tracker.step as the batched step's (phase 5); the exact launch counts.
     "nearest_mismatch": 0,
+    "nearest_extra_device_ops": 0,
     "sharded_count_mismatch": 0,
     "sharded_ranks_mismatch": 0,
     "sharded_closed_loop_mean_mm": 1.0,
@@ -472,20 +480,68 @@ class Smoke:
         copies' spans in a torch.profiler trace of ``n`` calls after one
         warm-up call) and its device ops per call; (None, 0) where the trace
         holds no device activity. Events between back-to-back calls measure
-        the host where the host is slower than the card; this does not."""
+        the host where the host is slower than the card; this does not.
+
+        A trace can miss some of the device activity at its start (seen on
+        the H100 with the kernels this library launches through ctypes), so
+        the ``n`` timed calls follow ``n`` untimed ones in the same trace,
+        only the device spans that start inside the timed range count, and
+        a trace whose count is no whole number of ops a call is taken again
+        (three times at most; the fullest is kept)."""
         torch = self.torch
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
 
         fn()
         torch.cuda.synchronize()
+        best = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                with record_function("chip_smoke_timed"):
+                    for _ in range(n):
+                        fn()
+                    torch.cuda.synchronize()
+            events = prof.events()
+            start = min(e.time_range.start for e in events if e.name == "chip_smoke_timed")
+            ev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.time_range.start >= start and e.name != "chip_smoke_timed"]
+            if len(ev) > len(best):
+                best = ev
+            if len(ev) % n == 0:
+                break
+        if not best:
+            return None, 0.0
+        return sum(e.time_range.elapsed_us() for e in best) / 1e3 / n, len(best) / n
+
+    def extra_device_ops(self, fn, n, counter, kernel):
+        """The device ops a call of ``fn`` makes besides one launch of its
+        kernel, over ``n`` calls after one warm-up call: the launches the
+        wrapper counted (``_build.launch_counts[counter]``) past one a call,
+        plus the device spans (kernels, copies, fills) of a profiler trace of
+        those calls whose names do not hold ``kernel``, per call. The trace
+        can lose spans (seen on the H100: some traces of the same calls hold
+        16% fewer), so the kernel's own launches are counted on the host and
+        the trace is read only for other ops, which a lost span can hide but
+        never invent. Returns the extra ops per call and the other spans'
+        names."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from trackdlo_tpu_torch import _build
+
+        fn()
+        torch.cuda.synchronize()
+        before = _build.launch_counts[counter]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if not ev:
-            return None, 0.0
-        return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / n, len(ev) / n
+        launches = _build.launch_counts[counter] - before
+        other = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel not in e.name]
+        return abs(launches / n - 1) + len(other) / n, sorted(set(other))
 
     def cold_l2(self, fn, name, n=50):
         """The device time of ``fn``'s kernels whose names hold ``name``,
@@ -542,13 +598,14 @@ class Smoke:
 
     # -- phase 3: kernels against their plain versions ----------------------
     def cluster_launches(self):
-        """Kernels E and S launch as thread-block clusters: the cluster size
-        and rows per CTA for the live cloud (2048 rows) and a shard of two
-        ranks (1024), and how many such clusters the card holds at once."""
+        """Kernels E, S and F launch as thread-block clusters: the cluster
+        size and rows per CTA for the live cloud (2048 rows) and a shard of
+        two ranks (1024), and how many such clusters the card holds at
+        once."""
         from trackdlo_tpu_torch.ops.hopper_kernels import cluster_info
 
         info = {f"{k}_n{n}": cluster_info(k, n)
-                for k, n in (("em_loop", 2048), ("estep", 2048), ("estep", 1024))}
+                for k, n in (("em_loop", 2048), ("estep", 2048), ("estep", 1024), ("em_iter", 2048))}
         self.metrics["cluster_launches"] = info
         for key, v in info.items():
             log(f"  {key}: {v['cluster_size']} CTAs of {v['rows_per_cta']} rows, at most "
@@ -1152,6 +1209,17 @@ class Smoke:
         iters = int(res.iterations)
         log(f"  live tolerance through F: {iters} iterations, converged {bool(res.converged)}")
         self.bound("fused_live_launch_mismatch", self.path_launches["fused"]["em_iteration"] - iters)
+        st_live = em_staging(one(x), one(xm), one(nodes), one(nm), one(s2), live, visible_count=one(vc))
+        _, _, it_plain, _ = em_loop_lockstep(
+            st_live, live, lambda y, s: fused_iteration(st_live, y, s, live, fused_em_iteration_plain))
+        self.bound("fused_live_trips_vs_plain", iters - int(it_plain[0]))
+        y0l, s2l = st_live.args[1], st_live.args[0][:, 0]
+        extra, other = self.extra_device_ops(lambda: fused_iteration(st_live, y0l, s2l, live), 20,
+                                             "em_iteration", "em_iter_kernel")
+        if other:
+            log(f"  device ops of a route iteration besides kernel F: {other}")
+        self.bound("fused_iteration_extra_device_ops", extra)
+        self.fused_vs_parent_design()
         rep = lambda a: a.unsqueeze(0).expand(4, *a.shape).contiguous()
         batched = self.count_path("fused_batched", lambda: cpd_lle_batched(
             rep(x), rep(xm), rep(nodes), rep(nm), rep(s2), live, visible_count=rep(vc)))
@@ -1173,11 +1241,35 @@ class Smoke:
                    abs(self.path_launches["fused_batched"]["em_iteration"] - trips)
                    + int((batched.iterations != it1).sum()))
 
+    def fused_vs_parent_design(self):
+        """Kernel F against the outputs of its design before the cluster
+        E-step on the same inputs (tests/data/em_iter_bits.npz, written by
+        perf/em_iter_bits.py on that design): the largest distances, recorded."""
+        np, torch = self.np, self.torch
+        import em_iter_bits
+
+        from trackdlo_tpu_torch.ops.hopper_kernels import fused_em_iteration
+
+        dt, ds, dd = 0.0, 0.0, 0.0
+        saved = em_iter_bits.load(os.path.join(ROOT, "tests", "data", "em_iter_bits.npz"))
+        for case, (fargs, kw, (t0, s0, d0)) in saved.items():
+            t, s2, delta = (o.cpu().numpy() for o in fused_em_iteration(
+                *(torch.from_numpy(a).to(self.dev) for a in fargs), **kw))
+            dt = max(dt, float(np.abs(t - t0).max()))
+            ds = max(ds, float(np.abs(s2 - s0).max()))
+            dd = max(dd, float(np.abs(delta - d0).max()))
+        self.metrics.update(fused_vs_parent_design_t_max_m=dt, fused_vs_parent_design_sigma2_max=ds,
+                            fused_vs_parent_design_delta_max=dd)
+        log(f"  F against the previous design's saved outputs ({len(saved)} cases): t {dt!r} m, "
+            f"sigma2 {ds!r}, delta {dd!r}")
+
     def check_nearest(self):
         """Kernel N against its plain version at the main pass's shapes: the
         live nodes against each half of the phase-3 cloud (the shard a rank
         of two holds), every node valid or some masked; a shard with no
-        valid point; 4 streams' first shards in one launch. Bit-equal."""
+        valid point; 4 streams' first shards in one launch; each case with
+        bool masks and with float32 masks (the route's, from em_staging).
+        Bit-equal; one device op per call with either."""
         torch = self.torch
         from trackdlo_tpu_torch.ops.hopper_kernels import nearest_point_sq, nearest_point_sq_plain
 
@@ -1194,16 +1286,26 @@ class Smoke:
         pc4, y4, _, _ = self.batch_em_inputs(4)
         nm4 = torch.stack([nm_all, nm_part, nm_all, nm_part])
         cases.append((y4, nm4, pc4.points[:, :half], pc4.mask[:, :half]))
+        f32 = lambda c: (c[0], c[1].to(torch.float32), c[2], c[3].to(torch.float32))
         mismatch, err = 0, 0.0
-        for c in cases:
+        for c in cases + [f32(c) for c in cases]:
             got, ref = nearest_point_sq(*c), nearest_point_sq_plain(*c)
             mismatch += int((got != ref).sum())
             err = max(err, float((got - ref).abs().max()))
         log(f"  shards of {half} points ({int(xm[:half].sum())} and {int(xm[half:].sum())} valid), "
-            f"{m} nodes; 4 streams of {half}")
+            f"{m} nodes; 4 streams of {half}; bool and float32 masks")
         self.bound("nearest_mismatch", mismatch)
         self.kernel_err["nearest"] = err
         self.n_args = cases[0]
+        self.n_args_route = f32(cases[0])
+        extra = 0.0
+        for a in (self.n_args, self.n_args_route):
+            e, other = self.extra_device_ops(lambda a=a: nearest_point_sq(*a), 20, "nearest",
+                                             "nearest_kernel")
+            if other:
+                log(f"  device ops of a nearest_point_sq call besides kernel N: {other}")
+            extra = max(extra, e)
+        self.bound("nearest_extra_device_ops", extra)
 
     # -- phase 4: closed loop against the oracle -----------------------------
     def closed_loop(self):
@@ -1876,7 +1978,14 @@ class Smoke:
         self.time_pair("nearest", lambda: nearest_point_sq(*self.n_args),
                        lambda: nearest_point_sq_plain(*self.n_args))
         self.times["nearest"]["note"] = (f"{self.n_args[0].shape[0]} nodes, one shard of "
-                                         f"{self.n_args[2].shape[0]} points")
+                                         f"{self.n_args[2].shape[0]} points, bool masks")
+        # The route's own inputs: em_staging's float32 masks.
+        route = {"ms": self.event_ms(lambda: nearest_point_sq(*self.n_args_route), 50)}
+        route["device_ms"], route["device_ops_per_call"] = self.device_ms(
+            lambda: nearest_point_sq(*self.n_args_route), 50)
+        self.times["nearest"]["float_masks"] = route
+        log(f"  nearest, float32 masks (the route's): kernel {route['ms']:.4f} ms (device "
+            f"{route['device_ms']:.4f} ms in {route['device_ops_per_call']:g} ops)")
 
 
 def main() -> int:

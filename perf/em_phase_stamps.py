@@ -618,6 +618,315 @@ def kernel_c(torch, variants) -> dict:
     return out
 
 
+# F and N: thread 0 of block 0 stamps its phases into registers (R_T) and
+# counts chunks and steps (R_COUNT); in F's current design lane 0 of the
+# search warp stamps its part of each solve step too (S_T). Everything goes
+# to global memory once, at the end.
+R_STAMPS = r'''
+#pragma once
+__device__ long long r_acc[40];
+#define R_ON() (blockIdx.x == 0 && threadIdx.x == 0)
+#define R_DECL() long long _r_acc[24] = {0}; int _r_cnt[4] = {0, 0, 0, 0}; \
+  long long _r_prev = clock64(), _r_start = _r_prev
+#define R_T(p) do { if (R_ON()) { const long long _t = clock64(); _r_acc[p] += _t - _r_prev; _r_prev = _t; } } while (0)
+#define R_COUNT(i) do { if (R_ON()) ++_r_cnt[i]; } while (0)
+#define R_FLUSH() do { if (R_ON()) { _Pragma("unroll") for (int _i = 0; _i < 24; ++_i) r_acc[_i] = _r_acc[_i]; \
+  _Pragma("unroll") for (int _i = 0; _i < 4; ++_i) r_acc[24 + _i] = _r_cnt[_i]; \
+  r_acc[28] = clock64() - _r_start; } } while (0)
+#define S_ON() (blockIdx.x == 0 && threadIdx.x == blockDim.x - 32)
+#define S_DECL() long long _s_acc[4] = {0, 0, 0, 0}; long long _s_prev = 0
+#define S_START() do { if (S_ON()) _s_prev = clock64(); } while (0)
+#define S_T(p) do { if (S_ON()) { const long long _t = clock64(); _s_acc[p] += _t - _s_prev; _s_prev = _t; } } while (0)
+#define S_FLUSH() do { if (S_ON()) { _Pragma("unroll") for (int _i = 0; _i < 4; ++_i) r_acc[30 + _i] = _s_acc[_i]; } } while (0)
+#define STAMP(p) do {} while (0)
+'''
+R_HOST = r'''
+extern "C" int r_reset() { long long z[40] = {0}; return (int)cudaMemcpyToSymbol(r_acc, z, sizeof(z)); }
+extern "C" int r_read(long long* out) { return (int)cudaMemcpyFromSymbol(out, r_acc, sizeof(r_acc)); }
+'''
+R_COUNTS = 24
+
+# Kernel F before its redesign: one block of 512 threads per stream.
+F_PARENT_PHASES = ["load", "minima: point loop", "minima: warp trees and merge", "visibility weights",
+                   "E-step chunks", "chunk sums", "Np and trace tree", "system build", "solve: search",
+                   "solve: factors", "solve: update", "solve: barriers", "W", "T", "sigma2 and move"]
+F_PARENT_COUNTS = ["chunks", "solve steps"]
+F_PARENT_ANCHORS = [
+    ("  Smem& S = *reinterpret_cast<Smem*>(smem_raw);\n",
+     "  Smem& S = *reinterpret_cast<Smem*>(smem_raw);\n  R_DECL();\n"),
+    ("  // Phase 0: per-node nearest valid point (only read through the gate).\n",
+     "  R_T(0);\n  // Phase 0: per-node nearest valid point (only read through the gate).\n"),
+    ("        if (j < m && S.nm[j] > 0.0f) mn[j] = fminf(mn[j], sq_dist(S.y, j, x0, x1, x2));\n    }\n",
+     "        if (j < m && S.nm[j] > 0.0f) mn[j] = fminf(mn[j], sq_dist(S.y, j, x0, x1, x2));\n    }\n"
+     "    R_T(1);\n"),
+    ("  if (tid == 0) {\n    // The visibility prior", "  R_T(2);\n  if (tid == 0) {\n    // The visibility prior"),
+    ("  // Phase 1: the E-step, one chunk of points at a time.\n",
+     "  R_T(3);\n  // Phase 1: the E-step, one chunk of points at a time.\n"),
+    ("    __syncthreads();\n    for (int o = warp; o < m * 4; o += NWARPS) {\n",
+     "    __syncthreads();\n    R_T(4);\n    for (int o = warp; o < m * 4; o += NWARPS) {\n"),
+    ("    __syncthreads();\n  }\n  S.red[tid] = np_loc;\n",
+     "    __syncthreads();\n    R_T(5);\n    R_COUNT(0);\n  }\n  S.red[tid] = np_loc;\n"),
+    ("  const float np_total = S.red[0], tr_x = S.red2[0];\n",
+     "  const float np_total = S.red[0], tr_x = S.red2[0];\n  R_T(6);\n"),
+    ("  for (int k = tid; k < m; k += THREADS) S.used[k] = 0.0f;\n  __syncthreads();\n",
+     "  for (int k = tid; k < m; k += THREADS) S.used[k] = 0.0f;\n  __syncthreads();\n  R_T(7);\n"),
+    ("    __syncthreads();\n    const int ridx = S.ridx;\n",
+     "    R_T(8);\n    __syncthreads();\n    R_T(11);\n    const int ridx = S.ridx;\n"),
+    ("S.aug[tid * width + k] / pv_safe;\n    __syncthreads();\n",
+     "S.aug[tid * width + k] / pv_safe;\n    R_T(9);\n    __syncthreads();\n    R_T(11);\n"),
+    ("      S.diag[k] = pv;\n    }\n    __syncthreads();\n  }\n",
+     "      S.diag[k] = pv;\n    }\n    R_T(10);\n    __syncthreads();\n    R_T(11);\n    R_COUNT(1);\n  }\n"),
+    ("    S.w[q] = S.aug[S.perm[k] * width + m + d] / dg;\n  }\n  __syncthreads();\n",
+     "    S.w[q] = S.aug[S.perm[k] * width + m + d] / dg;\n  }\n  __syncthreads();\n  R_T(12);\n"),
+    ("    A.t[m3 + q] = tv;\n  }\n  __syncthreads();\n",
+     "    A.t[m3 + q] = tv;\n  }\n  __syncthreads();\n  R_T(13);\n"),
+    ("    A.stats[(size_t)s * 2 + 1] = move / fmaxf(v_count_f, 1.0f);\n  }\n",
+     "    A.stats[(size_t)s * 2 + 1] = move / fmaxf(v_count_f, 1.0f);\n  }\n  R_T(14);\n  R_FLUSH();\n"),
+]
+
+# Kernel F now: one cluster per stream, CTA 0 alone solving; thread 0 is
+# row 0's first update thread in the solve, lane 0 of the last warp the
+# search warp's.
+F_PHASES = ["load and compaction", "minima and visibility weights", "E-step and sums",
+            "push and cluster barrier", "totals and the M-step inputs' wait", "system build",
+            "solve: first pivot", "solve: factor", "solve: update", "solve: barrier", "W", "T",
+            "sigma2 and move"]
+F_COUNTS = ["solve steps"]
+F_SEARCH_PHASES = ["column k + 1", "pick", "publish"]
+F_ANCHORS = [
+    ("  td::EstepSmem<THREADS>& E = S.es;\n", "  td::EstepSmem<THREADS>& E = S.es;\n  R_DECL();\n  S_DECL();\n"),
+    ("                                  min(n, r0 + rows), E);  // ends in a barrier\n",
+     "                                  min(n, r0 + rows), E);  // ends in a barrier\n  R_T(0);\n"),
+    ("    td::ec_visibility_weights(m, A.k_vis, A.tau_vis, E);\n  }\n",
+     "    td::ec_visibility_weights(m, A.k_vis, A.tau_vis, E);\n  }\n  R_T(1);\n"),
+    ("  td::ec_estep_partials<false, true>(sc, npts, 1, E);\n",
+     "  td::ec_estep_partials<false, true>(sc, npts, 1, E);\n  R_T(2);\n"),
+    ("  if (rank != 0) return;\n", "  if (rank != 0) return;\n  R_T(3);\n"),
+    ("  asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n  __syncthreads();\n",
+     "  asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n  __syncthreads();\n  R_T(4);\n"),
+    ("    S.aug[r * width + col] = v;\n  }\n  __syncthreads();\n",
+     "    S.aug[r * width + col] = v;\n  }\n  __syncthreads();\n  R_T(5);\n"),
+    ("      S.diag[0] = pv;\n    }\n  }\n  __syncthreads();\n",
+     "      S.diag[0] = pv;\n    }\n  }\n  __syncthreads();\n  R_T(6);\n"),
+    ("  for (int k = 0; k < m; ++k) {\n    const int p = S.piv_row[k & 1];\n",
+     "  for (int k = 0; k < m; ++k) {\n    S_START();\n    const int p = S.piv_row[k & 1];\n"),
+    ("      col[1] = nxt[1];\n", "      col[1] = nxt[1];\n      S_T(0);\n"),
+    ("        const int ridx = f_pick(m, used, col, pvn);\n",
+     "        const int ridx = f_pick(m, used, col, pvn);\n        S_T(1);\n"),
+    ("          S.diag[k + 1] = pvn;\n        }\n      }\n",
+     "          S.diag[k + 1] = pvn;\n        }\n      }\n      S_T(2);\n"),
+    ("      const float f = row[k] / pv_safe;\n", "      const float f = row[k] / pv_safe;\n      R_T(7);\n"),
+    ("cc += per_row) row[cc] = row[cc] - f * prow[cc];\n    }\n    __syncthreads();\n  }\n",
+     "cc += per_row) row[cc] = row[cc] - f * prow[cc];\n      R_T(8);\n    }\n    __syncthreads();\n"
+     "    R_T(9);\n    R_COUNT(0);\n  }\n"),
+    ("    S.w[q] = S.aug[S.perm[k] * width + m + d] / dg;\n  }\n  __syncthreads();\n",
+     "    S.w[q] = S.aug[S.perm[k] * width + m + d] / dg;\n  }\n  __syncthreads();\n  R_T(10);\n"),
+    ("    A.t[m3 + q] = tv;\n  }\n  __syncthreads();\n", "    A.t[m3 + q] = tv;\n  }\n  __syncthreads();\n  R_T(11);\n"),
+    ("      A.stats[(size_t)s * 2 + 1] = move / fmaxf(v_count_f, 1.0f);\n    }\n  }\n",
+     "      A.stats[(size_t)s * 2 + 1] = move / fmaxf(v_count_f, 1.0f);\n    }\n  }\n  R_T(12);\n"
+     "  R_FLUSH();\n  S_FLUSH();\n"),
+]
+
+# Kernel N before its redesign: per-thread minima of every node, 48 warp trees.
+N_PARENT_PHASES = ["load", "point loop", "warp trees", "merge and store"]
+N_PARENT_ANCHORS = [
+    ("  __shared__ float ys[MMAX * 3], nms[MMAX], wmin[NWARPS * MMAX];\n",
+     "  __shared__ float ys[MMAX * 3], nms[MMAX], wmin[NWARPS * MMAX];\n  R_DECL();\n"),
+    ("  __syncthreads();\n\n  const float* xs", "  __syncthreads();\n  R_T(0);\n\n  const float* xs"),
+    ("        mn[j] = fminf(mn[j], d0 * d0 + d1 * d1 + d2 * d2);\n      }\n    }\n  }\n",
+     "        mn[j] = fminf(mn[j], d0 * d0 + d1 * d1 + d2 * d2);\n      }\n    }\n  }\n  R_T(1);\n"),
+    ("      if (lane == 0) wmin[warp * MMAX + j] = v;\n    }\n  }\n",
+     "      if (lane == 0) wmin[warp * MMAX + j] = v;\n    }\n  }\n  R_T(2);\n"),
+    ("    out[(size_t)s * m + tid] = v;\n  }\n", "    out[(size_t)s * m + tid] = v;\n  }\n  R_T(3);\n  R_FLUSH();\n"),
+]
+
+# Kernel N now: the valid rows compacted, one thread per (node, slice).
+N_PHASES = ["load", "compaction", "slices", "barrier", "merge and store"]
+N_ANCHORS = [
+    ("  const float* xs_g = x + (size_t)s * n * 3;\n",
+     "  R_DECL();\n  const float* xs_g = x + (size_t)s * n * 3;\n  R_T(0);\n"),
+    ("      count += seg_total;\n      __syncthreads();\n    }\n",
+     "      count += seg_total;\n      __syncthreads();\n    }\n    R_T(1);\n"),
+    ("        best = fminf(best, d0 * d0 + d1 * d1 + d2 * d2);\n      }\n    }\n",
+     "        best = fminf(best, d0 * d0 + d1 * d1 + d2 * d2);\n      }\n    }\n    R_T(2);\n"),
+    ("    __syncthreads();  // the next tile rewrites xs\n  }\n",
+     "    __syncthreads();  // the next tile rewrites xs\n    R_T(3);\n  }\n"),
+    ("    out[(size_t)s * m + tid] = v;\n  }\n", "    out[(size_t)s * m + tid] = v;\n  }\n  R_T(4);\n  R_FLUSH();\n"),
+]
+
+
+def _r_source(csrc: str, name: str, designs: list) -> tuple[str, str]:
+    """``name`` from ``csrc`` with the anchors of whichever design it holds
+    (the first of ``designs`` whose first anchor it contains): the stamped
+    source and the design's key."""
+    text = open(os.path.join(csrc, name)).read()
+    key, anchors = next((k, a) for k, a in designs if a and a[0][0] in text)
+    for old, new in anchors:
+        text = _replace(text, old, new)
+    return '#include "stamps.cuh"\n' + text + R_HOST, key
+
+
+def _raw_headers(csrc: str) -> dict:
+    return {h: open(os.path.join(csrc, h)).read() for h in os.listdir(csrc) if h.endswith(".cuh")}
+
+
+def _r_read(lib) -> list:
+    acc = (ctypes.c_longlong * 40)()
+    if lib.r_read(acc) != 0:
+        raise RuntimeError("r_read failed")
+    return list(acc)
+
+
+def _f_inputs(torch, smoke):
+    """One iteration of kernel F at chip_smoke.py's main-pass configuration
+    (max_iter 10, tol 0, the gate on) on its phase-3 cloud, from the EM
+    origin: (staging, params)."""
+    from trackdlo_tpu_torch.ops.cpd_lle import CpdParams, em_staging
+
+    smoke.check_preprocess()
+    p, m, dev = smoke.params, smoke.params.M, smoke.dev
+    nodes = torch.as_tensor(smoke.rope.nodes(0.0, m), dtype=torch.float32, device=dev)
+    one = lambda a: a[None]
+    params = CpdParams(beta=p.beta, lam=p.lam, lle_weight=p.lle_weight, mu=p.mu, max_iter=10, tol=0.0,
+                       include_lle=False, k_vis=p.k_vis, visibility_threshold=p.visibility_threshold,
+                       use_visibility=True, use_fused_mstep=True)
+    st = em_staging(one(smoke.cloud.points), one(smoke.cloud.mask), one(nodes),
+                    one(torch.ones(m, dtype=torch.bool, device=dev)), one(torch.tensor(0.001, device=dev)),
+                    params, visible_count=one(torch.tensor(30, device=dev)))
+    return st, params
+
+
+def kernel_f(torch, variants) -> dict:
+    """Kernel F, one iteration of the main-pass configuration with the gate
+    on (chip_smoke.py's phase-3 cloud, one stream): per variant the cycles
+    by phase of thread 0 of block 0 (and of the search warp's lane 0 where
+    the solve searches a step ahead), the launch's time by CUDA events and
+    the profiler, and its outputs' distance from the plain version's."""
+    import chip_smoke
+    from trackdlo_tpu_torch import _build as tb
+    from trackdlo_tpu_torch.ops.cpd_lle import fused_iteration
+    from trackdlo_tpu_torch.ops.hopper_kernels import fused_em_iteration_plain
+
+    smoke = chip_smoke.Smoke()
+    st, params = _f_inputs(torch, smoke)
+    dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm = st.args
+    s2 = dyn[:, 0].contiguous()
+    kw = st.kwargs
+    m, n = y0.shape[1], x.shape[1]
+    ref = fused_iteration(st, y0, s2, params, fused_em_iteration_plain)
+    out = {"points": int(st.n_count[0]), "rows": n, "gate": float(dyn[0, 3])}
+    designs = [("current", F_ANCHORS), ("parent", F_PARENT_ANCHORS)]
+    for name, csrc in variants:
+        source, design = _r_source(csrc, "em_iter.cu", designs)
+        lib = _build(f"em_iter_{name}", csrc, _raw_headers(csrc), "em_iter.cu", source, R_STAMPS)
+        fn = lib.trackdlo_em_iter
+        fn.restype = ctypes.c_int
+        t = torch.empty((1, m, 3), device=smoke.dev)
+        stats = torch.empty((1, 2), device=smoke.dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        fl = [kw["k_vis"], kw["tau_vis"], kw["lam"], kw["coef_lle"], kw["alpha"]]
+        if design == "parent":
+            c_base = (2 * np.pi * s2) ** 1.5 * params.mu / (1 - params.mu)  # as fused_iteration
+            scal = torch.stack([s2, c_base * dyn[:, 1] / dyn[:, 2], c_base / dyn[:, 2], dyn[:, 3],
+                                dyn[:, 1]], dim=1).contiguous()
+            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 3
+            ptrs = [scal.data_ptr()] + [a.data_ptr() for a in (y0, y0, coord, nm, g, hg, hy0, jg, pd, x, xm)]
+            call = lambda: fn(*ptrs, 1, m, n, *fl, t.data_ptr(), stats.data_ptr(), stream)
+        else:
+            fn.argtypes = tb.SIGNATURES["trackdlo_em_iter"]
+            ptrs = [a.data_ptr() for a in (y0, y0, coord, nm, g, hg, hy0, jg, pd, x, xm)]
+            call = lambda: fn(s2.data_ptr(), 1, dyn.data_ptr(), None, *ptrs, 1, m, n, kw["muf"], *fl,
+                              t.data_ptr(), stats.data_ptr(), stream)
+
+        def run():
+            code = call()
+            if code != 0:
+                raise RuntimeError(f"{name}: launch failed with cudaError_t {code}")
+
+        run()
+        torch.cuda.synchronize()
+        if lib.r_reset() != 0:
+            raise RuntimeError("r_reset failed")
+        run()
+        torch.cuda.synchronize()
+        acc = _r_read(lib)
+        phases, counts = ((F_PARENT_PHASES, F_PARENT_COUNTS) if design == "parent" else (F_PHASES, F_COUNTS))
+        rec = {"design": design, "ms": _events_ms(torch, run, 200),
+               "device_ms": _device_ms(torch, run, 100, "em_iter"), "block0_cycles": acc[28],
+               "cycles": {ph: acc[i] for i, ph in enumerate(phases)},
+               "counts": {c: acc[R_COUNTS + i] for i, c in enumerate(counts)},
+               "t_max_abs_vs_plain_m": float((t - ref[0]).abs().max()),
+               "sigma2_vs_plain": float((stats[:, 0] - ref[1]).abs().max()),
+               "delta_vs_plain": float((stats[:, 1] - ref[2]).abs().max())}
+        if design != "parent":
+            rec["search_warp_cycles"] = {ph: acc[30 + i] for i, ph in enumerate(F_SEARCH_PHASES)}
+        out[name] = rec
+        print(f"F {name:10s} ({design}) {rec['block0_cycles']} cycles: {rec['cycles']} {rec['counts']} "
+              f"{rec.get('search_warp_cycles', '')}; {rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms; "
+              f"t {rec['t_max_abs_vs_plain_m']!r} m from the plain version's", flush=True)
+    return out
+
+
+def kernel_n(torch, variants) -> dict:
+    """Kernel N on the route's inputs: the live nodes against the first
+    1024 rows of chip_smoke.py's phase-3 cloud (a rank's shard of two), the
+    masks float32 as em_staging gives them: per variant the cycles by phase
+    of thread 0 of block 0, the launch's time by CUDA events and the
+    profiler, and bit-equality with the plain version."""
+    import chip_smoke
+    from trackdlo_tpu_torch import _build as tb
+    from trackdlo_tpu_torch.ops.hopper_kernels import nearest_point_sq_plain
+
+    smoke = chip_smoke.Smoke()
+    smoke.check_preprocess()
+    m, dev = smoke.params.M, smoke.dev
+    y = torch.as_tensor(smoke.rope.nodes(0.0, m), dtype=torch.float32, device=dev)[None].contiguous()
+    half = smoke.cloud.points.shape[0] // 2
+    x = smoke.cloud.points[None, :half].contiguous()
+    xm = smoke.cloud.mask[None, :half].to(torch.float32).contiguous()
+    nm = torch.ones((1, m), device=dev)
+    ref = nearest_point_sq_plain(y, nm, x, xm)
+    out = {"rows": half, "points": int(xm.sum()), "nodes": m}
+    designs = [("current", N_ANCHORS), ("parent", N_PARENT_ANCHORS)]
+    for name, csrc in variants:
+        source, design = _r_source(csrc, "nearest.cu", designs)
+        lib = _build(f"nearest_{name}", csrc, _raw_headers(csrc), "nearest.cu", source, R_STAMPS)
+        fn = lib.trackdlo_nearest
+        fn.restype = ctypes.c_int
+        res = torch.empty((1, m), device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = [a.data_ptr() for a in (y, nm, x, xm)]
+        if design == "parent":
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+            call = lambda: fn(*ptrs, 1, m, half, res.data_ptr(), stream)
+        else:
+            fn.argtypes = tb.SIGNATURES["trackdlo_nearest"]
+            call = lambda: fn(*ptrs, 1, m, half, 0, 0, res.data_ptr(), stream)
+
+        def run():
+            code = call()
+            if code != 0:
+                raise RuntimeError(f"{name}: launch failed with cudaError_t {code}")
+
+        run()
+        torch.cuda.synchronize()
+        if lib.r_reset() != 0:
+            raise RuntimeError("r_reset failed")
+        run()
+        torch.cuda.synchronize()
+        acc = _r_read(lib)
+        phases = N_PARENT_PHASES if design == "parent" else N_PHASES
+        rec = {"design": design, "ms": _events_ms(torch, run, 200),
+               "device_ms": _device_ms(torch, run, 100, "nearest"), "block0_cycles": acc[28],
+               "cycles": {ph: acc[i] for i, ph in enumerate(phases)},
+               "equals_plain": bool(torch.equal(res, ref))}
+        out[name] = rec
+        print(f"N {name:10s} ({design}) {rec['block0_cycles']} cycles: {rec['cycles']}; {rec['ms']:.4f} ms, "
+              f"device {rec['device_ms']:.4f} ms; equal to the plain version's {rec['equals_plain']}",
+              flush=True)
+    return out
+
+
 def _insert(text: str, anchor: str, add: str, after: bool = True) -> str:
     return _replace(text, anchor, anchor + add if after else add + anchor)
 
@@ -820,8 +1129,8 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=[], metavar="NAME=DIR",
                     help="another tree to stamp beside them (repeatable)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "em_phase_stamps.json"))
-    ap.add_argument("--only", default="e,g,w,p,c",
-                    help="comma list of the kernels to stamp: e, g, w, p, c")
+    ap.add_argument("--only", default="e,g,w,p,c,f,n",
+                    help="comma list of the kernels to stamp: e, g, w, p, c, f, n")
     args = ap.parse_args()
     only = set(args.only.split(","))
     import torch
@@ -850,6 +1159,10 @@ def main() -> int:
         record["kernel_p"] = kernel_p(torch, e_variants)
     if "c" in only:
         record["kernel_c"] = kernel_c(torch, e_variants)
+    if "f" in only:
+        record["kernel_f"] = kernel_f(torch, e_variants)
+    if "n" in only:
+        record["kernel_n"] = kernel_n(torch, e_variants)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)

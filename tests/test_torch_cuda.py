@@ -881,7 +881,7 @@ def test_em_iteration_kernel_matches_plain(cuda, config, v_count):
 
 
 def test_em_iteration_stream_grid_equals_single_launches(cuda):
-    """Four different streams in one launch, one block each: bit-equal to
+    """Four different streams in one launch, one cluster each: bit-equal to
     four single-stream launches."""
     from trackdlo_tpu_torch.ops.hopper_kernels import fused_em_iteration
 
@@ -921,6 +921,162 @@ def test_fused_route_launches_equal_iterations(cuda):
     assert torch.equal(batched.y, y1.expand(4, M, 3))
     assert torch.equal(batched.iterations, it1.expand(4))
     assert float((batched.y - single.y).abs().max()) <= 2e-6  # em10_batched_vs_single_max_m
+
+
+def _f_staging(dev, m=M, n=2048, gate=True, empty=False, n_streams=1):
+    """The staging of kernel F's route (the main pass's configuration) for
+    ``m`` nodes against the first ``n`` rows of the live clouds, the gate on
+    or off, or a shard with no valid point."""
+    pc = _batch_cloud(dev, n_streams)
+    x, xm = pc.points[:, :n].contiguous(), pc.mask[:, :n].contiguous()
+    if empty:
+        xm = torch.zeros_like(xm)
+    y = torch.stack([torch.from_numpy(SyntheticRope().nodes(0.01 * b, m).astype(np.float32))
+                     for b in range(n_streams)]).to(dev)
+    nm = torch.ones((n_streams, m), dtype=torch.bool, device=dev)
+    params = _em_params(use_fused_mstep=True)
+    vc = torch.full((n_streams,), min(30, m - 1), device=dev) if gate else None
+    st = em_staging(x, xm, y, nm, torch.full((n_streams,), 1e-3, device=dev), params, visible_count=vc)
+    assert bool((st.args[0][:, 3] > 0).all()) == gate
+    return st, params
+
+
+@pytest.mark.parametrize("gate", [False, True])
+def test_fused_route_three_iterations_match_plain(cuda, gate):
+    """Three iterations of the route (the c's computed in the launch)
+    within 1e-6 m of F's plain version (em3_fusedmstep_*), the same trips,
+    one launch an iteration."""
+    from trackdlo_tpu_torch.ops.cpd_lle import em_loop_lockstep, fused_iteration
+    from trackdlo_tpu_torch.ops.hopper_kernels import fused_em_iteration_plain
+
+    st, params = _f_staging(cuda, gate=gate)
+    before = _build.launch_counts["em_iteration"]
+    yk, sk, ik, _ = em_loop_lockstep(st, params, lambda y, s: fused_iteration(st, y, s, params))
+    assert _build.launch_counts["em_iteration"] - before == 3
+    yp, sp, ip, _ = em_loop_lockstep(
+        st, params, lambda y, s: fused_iteration(st, y, s, params, fused_em_iteration_plain))
+    assert torch.equal(ik, ip)
+    assert float((yk - yp).abs().max()) <= 1e-6
+    torch.testing.assert_close(sk, sp, rtol=0, atol=2e-7)
+
+
+@pytest.mark.parametrize("m,n,empty", [(M, 2048, False), (13, 2048, False), (M, 1000, False),
+                                       (13, 333, False), (M, 1024, True)])
+def test_fused_route_shapes_match_plain(cuda, m, n, empty):
+    """One iteration at m = 45 and an odd m, n not a multiple of 256 (a
+    cluster whose last CTA holds fewer rows), and a shard with no valid
+    point: t within 1e-6 m of the plain version, σ² and the move close."""
+    from trackdlo_tpu_torch.ops.cpd_lle import fused_iteration
+    from trackdlo_tpu_torch.ops.hopper_kernels import fused_em_iteration_plain
+
+    st, params = _f_staging(cuda, m=m, n=n, empty=empty)
+    y0, s2 = st.args[1], st.args[0][:, 0]
+    got = fused_iteration(st, y0, s2, params)
+    ref = fused_iteration(st, y0, s2, params, fused_em_iteration_plain)
+    assert float((got[0] - ref[0]).abs().max()) <= 1e-6
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=2e-7)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=1e-9)
+    if empty:
+        assert torch.equal(got[1], torch.full_like(got[1], 1e-10))
+
+
+def _onehot_tie_systems():
+    """Systems whose pivot columns tie: equal |A[r, k]| in two unused rows
+    (opposite signs), an all-zero column, identity rows (the systems of
+    tests/test_torch_fused_mstep.py's tie test)."""
+    rng = np.random.default_rng(5)
+    m = 12
+    a = rng.standard_normal((3, m, m)).astype(np.float32) + 4 * np.eye(m, dtype=np.float32)
+    a[0, 1, 0] = a[0, 0, 0] = 2.0
+    a[0, 5, 0] = -2.0
+    a[1, :, 3] = 0.0
+    a[2, 4:7] = 0.0
+    a[2, :, 4:7] = 0.0
+    a[2, 4:7, 4:7] = np.eye(3, dtype=np.float32)
+    a[2, 0, 0] = a[2, 3, 0] = 3.0
+    b = rng.standard_normal((3, m, 3)).astype(np.float32)
+    b[2, 4:7] = 0.0
+    return a, b
+
+
+def test_em_iteration_solve_on_tie_systems_equals_onehot_plain(cuda):
+    """The tie and zero-column systems fed through F's own system: no valid
+    point (P1 = PX = 0), λ = lle = 0, α = 1, JG = A, PD = B, G = I and
+    Y0 = 0, so T is the solve's W. Bit-equal to the plain one-hot solve."""
+    from trackdlo_tpu_torch.ops.hopper_kernels import fused_em_iteration, onehot_gauss_jordan_plain
+
+    a_np, b_np = _onehot_tie_systems()
+    bsz, m = a_np.shape[:2]
+    a, b = torch.from_numpy(a_np).to(cuda), torch.from_numpy(b_np).to(cuda)
+    zeros_mm, zeros_m3 = torch.zeros_like(a), torch.zeros_like(b)
+    eye = torch.eye(m, device=cuda).expand(bsz, m, m).contiguous()
+    x = torch.rand((bsz, 300, 3), generator=torch.Generator().manual_seed(0)).to(cuda)
+    xm = torch.zeros((bsz, 300), dtype=torch.bool, device=cuda)
+    nm = torch.ones((bsz, m), dtype=torch.bool, device=cuda)
+    coord = torch.arange(m, dtype=torch.float32, device=cuda).expand(bsz, m).contiguous()
+    one = torch.ones(bsz, device=cuda)
+    t, s2, _ = fused_em_iteration(zeros_m3, zeros_m3, nm, coord, eye, zeros_mm, zeros_m3, a, b, x,
+                                  xm, 1e-3 * one, one, one, 0 * one, m * one, lam=0.0,
+                                  coef_lle=0.0, alpha=1.0)
+    w = onehot_gauss_jordan_plain(a, b)
+    assert torch.equal(t, w)
+    assert torch.equal(s2, torch.full_like(s2, 1e-10))
+
+
+def test_fused_route_copies_equal_one_stream(cuda):
+    """Four copies of a stream's staging through the route in one launch,
+    bit-equal to the stream alone."""
+    from trackdlo_tpu_torch.ops.cpd_lle import EmStaging, fused_iteration
+
+    st, params = _f_staging(cuda)
+    rep = lambda a: a.expand(4, *a.shape[1:]).contiguous()
+    st4 = EmStaging(tuple(rep(a) for a in st.args), st.kwargs, rep(st.n_count), rep(st.sigma2))
+    got = fused_iteration(st4, st4.args[1], st4.args[0][:, 0], params)
+    one = fused_iteration(st, st.args[1], st.args[0][:, 0], params)
+    for g, o in zip(got, one):
+        assert torch.equal(g, o.expand_as(g))
+
+
+def _device_ops(fn, n=5):
+    """Device ops per call of ``fn`` in a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()) / n
+
+
+def test_fused_route_iteration_is_one_device_op(cuda):
+    from trackdlo_tpu_torch.ops.cpd_lle import fused_iteration
+
+    st, params = _f_staging(cuda)
+    y0, s2 = st.args[1], st.args[0][:, 0]
+    assert _device_ops(lambda: fused_iteration(st, y0, s2, params)) == 1
+
+
+def test_em_iteration_matches_previous_design_outputs(cuda):
+    """Kernel F on the saved inputs of tests/data/em_iter_bits.npz (written
+    by perf/em_iter_bits.py on the design before the cluster E-step): t
+    within 1e-6 m of that design's outputs (the E-step's sums and σ² are
+    added in another order)."""
+    import sys
+    from pathlib import Path
+
+    from trackdlo_tpu_torch.ops.hopper_kernels import fused_em_iteration
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root / "perf"))
+    import em_iter_bits
+
+    for case, (fargs, kw, (t0, s0, d0)) in em_iter_bits.load(root / "tests" / "data" / "em_iter_bits.npz").items():
+        t, s2, delta = fused_em_iteration(*(torch.from_numpy(a).to(cuda) for a in fargs), **kw)
+        assert np.abs(t.cpu().numpy() - t0).max() <= 1e-6, case
+        np.testing.assert_allclose(s2.cpu().numpy(), s0, rtol=0, atol=2e-7, err_msg=case)
+        np.testing.assert_allclose(delta.cpu().numpy(), d0, rtol=1e-5, atol=1e-9, err_msg=case)
 
 
 # ---------------------------------------------------------------------------
@@ -969,6 +1125,35 @@ def test_nearest_kernel_is_bit_equal_to_plain(cuda, n_streams, n, case):
         assert float(got[args[1]].max()) < 1e5
     one = nearest_point_sq(*(a[0] for a in args))
     assert torch.equal(one, got[0])
+
+
+@pytest.mark.parametrize("case", ["rope", "masked_rows", "all_masked_cloud"])
+@pytest.mark.parametrize("n_streams,n", [(1, 1024), (4, 2048), (2, 5000)])
+def test_nearest_kernel_float_masks_equal_bool_masks(cuda, n_streams, n, case):
+    """float32 0/1 masks (em_staging's, the route's) read as given: bit-equal
+    to the plain version and to the bool masks' result; 5000 rows take
+    three tiles of compacted points."""
+    from trackdlo_tpu_torch.ops.hopper_kernels import nearest_point_sq, nearest_point_sq_plain
+
+    y, nm, x, xm = _n_inputs(cuda, n_streams, min(n, 2048), case)
+    if n > 2048:  # the clouds again, further off
+        x = torch.cat([x] + [x + 0.01 * k for k in range(1, -(-n // 2048))], dim=1)[:, :n].contiguous()
+        xm = torch.cat([xm] * -(-n // 2048), dim=1)[:, :n].contiguous()
+    nmf, xmf = nm.to(torch.float32), xm.to(torch.float32)
+    got = nearest_point_sq(y, nmf, x, xmf)
+    assert torch.equal(got, nearest_point_sq_plain(y, nmf, x, xmf))
+    assert torch.equal(got, nearest_point_sq(y, nm, x, xm))
+
+
+def test_nearest_kernel_is_one_device_op_with_either_mask(cuda):
+    """The wrapper casts nothing: one device op a call with bool masks and
+    with float32 masks (the route's)."""
+    from trackdlo_tpu_torch.ops.hopper_kernels import nearest_point_sq
+
+    y, nm, x, xm = _n_inputs(cuda, 1, 1024, "rope")
+    nmf, xmf = nm.to(torch.float32), xm.to(torch.float32)
+    assert _device_ops(lambda: nearest_point_sq(y, nm, x, xm)) == 1
+    assert _device_ops(lambda: nearest_point_sq(y, nmf, x, xmf)) == 1
 
 
 def test_sharded_em_on_gloo_ranks_sharing_the_card(cuda):

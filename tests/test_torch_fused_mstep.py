@@ -281,3 +281,58 @@ def test_kernel_f_wrapper_takes_plain_version_on_cpu():
         *(a.unsqueeze(0) if a.ndim else a.reshape(1) for a in args), **kw)
     for u, v in zip(one, batched):
         assert torch.equal(u, v[0])
+
+
+@pytest.mark.parametrize("gate", [False, True])
+def test_fused_iteration_c_from_dyn_matches_interpreted_jax(gate):
+    """The route's entry: fused_iteration computes no c's, the iteration
+    takes them from the staging's dyn as kernel F does on the card
+    (em_iteration_c), against the JAX package's fused_em_iteration
+    (interpret mode) with the c's as its cpd_lle computes them. t within
+    1e-6 m, σ² within SIGMA2_ATOL, the move within rtol 1e-5."""
+    from trackdlo_tpu_torch.ops.hopper_kernels import em_iteration_c
+
+    y, x, xm = _inputs(13)
+    nm = np.ones(M, bool)
+    params = tc.CpdParams(**_base(use_fused_mstep=True, use_visibility=True, k_vis=PARAMS.k_vis))
+    one = lambda a: torch.from_numpy(np.asarray(a))[None]
+    st = tc.em_staging(one(x), one(xm), one(y), one(nm), torch.tensor([PARAMS.sigma2_init]), params,
+                       visible_count=torch.tensor([30 if gate else M]))
+    dyn, y0, coord, nmf, g, hg, hy0, jg, pd, xx, xmf = st.args
+    assert bool(dyn[0, 3] > 0) == gate
+    yc = y0 + torch.from_numpy(np.random.default_rng(13).normal(0, 1e-3, (1, M, 3)).astype(np.float32))
+    s2 = dyn[:, 0]
+    got = tc.fused_iteration(st, yc, s2, params)
+    j = lambda a: jnp.asarray(a[0].numpy())
+    c_base = (jc._TWO_PI * j(s2)) ** 1.5 * params.mu / (1 - params.mu)
+    c_ref = (c_base * j(dyn[:, 1]) / j(dyn[:, 2]), c_base / j(dyn[:, 2]))
+    c_got = em_iteration_c(s2, dyn, st.kwargs["muf"])
+    np.testing.assert_allclose([float(c[0]) for c in c_got], [float(c) for c in c_ref], rtol=1e-6)
+    kw = {k: st.kwargs[k] for k in ("k_vis", "tau_vis", "lam", "coef_lle", "alpha")}
+    ref = jk.fused_em_iteration(
+        j(yc), j(y0), j(nmf) > 0, j(coord), j(g), j(hg), j(hy0), j(jg), j(pd), j(xx), j(xmf) > 0,
+        j(s2), *c_ref, j(dyn[:, 3]) > 0, j(dyn[:, 1]).astype(jnp.int32), **kw, interpret=True)
+    assert np.abs(got[0][0].numpy() - np.asarray(ref[0])).max() <= TOL_M
+    np.testing.assert_allclose(float(got[1][0]), float(ref[1]), rtol=0, atol=SIGMA2_ATOL)
+    np.testing.assert_allclose(float(got[2][0]), float(ref[2]), rtol=1e-5)
+
+
+def test_plain_kernel_f_near_saved_card_outputs():
+    """F's plain version on the CPU, on the inputs saved from the card
+    (tests/data/em_iter_bits.npz, perf/em_iter_bits.py: chip_smoke.py's
+    kernel-F configurations on its live cloud, the design before the
+    cluster E-step): t within 1e-6 m of the card's, σ² within SIGMA2_ATOL."""
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root / "perf"))
+    import em_iter_bits
+
+    saved = em_iter_bits.load(root / "tests" / "data" / "em_iter_bits.npz")
+    assert len(saved) == 9
+    for case, (fargs, kw, (t0, s0, d0)) in saved.items():
+        t, s2, delta = fused_em_iteration_plain(*(torch.from_numpy(a) for a in fargs), **kw)
+        assert np.abs(t.numpy() - t0).max() <= TOL_M, case
+        np.testing.assert_allclose(s2.numpy(), s0, rtol=0, atol=SIGMA2_ATOL, err_msg=case)
+        np.testing.assert_allclose(delta.numpy(), d0, rtol=1e-5, err_msg=case)

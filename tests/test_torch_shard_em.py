@@ -95,6 +95,21 @@ def test_nearest_plain_matches_jax_kernel(case):
         assert (got.numpy() == 1e5).all()
 
 
+@pytest.mark.parametrize("case", ["rope", "masked_nodes", "empty_cloud", "far_points"])
+def test_nearest_bool_and_float_masks_match_jax_kernel(case):
+    """The masks as bool and as float32 0/1 (em_staging's, the route's):
+    the same result, and the JAX package's kernel's on the same masks."""
+    y, nm, x, xm = _nearest_case(5, case)
+    t = torch.from_numpy
+    got_b = nearest_point_sq(t(y), t(nm), t(x), t(xm))
+    got_f = nearest_point_sq(t(y), t(nm.astype(np.float32)), t(x), t(xm.astype(np.float32)))
+    assert torch.equal(got_b, got_f)
+    ref = np.asarray(jpk.nearest_point_sq(jnp.asarray(y), jnp.asarray(nm.astype(np.float32)),
+                                          jnp.asarray(x), jnp.asarray(xm.astype(np.float32)),
+                                          interpret=True))
+    np.testing.assert_allclose(got_f.numpy(), ref, rtol=1e-6, atol=0)
+
+
 def test_nearest_stream_axis_matches_jax_vmap():
     cases = [_nearest_case(s, c) for s, c in ((2, "rope"), (3, "stream_axis"), (4, "empty_cloud"))]
     y, nm, x, xm = (np.stack(a) for a in zip(*cases))

@@ -96,22 +96,25 @@ SIGNATURES = {
         _P,
     ],
     "trackdlo_em_iter": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # scal, y, y0, coord, nm, g..pd, x, x_mask
+        _P, _I, _P, _P,  # sigma2, its stride, dyn, c's (null: from dyn)
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # y, y0, coord, nm, g, hg, hy0, jg, pd, x, x_mask
         _I, _I, _I,  # n_streams, m, n
-        _F, _F, _F, _F, _F,  # k_vis, tau_vis, lam, coef_lle, alpha
+        _F, _F, _F, _F, _F, _F,  # muf, k_vis, tau_vis, lam, coef_lle, alpha
         _P, _P,  # t, stats
         _P,
     ],
     "trackdlo_nearest": [
         _P, _P, _P, _P,  # y, node_mask, x, x_mask
         _I, _I, _I,  # n_streams, m, n
+        _I, _I,  # node_mask and x_mask one byte a value (bool), else float32
         _P,  # out
         _P,
     ],
-    # Kernels E and S launch as thread-block clusters: for n rows, the
+    # Kernels E, S and F launch as thread-block clusters: for n rows, the
     # cluster size, the rows per CTA and how many clusters the card holds.
     "trackdlo_em_loop_cluster_info": [_I, _P],
     "trackdlo_estep_cluster_info": [_I, _P],
+    "trackdlo_em_iter_cluster_info": [_I, _P],
 }
 
 _lock = threading.Lock()

@@ -6,45 +6,77 @@
 // _onehot_gauss_jordan), which cpd_lle runs each iteration with
 // CpdParams.use_fused_mstep; under jax.vmap its grid gains the stream axis.
 //
-// What bounds it on an H100: latency. One iteration at M = 45 and 4096
-// points is ~0.4 M exponentials and ~8 MFLOP of E-step over ~70 KB of
-// inputs, then a 45-step pivot chain (each step a search over the unused
-// rows, then a rank-1 update of [A | B]) that no amount of bandwidth or
-// FLOPs shortens.
+// What bounds it on an H100: chains of dependent steps, not bytes or FLOPs.
+// One iteration at M = 45 and 2048 rows (~360 valid) is ~0.1 M exponentials
+// and a 45-step pivot chain (each step a search over the unused rows, then
+// a rank-1 update of [A | B]) over ~70 KB of inputs. One block per stream
+// paid a point's E-step chain once per 512-row chunk on one SM with most
+// warps idle, then searched each pivot only after the whole update
+// (perf/em_phase_stamps.py --only f: 70% of the launch in the E-step and its
+// sums, 20% in the solve).
 //
-// Design: one block of 512 threads per stream, kernel S's E-step (one
-// thread per point, the point's 48 memberships in registers, fixed-order
-// warp sums per (node, quantity), a fixed-order block tree for Np and
-// tr(XᵀdPt1X), no float atomics) with the TPU function's own formulas:
-// exp((-0.5·d²)/σ²), the gate blends p·(1 + g·(pv − 1)) and
-// c_plain + g·(c_vis − c_plain), the anchor row select over the zero pad
-// rows up to m_pad. The per-node minimum sweep runs only when the stream's
-// gate is on (with the gate off the prior multiplies every membership by
-// exactly 1). The M-step system [A | B] is built in shared memory with the
-// TPU kernel's operation order and identity rows for inactive nodes, then
-// solved by the one-hot elimination of _onehot_gauss_jordan: no row
-// equilibration, no inverse, no refinement; at step k the pivot is the first
-// maximum of |A[:, k]| over the rows not yet used (used rows bid -1, so a
-// zero column still takes the first unused row), every other row is
-// eliminated in place (no swaps), and W[k] = B[perm k] / pivot_k with
-// |pivot| < 1e-30 read as 1. The TPU pads the system to m_pad with identity
-// rows that never mix with the real ones and are never picked for a real
-// column, so the solve runs at m. Then T = Y0 + G·W (inactive rows keep Y0),
-// the σ² update floored at 1e-10 and the mean node move, all in the block.
-#include "common.cuh"
+// Design: one thread-block cluster per stream, C CTAs of 512 threads (C and
+// each CTA's rows a function of n alone, estep_cluster.cuh, so a stream's
+// bits depend neither on the batch nor on the card).
+// - E-step: the cluster E-step of kernels E and S (estep_cluster.cuh), with
+//   the TPU function's own formulas: the exponent (-0.5 d^2) / sigma^2 (E's),
+//   the gate blends p (1 + g (pv - 1)) and c_plain + g (c_vis - c_plain) and
+//   masked nodes 0 in the second normalisation (S's), the anchor row select
+//   over the zero pad rows up to m_pad. The minima sweep runs only where the
+//   stream's gate is on (with the gate off the prior multiplies every
+//   membership by exactly 1); the gate is the stream's, so every CTA of a
+//   cluster runs the same barriers.
+// - The c's: from sigma^2, v_count, n_safe and mu / (1 - mu) as kernel E
+//   computes them, so a route iteration is this one launch; the JAX-shaped
+//   entry passes its own c's instead.
+// - Every CTA pushes its partial sums into CTA 0's shared memory before one
+//   cluster barrier; past it no CTA reads another's memory, and all but CTA
+//   0 leave. CTA 0 adds the partials in rank order (the bits of
+//   ec_cluster_totals), builds [A | B] in the TPU kernel's operation order
+//   (identity rows and zero right-hand sides for inactive nodes) from G, HG,
+//   JG, HY0 and PD that cp.async fetched into its shared memory while the
+//   E-step ran, and solves it.
+// - The solve is _onehot_gauss_jordan's: at step k the pivot is the first
+//   maximum of |A[:, k]| over the rows not yet used (used rows bid -1, so a
+//   zero column still takes the first unused row), every other row is
+//   eliminated in place (no swaps, no equilibration, no inverse, no
+//   refinement), a zero pivot divides by 1, and W[k] = B[perm k] / pivot_k
+//   with |pivot| < 1e-30 read as 1. The TPU pads the system to m_pad with
+//   identity rows that never mix with the real ones and are never picked
+//   for a real column, so the solve runs at m. Its step has gj.cuh's
+//   structure: the last warp updates column k + 1 of every row and picks
+//   step k + 1's pivot among those values (gj_pick), published
+//   double-buffered by step parity, so a step has one barrier; the other
+//   warps own the rows, a fixed group of threads per row, each dividing its
+//   row's factor once and updating the live columns k + 2 .. m + 2. An
+//   entry's update stays a - f * b, a multiply then a subtract under
+//   -fmad=false, with f a true IEEE quotient: the values of the full sweep.
+// - T = Y0 + G W (inactive rows keep Y0) as a float32 product from G in
+//   shared memory, in order over j; sigma^2 (floored at 1e-10) and the mean
+//   node move in one warp, rows lane and lane + 32 a lane, then shuffle
+//   trees.
+// No float atomics: a result is the same run to run.
+#include "estep_cluster.cuh"
+#include "gj.cuh"
 
 namespace {
 
-constexpr int MMAX = 48;
+namespace cg = cooperative_groups;
+
+constexpr int MMAX = td::EC_MMAX;
 constexpr int THREADS = 512;
 constexpr int NWARPS = THREADS / 32;
-constexpr int CHUNK = THREADS;
-constexpr float BIG = 1e5f;
+constexpr float TWO_PI = 6.283185307179586f;
+// The widest row of [A | B]: m + 3 entries, padded by at most 31.
+constexpr int WMAX = MMAX + 3 + 31;
+static_assert(MMAX == td::GJ_MMAX, "the pivot pick holds at most GJ_MMAX rows");
 
 struct FArgs {
-  const float* scal;  // (B, 5): sigma2, c_plain, c_vis, gate, v_count
-  const float* y;     // (B, m, 3) current iterate
-  const float* y0;    // (B, m, 3) EM origin
+  const float* s2;   // sigma2 of stream s at s2[s * s2_stride]
+  const float* dyn;  // (B, 4): -, v_count, n_safe, visibility gate
+  const float* cc;   // (B, 2): c_plain, c_vis; null: computed from s2, dyn and muf
+  const float* y;    // (B, m, 3) current iterate
+  const float* y0;   // (B, m, 3) EM origin
   const float* coord;  // (B, m)
   const float* nm;     // (B, m) 0/1
   const float* g;      // (B, m, m)
@@ -54,288 +86,232 @@ struct FArgs {
   const float* pd;     // (B, m, 3)
   const float* x;      // (B, n, 3)
   const float* xm;     // (B, n) 0/1
-  int m, n;
-  float k_vis, tau_vis, lam, coef_lle, alpha;
+  int s2_stride, m, n;
+  float muf, k_vis, tau_vis, lam, coef_lle, alpha;
   float* t;      // (B, m, 3)
   float* stats;  // (B, 2): sigma2_new, delta
 };
 
 struct Smem {
-  float y[MMAX * 3], y0[MMAX * 3], coord[MMAX], nm[MMAX], pv[MMAX], short_sq[MMAX];
-  float p[MMAX * CHUNK];  // memberships of the current chunk
-  float xs[CHUNK * 3];    // the chunk's points
-  float acc[MMAX * 4];    // per node: P1, PX0, PX1, PX2
-  float aug[MMAX * (MMAX + 3)];  // [A | B]
-  float w[MMAX * 3], tn[MMAX * 3];
-  float factor[MMAX], used[MMAX], diag[MMAX];
-  int perm[MMAX];
-  float wmin[NWARPS * MMAX];
-  float red[THREADS], red2[THREADS];
-  int ridx;
-  float pivot;
+  td::EstepSmem<THREADS> es;  // the iterate y, coord, node mask, the points
+  float part[td::EC_MAX_CLUSTER][td::EC_NSUM];  // every CTA's partial sums (CTA 0's copy)
+  float g[MMAX * MMAX], hg[MMAX * MMAX], jg[MMAX * MMAX];
+  float y0[MMAX * 3], hy0[MMAX * 3], pd[MMAX * 3];
+  float aug[MMAX * WMAX];  // [A | B], row stride f_stride
+  float w[MMAX * 3], t[MMAX * 3];
+  float diag[MMAX];
+  int perm[MMAX];   // the row pivoted at each step
+  int piv_row[2];   // a step's pivot row and value, by step parity
+  float piv_val[2];
 };
 
-__device__ __forceinline__ float sq_dist(const float* y, int j, float x0, float x1, float x2) {
-  float d0 = y[j * 3 + 0] - x0, d1 = y[j * 3 + 1] - x1, d2 = y[j * 3 + 2] - x2;
-  return d0 * d0 + d1 * d1 + d2 * d2;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// The row stride of [A | B]: at least m + 3 and equal to the threads per row
+// modulo 32, so the threads of one warp, on consecutive rows, fall on
+// distinct banks.
+__device__ __forceinline__ int f_stride(int m, int per_row) {
+  const int w = m + 3;
+  return w + (((per_row - w) % 32) + 32) % 32;
+}
+
+// The search warp's pick of a step's pivot among its rows' values (row 0 if
+// every candidate is NaN, as argmax gives); marks it used.
+__device__ __forceinline__ int f_pick(int m, unsigned long long& used, const float (&col)[2],
+                                      float& pv) {
+  int ridx = td::gj_pick(m, used, col, pv);
+  if (ridx >= m) ridx = 0;
+  used |= 1ull << ridx;
+  return ridx;
 }
 
 __global__ void __launch_bounds__(THREADS, 1) em_iter_kernel(FArgs A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
+  td::EstepSmem<THREADS>& E = S.es;
+  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int s = blockIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int s = blockIdx.x / (int)cluster.num_blocks();
   const int m = A.m, n = A.n;
   const int m_pad = (m + 7) / 8 * 8;
-  const float* sc = A.scal + (size_t)s * 5;
-  const float s2 = sc[0], c_plain = sc[1], c_vis = sc[2], gate = sc[3];
-  const float v_count_f = sc[4];
-  const int v_count = (int)v_count_f;
-  const float c_eff = c_plain + gate * (c_vis - c_plain);
-  const float* x = A.x + (size_t)s * n * 3;
-  const float* xm = A.xm + (size_t)s * n;
   const size_t mm = (size_t)s * m * m, m3 = (size_t)s * m * 3, m1 = (size_t)s * m;
 
-  // Rows [m, m_pad) are zero, as the TPU's pad rows are.
-  for (int k = tid; k < m_pad * 3; k += THREADS) {
-    S.y[k] = k < m * 3 ? A.y[m3 + k] : 0.0f;
-    S.y0[k] = k < m * 3 ? A.y0[m3 + k] : 0.0f;
+  // CTA 0's M-step inputs arrive while the E-step runs.
+  if (rank == 0) {
+    for (int k = tid; k < m * m; k += THREADS) {
+      cp_async4(&S.g[k], A.g + mm + k);
+      cp_async4(&S.hg[k], A.hg + mm + k);
+      cp_async4(&S.jg[k], A.jg + mm + k);
+    }
+    for (int k = tid; k < m * 3; k += THREADS) {
+      cp_async4(&S.y0[k], A.y0 + m3 + k);
+      cp_async4(&S.hy0[k], A.hy0 + m3 + k);
+      cp_async4(&S.pd[k], A.pd + m3 + k);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
-  for (int k = tid; k < m_pad; k += THREADS) {
+  const float s2 = A.s2[(size_t)s * A.s2_stride];
+  const float* dyn = A.dyn + (size_t)s * 4;
+  const float v_count_f = dyn[1], n_safe = dyn[2], gate = dyn[3];
+  // A CTA writes into another's shared memory only once every CTA of the
+  // cluster has started: where the gate is on, the minima exchange's cluster
+  // barrier sees to that; where it is off, this arrival, waited on just
+  // before the push of the partial sums.
+  if (!(gate > 0.0f)) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  float c_plain, c_vis;
+  if (A.cc != nullptr) {
+    c_plain = A.cc[(size_t)s * 2];
+    c_vis = A.cc[(size_t)s * 2 + 1];
+  } else {
+    const float tps = TWO_PI * s2;
+    const float c_core = tps * sqrtf(tps);
+    c_plain = (A.muf * v_count_f / n_safe) * c_core;
+    c_vis = (A.muf / n_safe) * c_core;
+  }
+
+  // Rows [m, MMAX) are zero, as the TPU's pad rows are.
+  for (int k = tid; k < MMAX * 3; k += THREADS) E.y[k] = k < m * 3 ? A.y[m3 + k] : 0.0f;
+  for (int k = tid; k < MMAX; k += THREADS) {
     const bool in = k < m;
-    S.coord[k] = in ? A.coord[m1 + k] : 0.0f;
-    S.nm[k] = in ? A.nm[m1 + k] : 0.0f;
-    S.short_sq[k] = BIG;
+    E.coord[k] = in ? A.coord[m1 + k] : 0.0f;
+    E.nm[k] = in ? A.nm[m1 + k] : 0.0f;
+    E.pv[k] = 0.0f;
+    E.gmin[k] = td::EC_BIG;
   }
-  for (int k = tid; k < m * 4; k += THREADS) S.acc[k] = 0.0f;
-  __syncthreads();
+  const int rows = td::ec_rows_per_cta(n);
+  const int r0 = min(n, rank * rows);
+  const int npts = td::ec_compact(A.x + (size_t)s * n * 3, A.xm + (size_t)s * n, r0,
+                                  min(n, r0 + rows), E);  // ends in a barrier
 
-  // Phase 0: per-node nearest valid point (only read through the gate).
+  // The visibility prior: each node's nearest valid point, only where the
+  // gate is on (with it off the blend multiplies by exactly 1).
   if (gate > 0.0f) {
-    float mn[MMAX];
-#pragma unroll
-    for (int j = 0; j < MMAX; ++j) mn[j] = BIG;
-    for (int i = tid; i < n; i += THREADS) {
-      if (!(xm[i] > 0.0f)) continue;
-      const float x0 = x[i * 3], x1 = x[i * 3 + 1], x2 = x[i * 3 + 2];
-#pragma unroll
-      for (int j = 0; j < MMAX; ++j)
-        if (j < m && S.nm[j] > 0.0f) mn[j] = fminf(mn[j], sq_dist(S.y, j, x0, x1, x2));
-    }
-#pragma unroll
-    for (int j = 0; j < MMAX; ++j) {
-      if (j < m) {
-        const float v = td_warp_min(mn[j]);
-        if (lane == 0) S.wmin[warp * MMAX + j] = v;
-      }
-    }
-    __syncthreads();
-    if (tid < m) {
-      float v = BIG;
-      for (int w = 0; w < NWARPS; ++w) v = fminf(v, S.wmin[w * MMAX + tid]);
-      S.short_sq[tid] = v;
-    }
-    __syncthreads();
+    td::ec_cluster_minima(m, npts, 0, E, cluster);
+    td::ec_visibility_weights(m, A.k_vis, A.tau_vis, E);
   }
-  if (tid == 0) {
-    // The visibility prior from the minima (inert where the gate is off).
-    float total = 0.0f;
-    for (int j = 0; j < m; ++j) {
-      float sh = sqrtf(S.short_sq[j]);
-      if (sh <= A.tau_vis) sh = 0.0f;
-      const float w = S.nm[j] > 0.0f ? expf(-A.k_vis * sh) : 0.0f;
-      S.pv[j] = w;
-      total += w;
-    }
-    total = fmaxf(total, 1e-30f);
-    for (int j = 0; j < m; ++j) S.pv[j] = S.pv[j] / total;
-  }
-  __syncthreads();
+  const td::EcScalars sc{s2, 0.0f, c_plain, c_plain + gate * (c_vis - c_plain), gate,
+                         (int)v_count_f, m_pad, m};
+  td::ec_estep_partials<false, true>(sc, npts, 1, E);
+  if (!(gate > 0.0f)) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (tid < 4 * m + 2) cluster.map_shared_rank(&S.part[rank][0], 0)[tid] = E.part[1][tid];
+  cluster.sync();
+  // Past the barrier no CTA reads another's shared memory.
+  if (rank != 0) return;
 
-  // Phase 1: the E-step, one chunk of points at a time.
-  float np_loc = 0.0f, trx_loc = 0.0f;
-  for (int base = 0; base < n; base += CHUNK) {
-    const int i = base + tid;
-    const bool valid = i < n && xm[i] > 0.0f;
-    float x0 = 0.0f, x1 = 0.0f, x2 = 0.0f;
-    if (valid) {
-      x0 = x[i * 3];
-      x1 = x[i * 3 + 1];
-      x2 = x[i * 3 + 2];
-    }
-    S.xs[tid * 3] = x0;
-    S.xs[tid * 3 + 1] = x1;
-    S.xs[tid * 3 + 2] = x2;
-    if (valid) {
-      float p[MMAX];
-      float sum1 = 0.0f;
-#pragma unroll
-      for (int j = 0; j < MMAX; ++j) {
-        float e = 0.0f;
-        if (j < m && S.nm[j] > 0.0f) e = expf((-0.5f * sq_dist(S.y, j, x0, x1, x2)) / s2);
-        p[j] = e;
-        sum1 += e;
-      }
-      const float den1 = sum1 + c_plain;
-      int mp = 0;
-      float best = -1.0f;
-#pragma unroll
-      for (int j = 0; j < MMAX; ++j) {
-        if (j < m) {
-          const float q = S.nm[j] > 0.0f ? p[j] / den1 : -1.0f;
-          if (q > best) {
-            best = q;
-            mp = j;
-          }
-        }
-      }
-      const int cand1 = (mp - 1 == -1) ? 2 : mp - 1;
-      const int cand2 = (mp + 1 == v_count) ? v_count - 3 : mp + 1;
-      auto sel_sq = [&](int r) {
-        return (r >= 0 && r < m_pad) ? sq_dist(S.y, r, x0, x1, x2) : 0.0f;
-      };
-      auto sel_coord = [&](int r) { return (r >= 0 && r < m_pad) ? S.coord[r] : 0.0f; };
-      const int nxt = sel_sq(cand1) < sel_sq(cand2) ? cand1 : cand2;
-      const int lo = min(mp, nxt), hi = max(mp, nxt);
-      const float d_lo = sqrtf(sel_sq(lo)), d_hi = sqrtf(sel_sq(hi));
-      const float c_lo = sel_coord(lo), c_hi = sel_coord(hi);
-      float sum2 = 0.0f;
-#pragma unroll
-      for (int j = 0; j < MMAX; ++j) {
-        float e = 0.0f;
-        if (j < m && S.nm[j] > 0.0f) {
-          float geo;
-          if (j < lo) {
-            const float u = fabsf(S.coord[j] - c_lo) + d_lo;
-            geo = u * u;
-          } else if (j >= hi) {
-            const float u = fabsf(S.coord[j] - c_hi) + d_hi;
-            geo = u * u;
-          } else if (j == lo) {
-            geo = d_lo * d_lo;
-          } else {
-            geo = 0.0f;
-          }
-          e = expf((-0.5f * geo) / s2);
-          e = e * (1.0f + gate * (S.pv[j] - 1.0f));
-        }
-        p[j] = e;
-        sum2 += e;
-      }
-      const float den2 = sum2 + c_eff;
-      float pt1 = 0.0f;
-#pragma unroll
-      for (int j = 0; j < MMAX; ++j) {
-        if (j < m) {
-          const float q = S.nm[j] > 0.0f ? p[j] / den2 : 0.0f;
-          S.p[j * CHUNK + tid] = q;
-          pt1 += q;
-        }
-      }
-      np_loc += pt1;
-      trx_loc += pt1 * (x0 * x0 + x1 * x1 + x2 * x2);
-    } else {
-      for (int j = 0; j < m; ++j) S.p[j * CHUNK + tid] = 0.0f;
-    }
-    __syncthreads();
-    for (int o = warp; o < m * 4; o += NWARPS) {
-      const int j = o >> 2, q = o & 3;
-      float acc = 0.0f;
-      for (int k = lane; k < CHUNK; k += 32) {
-        const float pk = S.p[j * CHUNK + k];
-        acc += q == 0 ? pk : pk * S.xs[k * 3 + q - 1];
-      }
-      acc = td_warp_sum(acc);
-      if (lane == 0) S.acc[o] += acc;
-    }
-    __syncthreads();
+  const int c = (int)cluster.num_blocks();
+  for (int i = tid; i < 4 * m + 2; i += THREADS) {
+    float v = S.part[0][i];
+    for (int r = 1; r < c; ++r) v += S.part[r][i];
+    E.tot[i] = v;
   }
-  S.red[tid] = np_loc;
-  S.red2[tid] = trx_loc;
-  for (int h = THREADS / 2; h > 0; h >>= 1) {
-    __syncthreads();
-    if (tid < h) {
-      S.red[tid] += S.red[tid + h];
-      S.red2[tid] += S.red2[tid + h];
-    }
-  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  const float np_total = S.red[0], tr_x = S.red2[0];
+  const float* p1 = E.tot;      // P1[r]
+  const float* px = E.tot + m;  // PX[d][r] at px[d * m + r]
+  const float np_total = E.tot[4 * m];
+  const float tr_x = E.tot[4 * m + 1];
 
-  // Phase 2: the M-step system [A | B] (inactive nodes: identity rows, zero
-  // right-hand sides).
-  const int width = m + 3;
+  // The M-step system [A | B] (inactive nodes: identity rows, zero
+  // right-hand sides), in the TPU kernel's operation order.
+  const int per_row = (THREADS - 32) / m;
+  const int width = f_stride(m, per_row);
   const float lam_s2 = A.lam * s2;
   const float lle_s2 = s2 * A.coef_lle;
-  for (int k = tid; k < m * width; k += THREADS) {
-    const int r = k / width, c = k % width;
+  for (int k = tid; k < m * (m + 3); k += THREADS) {
+    const int r = k / (m + 3), col = k - r * (m + 3);
     float v;
-    if (c < m) {
-      if (S.nm[r] > 0.0f && S.nm[c] > 0.0f) {
-        const size_t e = mm + (size_t)r * m + c;
-        v = S.acc[r * 4] * A.g[e] + (r == c ? lam_s2 : 0.0f);
-        v = v + lle_s2 * A.hg[e];
-        v = v + A.alpha * A.jg[e];
+    if (col < m) {
+      if (E.nm[r] > 0.0f && E.nm[col] > 0.0f) {
+        const int e = r * m + col;
+        v = p1[r] * S.g[e] + (r == col ? lam_s2 : 0.0f);
+        v = v + lle_s2 * S.hg[e];
+        v = v + A.alpha * S.jg[e];
       } else {
-        v = r == c ? 1.0f : 0.0f;
+        v = r == col ? 1.0f : 0.0f;
       }
     } else {
-      const int d = c - m;
-      const size_t e = m3 + (size_t)r * 3 + d;
-      v = S.acc[r * 4 + 1 + d] - S.acc[r * 4] * S.y0[r * 3 + d];
-      v = v - lle_s2 * A.hy0[e];
-      v = v + A.alpha * A.pd[e];
-      v = v * S.nm[r];
+      const int d = col - m, e = r * 3 + d;
+      v = px[d * m + r] - p1[r] * S.y0[e];
+      v = v - lle_s2 * S.hy0[e];
+      v = v + A.alpha * S.pd[e];
+      v = v * E.nm[r];
     }
-    S.aug[k] = v;
+    S.aug[r * width + col] = v;
   }
-  for (int k = tid; k < m; k += THREADS) S.used[k] = 0.0f;
   __syncthreads();
 
-  // The one-hot Gauss-Jordan elimination.
+  // The one-hot elimination, one barrier a step. The search warp's rows
+  // (lane, lane + 32) and their values of the current column; an update
+  // thread's row (-1: none) and first column.
+  const bool searcher = warp == NWARPS - 1;
+  const int my_r = !searcher && tid < per_row * m ? tid / per_row : -1;
+  const int my_g = tid - my_r * per_row;
+  float col[2] = {0.0f, 0.0f};
+  unsigned long long used = 0ull;
+  if (searcher) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = lane + 32 * h;
+      if (r < m) col[h] = S.aug[r * width];
+    }
+    float pv;
+    const int ridx = f_pick(m, used, col, pv);
+    if (lane == 0) {
+      S.piv_row[0] = ridx;
+      S.piv_val[0] = pv;
+      S.perm[0] = ridx;
+      S.diag[0] = pv;
+    }
+  }
+  __syncthreads();
   for (int k = 0; k < m; ++k) {
-    if (warp == 0) {
-      float bv = -2.0f;
-      int br = m;
-      for (int r = lane; r < m; r += 32) {
-        const float cand = S.used[r] > 0.0f ? -1.0f : fabsf(S.aug[r * width + k]);
-        if (cand > bv) {
-          bv = cand;
-          br = r;
-        }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(TD_FULL_MASK, bv, off);
-        const int orow = __shfl_down_sync(TD_FULL_MASK, br, off);
-        if (ov > bv || (ov == bv && orow < br)) {
-          bv = ov;
-          br = orow;
-        }
-      }
-      if (lane == 0) {
-        S.ridx = br;
-        S.pivot = S.aug[br * width + k];
-      }
-    }
-    __syncthreads();
-    const int ridx = S.ridx;
-    const float pv = S.pivot;
+    const int p = S.piv_row[k & 1];
+    const float pv = S.piv_val[k & 1];
     const float pv_safe = pv == 0.0f ? 1.0f : pv;
-    if (tid < m) S.factor[tid] = tid == ridx ? 0.0f : S.aug[tid * width + k] / pv_safe;
-    __syncthreads();
-    for (int q = tid; q < m * width; q += THREADS) {
-      const int r = q / width, c = q % width;
-      if (r != ridx) S.aug[q] = S.aug[q] - S.factor[r] * S.aug[ridx * width + c];
-    }
-    if (tid == 0) {
-      S.used[ridx] = 1.0f;
-      S.perm[k] = ridx;
-      S.diag[k] = pv;
+    if (searcher) {
+      // Column k + 1 of every row (the first B column at the last step),
+      // then step k + 1's pivot among those values.
+      const int cn = k + 1;
+      float nxt[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = lane + 32 * h;
+        if (r >= m) continue;
+        const float xv = S.aug[r * width + cn];
+        if (r == p) {
+          nxt[h] = xv;
+          continue;
+        }
+        const float f = col[h] / pv_safe;
+        nxt[h] = xv - f * S.aug[p * width + cn];
+        S.aug[r * width + cn] = nxt[h];
+      }
+      col[0] = nxt[0];
+      col[1] = nxt[1];
+      if (k + 1 < m) {
+        float pvn;
+        const int ridx = f_pick(m, used, col, pvn);
+        if (lane == 0) {
+          S.piv_row[(k + 1) & 1] = ridx;
+          S.piv_val[(k + 1) & 1] = pvn;
+          S.perm[k + 1] = ridx;
+          S.diag[k + 1] = pvn;
+        }
+      }
+    } else if (my_r >= 0 && my_r != p) {
+      float* row = S.aug + my_r * width;
+      const float* prow = S.aug + p * width;
+      const float f = row[k] / pv_safe;
+      for (int cc = k + 2 + my_g; cc < m + 3; cc += per_row) row[cc] = row[cc] - f * prow[cc];
     }
     __syncthreads();
   }
   for (int q = tid; q < m * 3; q += THREADS) {
-    const int k = q / 3, d = q % 3;
+    const int k = q / 3, d = q - k * 3;
     const float dg = fabsf(S.diag[k]) < 1e-30f ? 1.0f : S.diag[k];
     S.w[q] = S.aug[S.perm[k] * width + m + d] / dg;
   }
@@ -343,53 +319,96 @@ __global__ void __launch_bounds__(THREADS, 1) em_iter_kernel(FArgs A) {
 
   // T = Y0 + G W (inactive rows keep Y0).
   for (int q = tid; q < m * 3; q += THREADS) {
-    const int r = q / 3, d = q % 3;
+    const int r = q / 3, d = q - r * 3;
     float acc = 0.0f;
-    for (int j = 0; j < m; ++j) acc = acc + A.g[mm + (size_t)r * m + j] * S.w[j * 3 + d];
-    const float tv = S.nm[r] > 0.0f ? S.y0[q] + acc : S.y0[q];
-    S.tn[q] = tv;
+    for (int j = 0; j < m; ++j) acc = acc + S.g[r * m + j] * S.w[j * 3 + d];
+    const float tv = E.nm[r] > 0.0f ? S.y0[q] + acc : S.y0[q];
+    S.t[q] = tv;
     A.t[m3 + q] = tv;
   }
   __syncthreads();
 
-  // The σ² update and the mean node move.
-  if (tid == 0) {
+  // The sigma^2 update and the mean node move: rows lane and lane + 32 per
+  // lane, then shuffle trees.
+  if (warp == 0) {
     float tr_pxt = 0.0f, tr_tt = 0.0f, move = 0.0f;
-    for (int r = 0; r < m; ++r) {
+    for (int r = lane; r < m; r += 32) {
       float mv = 0.0f;
       for (int d = 0; d < 3; ++d) {
-        const float tv = S.tn[r * 3 + d];
-        tr_pxt += S.acc[r * 4 + 1 + d] * tv;
-        tr_tt += S.acc[r * 4] * tv * tv;
-        const float dm = tv - S.y[r * 3 + d];
+        const float tv = S.t[r * 3 + d];
+        tr_pxt += px[d * m + r] * tv;
+        tr_tt += p1[r] * tv * tv;
+        const float dm = tv - E.y[r * 3 + d];
         mv += dm * dm;
       }
-      move += sqrtf(mv) * S.nm[r];
+      move += sqrtf(mv) * E.nm[r];
     }
-    const float s2n = (tr_x - 2.0f * tr_pxt + tr_tt) / fmaxf(np_total * 3.0f, 1e-30f);
-    A.stats[(size_t)s * 2] = fmaxf(s2n, 1e-10f);
-    A.stats[(size_t)s * 2 + 1] = move / fmaxf(v_count_f, 1.0f);
+    tr_pxt = td_warp_allsum(tr_pxt);
+    tr_tt = td_warp_allsum(tr_tt);
+    move = td_warp_allsum(move);
+    if (lane == 0) {
+      const float s2n = (tr_x - 2.0f * tr_pxt + tr_tt) / fmaxf(np_total * 3.0f, 1e-30f);
+      A.stats[(size_t)s * 2] = fmaxf(s2n, 1e-10f);
+      A.stats[(size_t)s * 2 + 1] = move / fmaxf(v_count_f, 1.0f);
+    }
   }
+}
+
+// The launch configuration for B streams of n rows: B clusters of C CTAs.
+cudaError_t em_iter_config(int n_streams, int n, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr, cudaStream_t stream) {
+  const int smem = (int)sizeof(Smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(em_iter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int c = td::ec_cluster_size(n);
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(n_streams * c);
+  cfg->blockDim = dim3(THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-extern "C" int trackdlo_em_iter(const float* scal, const float* y, const float* y0,
-                                const float* coord, const float* nm, const float* g,
-                                const float* hg, const float* hy0, const float* jg,
-                                const float* pd, const float* x, const float* xm, int n_streams,
-                                int m, int n, float k_vis, float tau_vis, float lam,
-                                float coef_lle, float alpha, float* t, float* stats,
-                                void* stream) {
-  if (m < 1 || m > MMAX || n < 0 || n_streams < 0 || n_streams > 65535)
+extern "C" int trackdlo_em_iter(const float* s2, int s2_stride, const float* dyn, const float* cc,
+                                const float* y, const float* y0, const float* coord,
+                                const float* nm, const float* g, const float* hg,
+                                const float* hy0, const float* jg, const float* pd,
+                                const float* x, const float* xm, int n_streams, int m, int n,
+                                float muf, float k_vis, float tau_vis, float lam, float coef_lle,
+                                float alpha, float* t, float* stats, void* stream) {
+  if (m < 1 || m > MMAX || n < 0 || n_streams < 0 || td::ec_rows_per_cta(n) > td::EC_PMAX ||
+      (long long)n_streams * td::ec_cluster_size(n) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (n_streams == 0) return 0;
-  FArgs a{scal, y, y0, coord, nm, g, hg, hy0, jg, pd, x, xm, m, n,
-          k_vis, tau_vis, lam, coef_lle, alpha, t, stats};
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err =
-      cudaFuncSetAttribute(em_iter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  FArgs a{s2, dyn, cc, y, y0, coord, nm, g, hg, hy0, jg, pd, x, xm, s2_stride, m, n,
+          muf, k_vis, tau_vis, lam, coef_lle, alpha, t, stats};
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = em_iter_config(n_streams, n, &cfg, &attr, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  em_iter_kernel<<<n_streams, THREADS, smem, (cudaStream_t)stream>>>(a);
+  err = cudaLaunchKernelEx(&cfg, em_iter_kernel, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// For n rows: out[0] the cluster size, out[1] the rows per CTA, out[2] how
+// many such clusters the card can hold at once.
+extern "C" int trackdlo_em_iter_cluster_info(int n, int* out) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = em_iter_config(1, n, &cfg, &attr, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = td::ec_cluster_size(n);
+  out[1] = td::ec_rows_per_cta(n);
+  return (int)cudaOccupancyMaxActiveClusters(&out[2], em_iter_kernel, &cfg);
 }

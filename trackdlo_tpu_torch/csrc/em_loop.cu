@@ -136,7 +136,7 @@ __global__ void __launch_bounds__(THREADS, 1) em_loop_kernel(EmArgs A) {
       td::ec_cluster_minima(m, npts, buf, E, cluster);
       td::ec_visibility_weights(m, A.k_vis, A.tau_vis, E);
     }
-    td::ec_estep_partials<false>(sc, npts, buf, E);
+    td::ec_estep_partials<false, false>(sc, npts, buf, E);
     cluster.sync();
     td::ec_cluster_totals(m, buf, E, cluster);
     const float* p1 = E.tot;               // P1[r]

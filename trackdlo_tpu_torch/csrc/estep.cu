@@ -82,7 +82,7 @@ __global__ void __launch_bounds__(THREADS, 1) estep_kernel(EArgs A) {
   if (A.two_phase) td::ec_visibility_weights(m, sc[5], sc[6], E);
   const td::EcScalars es{s2, -0.5f / s2, c_plain, c_plain + gate * (c_vis - c_plain), gate,
                          (int)sc[4], m_pad, m};
-  td::ec_estep_partials<true>(es, npts, 1, E);
+  td::ec_estep_partials<true, true>(es, npts, 1, E);
   cluster.sync();
   if (rank == 0) {
     td::ec_cluster_totals(m, 1, E, cluster);

@@ -1,6 +1,7 @@
 // The E-step of one EM stream spread over a thread-block cluster, as device
-// code that kernel E (em_loop.cu, every iteration of a pass) and kernel S
-// (estep.cu, one iteration of B streams) both run.
+// code that kernel E (em_loop.cu, every iteration of a pass), kernel S
+// (estep.cu, one iteration of B streams) and kernel F (em_iter.cu, one whole
+// iteration of B streams) run.
 //
 // What bounds it on an H100: a chain of dependent steps, not bytes or FLOPs.
 // The live cloud is 2048 rows (8 parity channels x 256 slots) of which ~360
@@ -208,17 +209,21 @@ __device__ void ec_visibility_weights(int m, float k_vis, float tau_vis, EstepSm
 
 // This CTA's partial P1, PX, Np and trace into E.part[buf]: [q m + j] for
 // quantity q (P1, PX0, PX1, PX2) and node j, then Np, then the trace.
-// BATCHED picks kernel S's semantics (the exponent as sq * (-0.5 / s2), the
-// gate blends, masked nodes 0 in the second normalisation), else kernel E's
-// ((-0.5 sq) / s2, the prior multiplied in where the gate is on).
-template <bool BATCHED, int THREADS>
+// Two independent choices of the TPU kernel being replaced:
+// - MUL_EXPONENT: the exponent as sq * (-0.5 / s2) (kernel S's), else as
+//   (-0.5 sq) / s2 (kernels E's and F's);
+// - GATE_BLEND: the prior as p (1 + g (pv - 1)), c_eff given as
+//   c_plain + g (c_vis - c_plain), masked nodes 0 in the second
+//   normalisation (kernels S's and F's), else the prior multiplied in where
+//   the gate is on (kernel E's).
+template <bool MUL_EXPONENT, bool GATE_BLEND, int THREADS>
 __device__ void ec_estep_partials(const EcScalars& sc, int npts, int buf, EstepSmem<THREADS>& E) {
   constexpr int PASS = EstepSmem<THREADS>::kPass;
   const int tid = threadIdx.x, warp = tid >> 5;
   const int l = tid % EC_LANES, pi = tid / EC_LANES;
   const int m = sc.m;
   const int qty = tid / m, jt = tid - qty * m;  // this thread's partial sum
-  auto expo = [&](float d) { return BATCHED ? d * sc.neg_half_inv_s2 : -0.5f * d / sc.s2; };
+  auto expo = [&](float d) { return MUL_EXPONENT ? d * sc.neg_half_inv_s2 : -0.5f * d / sc.s2; };
   float acc = 0.0f;
   for (int base = 0; base < npts; base += PASS) {
     // Warps with no point in this pass skip it whole (shuffles stay in warp).
@@ -295,7 +300,7 @@ __device__ void ec_estep_partials(const EcScalars& sc, int npts, int buf, EstepS
             geo = 0.0f;
           }
           v = expf(expo(geo));
-          if (BATCHED) {
+          if (GATE_BLEND) {
             v = v * (1.0f + sc.gate * (E.pv[j] - 1.0f));
           } else if (sc.gate > 0.0f) {
             v = v * E.pv[j];
@@ -310,7 +315,7 @@ __device__ void ec_estep_partials(const EcScalars& sc, int npts, int buf, EstepS
       for (int k = 0; k < EC_NPL; ++k) {
         const int j = l * EC_NPL + k;
         if (j < m) {
-          const float q = BATCHED ? (E.nm[j] > 0.0f ? e[k] / den2 : 0.0f) : e[k] / den2;
+          const float q = GATE_BLEND ? (E.nm[j] > 0.0f ? e[k] / den2 : 0.0f) : e[k] / den2;
           if (live) E.q[pi * EC_MMAX + j] = q;
           pt1 += q;
         }

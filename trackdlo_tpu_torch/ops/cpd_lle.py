@@ -48,7 +48,7 @@ import torch
 
 from trackdlo_tpu_torch.ops.collectives import pmin, psum
 from trackdlo_tpu_torch.ops.hopper_kernels import (
-    fused_em_iteration,
+    fused_em_iteration_staged,
     fused_em_loop,
     fused_estep_packed,
     fused_estep_packed_batch,
@@ -292,19 +292,25 @@ def em_iteration(st: EmStaging, y, s2, params: CpdParams, estep: Callable, updat
     return t, s2_new, delta
 
 
-def fused_iteration(st: EmStaging, y, s2, params: CpdParams, kernel: Callable = fused_em_iteration):
+def fused_iteration(st: EmStaging, y, s2, params: CpdParams, kernel: Callable | None = None):
     """One EM iteration of every stream in one launch of kernel F (the
     JAX package's ``em_iteration_pallas``); same results as
-    :func:`em_iteration`. ``kernel`` may be F's plain version."""
+    :func:`em_iteration`. By default the launch computes the c's from the
+    staging's ``dyn`` (:func:`fused_em_iteration_staged`); a ``kernel`` with
+    the JAX package's arguments (F's plain version, or
+    :func:`fused_em_iteration`) takes them computed here as the JAX package
+    does."""
     dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm = st.args
+    kw = st.kwargs
+    fkw = dict(k_vis=kw["k_vis"], tau_vis=kw["tau_vis"], lam=kw["lam"], coef_lle=kw["coef_lle"],
+               alpha=kw["alpha"])
+    if kernel is None:
+        return fused_em_iteration_staged(y.contiguous(), s2, dyn, y0, nm, coord, g, hg, hy0, jg, pd,
+                                         x, xm, muf=kw["muf"], **fkw)
     v_count, n_safe, gate = dyn[:, 1], dyn[:, 2], dyn[:, 3]
     c_base = (_TWO_PI * s2) ** 1.5 * params.mu / (1 - params.mu)
-    kw = st.kwargs
-    return kernel(
-        y.contiguous(), y0, nm, coord, g, hg, hy0, jg, pd, x, xm, s2, c_base * v_count / n_safe,
-        c_base / n_safe, gate, v_count, k_vis=kw["k_vis"], tau_vis=kw["tau_vis"], lam=kw["lam"],
-        coef_lle=kw["coef_lle"], alpha=kw["alpha"],
-    )
+    return kernel(y.contiguous(), y0, nm, coord, g, hg, hy0, jg, pd, x, xm, s2,
+                  c_base * v_count / n_safe, c_base / n_safe, gate, v_count, **fkw)
 
 
 def _geodesic_redistance(p, sq_d, coord, node, v_count):

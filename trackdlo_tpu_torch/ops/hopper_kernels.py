@@ -23,14 +23,14 @@ _BIG = 1e5
 _TWO_PI = 6.283185307179586
 _F32 = torch.float32
 
-# Kernels E and S run one E-step over a thread-block cluster
+# Kernels E, S and F run one E-step over a thread-block cluster
 # (csrc/estep_cluster.cuh): one CTA per 256 rows, 1 to 8 CTAs, each holding
 # at most 2048 rows.
 _CLUSTER_ROWS, _CLUSTER_MAX, _CTA_MAX_ROWS = 256, 8, 2048
 
 
 def cluster_shape(n: int) -> tuple[int, int]:
-    """(CTAs per cluster, rows per CTA) of kernels E and S for ``n`` rows: a
+    """(CTAs per cluster, rows per CTA) of kernels E, S and F for ``n`` rows: a
     function of ``n`` alone, so a stream's result depends neither on the
     batch it is launched in nor on the card (csrc/estep_cluster.cuh)."""
     c = min(max(-(-n // _CLUSTER_ROWS), 1), _CLUSTER_MAX)
@@ -43,9 +43,9 @@ def _check_cluster_rows(name: str, n: int) -> None:
 
 
 def cluster_info(kernel: str, n: int) -> dict:
-    """Kernel E's (``"em_loop"``) or S's (``"estep"``) cluster launch for
-    ``n`` rows on the current card: the cluster size, the rows per CTA and
-    how many such clusters the card can hold at once."""
+    """Kernel E's (``"em_loop"``), S's (``"estep"``) or F's (``"em_iter"``)
+    cluster launch for ``n`` rows on the current card: the cluster size, the
+    rows per CTA and how many such clusters the card can hold at once."""
     import ctypes
 
     out = (ctypes.c_int * 3)()
@@ -640,8 +640,10 @@ def fused_em_iteration(y, y0, node_mask, node_coord, g, hg, hy0, jg, prior_disp,
     ``hy0``/``prior_disp`` (m, 3) (zeros where unused), ``x`` (n, 3),
     ``x_mask`` (n,), the scalars ``sigma2``, ``c_plain``, ``c_vis``,
     ``vis_gate`` and ``v_count``. With a leading stream axis on every one
-    (scalars (B,)) the B streams take one launch, one block each. Returns
-    (t (…, m, 3), sigma2_new (…), delta (…))."""
+    (scalars (B,)) the B streams take one launch, one thread-block cluster
+    each. Returns (t (…, m, 3), sigma2_new (…), delta (…)). The EM's own
+    route takes :func:`fused_em_iteration_staged`, which computes the c's
+    in the launch."""
     single = y.ndim == 2
     if single:
         y, y0, node_mask, node_coord, g, hg, hy0, jg, prior_disp, x, x_mask = (
@@ -658,32 +660,73 @@ def fused_em_iteration(y, y0, node_mask, node_coord, g, hg, hy0, jg, prior_disp,
         out = fused_em_iteration_plain(y, y0, node_mask, node_coord, g, hg, hy0, jg, prior_disp,
                                        x, x_mask, sigma2, c_plain, c_vis, vis_gate, v_count, **kw)
     else:
-        out = _em_iteration_launch(y, y0, node_mask, node_coord, g, hg, hy0, jg, prior_disp, x,
-                                   x_mask, torch.stack([sigma2, c_plain, c_vis, vis_gate, v_count],
-                                                       dim=1), kw)
+        dyn = torch.stack([sigma2, v_count, torch.ones_like(sigma2), vis_gate], dim=1)
+        out = _em_iteration_launch(
+            "fused_em_iteration", sigma2, dyn, torch.stack([c_plain, c_vis], dim=1), y, y0,
+            node_mask.to(_F32), node_coord, g, hg, hy0, jg, prior_disp, x, x_mask.to(_F32),
+            muf=0.0, **kw)
     return tuple(o[0] for o in out) if single else out
 
 
-def _em_iteration_launch(y, y0, node_mask, node_coord, g, hg, hy0, jg, prior_disp, x, x_mask,
-                         scal, kw):
-    args = dict(scal=scal, y=y, y0=y0, coord=node_coord, nm=node_mask.to(_F32), g=g, hg=hg,
-                hy0=hy0, jg=jg, pd=prior_disp, x=x, xm=x_mask.to(_F32))
+def em_iteration_c(s2, dyn, muf: float):
+    """The c's of one iteration from σ² (B,) and the staging's ``dyn``
+    (B, 4): (c_plain, c_vis), (2π σ²)^1.5 μ/(1 − μ) times v_count / n_safe
+    and over n_safe, in kernel F's (and kernel E's) operation order."""
+    tps = _TWO_PI * s2
+    c_core = tps * torch.sqrt(tps)
+    return (muf * dyn[:, 1] / dyn[:, 2]) * c_core, (muf / dyn[:, 2]) * c_core
+
+
+def fused_em_iteration_staged(y, s2, dyn, y0, nm, coord, g, hg, hy0, jg, prior_disp, x, xm, *,
+                              muf: float, k_vis: float, tau_vis: float, lam: float,
+                              coef_lle: float, alpha: float):
+    """Kernel F on the EM staging's tensors, the c's computed from ``dyn``
+    in the launch (:func:`em_iteration_c`): one device op per iteration.
+
+    ``y`` (B, m, 3); ``s2`` (B,) σ² (any stride); ``dyn`` (B, 4): σ² of the
+    origin, v_count, n_safe, the visibility gate; ``nm`` (B, m) and ``xm``
+    (B, n) float32 0/1; the rest as :func:`fused_em_iteration`'s, with the
+    stream axis; ``muf`` = μ/(1 − μ). Returns (t, sigma2_new, delta)."""
+    kw = dict(k_vis=float(k_vis), tau_vis=float(tau_vis), lam=float(lam),
+              coef_lle=float(coef_lle), alpha=float(alpha))
+    if y.device.type == "cpu":
+        c_plain, c_vis = em_iteration_c(s2, dyn, muf)
+        return fused_em_iteration_plain(y, y0, nm, coord, g, hg, hy0, jg, prior_disp, x, xm, s2,
+                                        c_plain, c_vis, dyn[:, 3], dyn[:, 1], **kw)
+    return _em_iteration_launch("fused_em_iteration_staged", s2, dyn, None, y, y0, nm, coord, g,
+                                hg, hy0, jg, prior_disp, x, xm, muf=float(muf), **kw)
+
+
+def _em_iteration_launch(name, s2, dyn, cc, y, y0, nm, coord, g, hg, hy0, jg, pd, x, xm, *,
+                         muf, k_vis, tau_vis, lam, coef_lle, alpha):
+    args = dict(dyn=dyn, y=y, y0=y0, coord=coord, nm=nm, g=g, hg=hg, hy0=hy0, jg=jg, pd=pd, x=x,
+                xm=xm)
+    if cc is not None:
+        args["cc"] = cc
     args = {k: v.contiguous() for k, v in args.items()}
-    dev = _build.require_cuda("fused_em_iteration", args)
+    dev = _build.require_cuda(name, args)
     bsz, m, _ = y.shape
     n = x.shape[1]
     if not 1 <= m <= 48:
-        raise ValueError(f"fused_em_iteration: m={m} outside [1, 48]")
-    shapes = dict(y0=(bsz, m, 3), coord=(bsz, m), nm=(bsz, m), g=(bsz, m, m), hg=(bsz, m, m),
-                  hy0=(bsz, m, 3), jg=(bsz, m, m), pd=(bsz, m, 3), x=(bsz, n, 3), xm=(bsz, n))
-    for k, want in shapes.items():
-        if tuple(args[k].shape) != want:
-            raise ValueError(f"fused_em_iteration: {k} must be {want}, got {tuple(args[k].shape)}")
+        raise ValueError(f"{name}: m={m} outside [1, 48]")
+    _check_cluster_rows(name, n)
+    shapes = dict(dyn=(bsz, 4), y0=(bsz, m, 3), coord=(bsz, m), nm=(bsz, m), g=(bsz, m, m),
+                  hg=(bsz, m, m), hy0=(bsz, m, 3), jg=(bsz, m, m), pd=(bsz, m, 3), x=(bsz, n, 3),
+                  xm=(bsz, n), cc=(bsz, 2))
+    for k, t in args.items():
+        if k != "y" and tuple(t.shape) != shapes[k]:
+            raise ValueError(f"{name}: {k} must be {shapes[k]}, got {tuple(t.shape)}")
+    if s2.device != dev or s2.dtype != _F32 or tuple(s2.shape) != (bsz,):
+        raise ValueError(f"{name}: sigma2 must be a ({bsz},) float32 tensor on {dev}")
     t = torch.empty((bsz, m, 3), dtype=_F32, device=dev)
     stats = torch.empty((bsz, 2), dtype=_F32, device=dev)
+    cc_ptr = args["cc"].data_ptr() if cc is not None else None  # null: the c's from dyn
     code = _build.lib().trackdlo_em_iter(
-        *(v.data_ptr() for v in args.values()), bsz, m, n, kw["k_vis"], kw["tau_vis"], kw["lam"],
-        kw["coef_lle"], kw["alpha"], t.data_ptr(), stats.data_ptr(), _build.stream_ptr(dev),
+        s2.data_ptr(), s2.stride(0), args["dyn"].data_ptr(), cc_ptr,
+        *(args[k].data_ptr() for k in ("y", "y0", "coord", "nm", "g", "hg", "hy0", "jg", "pd",
+                                       "x", "xm")),
+        bsz, m, n, muf, k_vis, tau_vis, lam, coef_lle, alpha, t.data_ptr(), stats.data_ptr(),
+        _build.stream_ptr(dev),
     )
     _build.check(code, "trackdlo_em_iter")
     _build.count_launch("em_iteration")
@@ -707,15 +750,17 @@ def nearest_point_sq_plain(y, node_mask, x, x_mask):
 def nearest_point_sq(y, node_mask, x, x_mask):
     """The minimum over the valid points of each valid node's squared
     distance, in one launch (kernel N): ``y`` (…, m, 3), ``node_mask``
-    (…, m) and ``x_mask`` (…, n) bool or 0/1, ``x`` (…, n, 3), with an
-    optional leading stream axis on all four. Returns (…, m) float32, 1e5
-    where the node is masked or no point is valid."""
+    (…, m) and ``x_mask`` (…, n) bool or float32 0/1 (read as given), ``x``
+    (…, n, 3), with an optional leading stream axis on all four. Returns
+    (…, m) float32, 1e5 where the node is masked or no point is valid."""
     if y.device.type == "cpu":
         return nearest_point_sq_plain(y, node_mask, x, x_mask)
     single = y.ndim == 2
-    args = dict(y=y, nm=node_mask.to(_F32), x=x, xm=x_mask.to(_F32))
+    masks = [a if a.dtype in (torch.bool, _F32) else a.to(_F32) for a in (node_mask, x_mask)]
+    args = dict(y=y, nm=masks[0], x=x, xm=masks[1])
     args = {k: (v[None] if single else v).contiguous() for k, v in args.items()}
-    dev = _build.require_cuda("nearest_point_sq", args)
+    dev = _build.require_cuda("nearest_point_sq", args,
+                              dict(nm=args["nm"].dtype, xm=args["xm"].dtype))
     bsz, m, _ = args["y"].shape
     n = args["x"].shape[1]
     if not 1 <= m <= 48:
@@ -726,7 +771,8 @@ def nearest_point_sq(y, node_mask, x, x_mask):
             raise ValueError(f"nearest_point_sq: {k} must be {want}, got {tuple(args[k].shape)}")
     out = torch.empty((bsz, m), dtype=_F32, device=dev)
     code = _build.lib().trackdlo_nearest(
-        *(v.data_ptr() for v in args.values()), bsz, m, n, out.data_ptr(), _build.stream_ptr(dev)
+        *(v.data_ptr() for v in args.values()), bsz, m, n, int(args["nm"].dtype == torch.bool),
+        int(args["xm"].dtype == torch.bool), out.data_ptr(), _build.stream_ptr(dev)
     )
     _build.check(code, "trackdlo_nearest")
     _build.count_launch("nearest")
