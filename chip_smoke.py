@@ -34,12 +34,19 @@ Phases, in order (any failure exits nonzero and prints no result line):
    nearest point on one shard of the cloud) bit-equal to its plain version,
    alone and for 4 streams, with bool and float32 masks, one device op a
    call;
-4. closed loop: ``Tracker.step`` over 30 occluded frames against the float64
-   oracle, with the kernels' launch counts and the EM trip-count gate (each
-   pass's mean iterations within one of the oracle's); then the coarse profile
+4. closed loop: ``Tracker.step`` (its step one CUDA graph, replayed a
+   frame) over 30 occluded frames against the float64 oracle, with the
+   kernels' launch counts and the EM trip-count gate (each pass's mean
+   iterations within one of the oracle's); the eager step over the same
+   frames, every output bit for bit the graph's; two streams interleaved
+   through the compiled step, each its run alone; then the coarse profile
    (``parity_split=False``, 30 frames) and the cells-only profile
    (``exact_voxels=False``, 10 frames), each against the oracle fed the
-   port's own clouds;
+   port's own clouds; 49, 64 and 100 nodes (ROADMAP §C fault 3: the plain
+   versions of kernels past their node ranges, on the card), 10 frames each,
+   graph against eager and against the oracle; the TCP service on the card
+   with two clients, every reply a direct step's; GLTP on the card against
+   its CPU run;
 5. batch: the batched step over 16 streams in cohorts of 8 for 30 frames,
    each frame held against the single-stream step from the same state and
    against a lockstep batch of 16, streams 0 and 15 against the oracle, the
@@ -53,8 +60,8 @@ Phases, in order (any failure exits nonzero and prints no result line):
    the cloud's, y bit-equal across the ranks, against the oracle, each frame
    against ``Tracker.step`` from the same state (phase 5's nudge rule), the
    exact launch counts, the per-frame time (CUDA events);
-7. timing: the per-frame single step (parity and coarse), the batched step
-   (CUDA events) and each kernel beside its plain version and, for the
+7. timing: the per-frame single step (parity as one CUDA graph and eager,
+   and coarse), the batched step (CUDA events) and each kernel beside its plain version and, for the
    solve, beside ``torch.linalg.solve``, with its device time from a
    ``torch.profiler`` trace; kernel P also with the L2 flushed before each
    launch; kernel C in the main path's derived mode; kernel F also beside
@@ -208,6 +215,34 @@ BOUNDS = {
     # port's mean iterations per pass within one of the float64 oracle's.
     "trip_pre_mean_delta": 1.0,
     "trip_main_mean_delta": 1.0,
+    # The compiled step (one CUDA graph replayed a frame) against the eager
+    # step over the closed loop: every output field bit for bit, the same
+    # launches; two streams interleaved through one compiled step each bit
+    # for bit its run alone.
+    "graph_vs_eager_mismatch": 0,
+    "graph_launch_mismatch": 0,
+    "graph_interleaved_vs_alone_mismatch": 0,
+    # ROADMAP §C fault 3: 49, 64 and 100 nodes (the kernels' wide builds), 10
+    # frames: the compiled step bit for bit the eager one; at 49 nodes the
+    # closed loop's bound against the oracle (at 64 and 100 the live profile
+    # loses the rope in the oracle itself). The wide builds against their
+    # plain versions at 49, 64, 100 and 128 nodes, at phase 3's bounds (E,
+    # after 3 iterations with LLE and after 10 with the gate on; V; W; S; G
+    # on SPD systems against float64 as gj_solve_vs_f64_max; F; N).
+    **{f"nodes{m}_graph_vs_eager_mismatch": 0 for m in (49, 64, 100)},
+    **{f"nodes{m}_{k}": v for m in (49, 64, 100, 128) for k, v in (
+        ("em3_lle_max_m", 1e-6), ("em10_max_m", 2e-6),
+        ("visibility_idx_mismatch", 0), ("visibility_max_m", 1e-6),
+        ("walks_mask_mismatch", 0), ("walks_max_m", 5e-6),
+        ("estep_outside_tol", 0), ("estep_short_mismatch", 0),
+        ("gj_spd_vs_f64_max", 2e-8),
+        ("em3_fusedmstep_max_m", 1e-6), ("nearest_mismatch", 0))},
+    "nodes49_closed_loop_mean_mm": 1.0,
+    # The TCP service on the card: every reply of two concurrent clients bit
+    # for bit a direct step; GLTP on the card against its CPU run, the
+    # closed loop's bound.
+    "server_vs_direct_mismatch": 0,
+    "gltp_card_vs_cpu_mean_mm": 1.0,
 }
 # The port's names of four fields of the JAX package's audit, beside the
 # audit's own.
@@ -239,6 +274,11 @@ KERNELS = {
     "em_iteration": ("trackdlo_tpu_torch/csrc/em_iter.cu", "trackdlo_tpu/ops/pallas_kernels.py:482"),
     "nearest": ("trackdlo_tpu_torch/csrc/nearest.cu", "trackdlo_tpu/ops/pallas_kernels.py:556"),
 }
+# Each launch counter's CUDA kernel, by the name a profiler trace shows.
+KERNEL_FUNCS = {"cell_sums": "cell_sums_kernel", "compact": "compact_kernel",
+                "visibility": "visibility_kernel", "walks": "walks_kernel",
+                "em_loop": "em_loop_kernel", "estep": "estep_kernel", "gj_solve": "gj_solve_kernel",
+                "em_iteration": "em_iter_kernel", "nearest": "nearest_kernel"}
 # The path whose run gives each kernel's launch count in the kernels line.
 LAUNCH_PATH = {"estep": "lstsq", "estep_batch": "batched", "gj_solve": "batched",
                "cell_sums_votes": "coarse", "cell_sums_cells": "cells", "em_iteration": "fused",
@@ -433,6 +473,7 @@ class Smoke:
         self.bits: dict = {}  # outputs kept bit for bit (chiprun_out/exact_products_bits.npz)
         self.walk_bits: dict = {}  # kernel W's inputs and outputs (chiprun_out/walks_bits.npz)
         self.bounds_ms: dict = {}
+        self.wide_calls: dict = {}  # m -> kernel name -> (kernel call, plain call)
         self.failures: list[str] = []
 
     # -- helpers -----------------------------------------------------------
@@ -595,6 +636,17 @@ class Smoke:
         self.path_launches[path] = dict(_build.launch_counts)
         log(f"  launches in the {path} run: {self.path_launches[path]}")
         return out
+
+    @staticmethod
+    def warm(tracker, state, frame):
+        """One step whose result is dropped: a compiled step's first call
+        warms it up and captures its CUDA graph (its launches, outside any
+        counted run, are real launches)."""
+        tracker.step(state, *frame)
+
+    def outputs_mismatch(self, a, b) -> int:
+        """How many fields of two StepOutputs (or states) differ in any bit."""
+        return sum(not self.torch.equal(x, y) for x, y in zip(a, b))
 
     # -- phase 3: kernels against their plain versions ----------------------
     def cluster_launches(self):
@@ -1320,16 +1372,20 @@ class Smoke:
         frames = [self.frame(i / 15.0, occlude=10 <= i <= 20) for i in range(1, self.frames + 1)]
         ys, states, iters, guide_iters, npts = [], [], [], [], []
 
+        outs = []
+
         def run():
             nonlocal state
             for rgb, depth, occ in frames:
                 state, out = tracker.step(state, rgb, depth, occ)
+                outs.append(out)
                 ys.append(state.y)
                 states.append(out.occlusion_state)
                 iters.append(out.iterations)
                 guide_iters.append(out.guide_iterations)
                 npts.append(out.n_points)
 
+        self.warm(tracker, state, frames[0])
         self.count_path("single", run)
         self.launches = self.path_launches["single"]
         for k, want in EXPECTED_LAUNCHES.items():
@@ -1337,6 +1393,7 @@ class Smoke:
             if self.launches.get(k) != want:
                 self.failures.append(f"launches_{k}")
                 log(f"  launches {k}: {self.launches.get(k)} != {want}  FAIL")
+        self.graph_checks(tracker, frames, outs)
         dev_mm, gt_mm, oracle_trips = [], [], []
         for i, (rgb, depth, occ) in enumerate(frames, start=1):
             with oracle_trip_counts() as trips:
@@ -1388,6 +1445,404 @@ class Smoke:
             self.bound(f"trip_{name}_mean_delta",
                        summary[f"port_{name}"]["mean"] - summary[f"oracle_{name}"]["mean"])
 
+    def graph_checks(self, tracker, frames, graph_outs):
+        """The compiled step (``Tracker.step``, one CUDA graph replayed a
+        frame) against the eager step (``build_step_fn(jit=False)``) over
+        the closed loop's frames: every output field bit for bit, and the
+        eager run's launch counts those of the replays; then two streams
+        interleaved through the one compiled step, each bit for bit its run
+        alone."""
+        torch = self.torch
+        from trackdlo_tpu_torch.models.trackdlo import build_step_fn
+
+        m = self.params.M
+        eager = build_step_fn(self.params, self.intr, jit=False, device=self.dev)
+        state = tracker.init_from_nodes(self.rope.nodes(0.0, m))
+        eager_outs = []
+
+        def run():
+            nonlocal state
+            for rgb, depth, occ in frames:
+                occ_t = torch.from_numpy(occ != 0).to(self.dev)
+                state, out = eager(state, rgb, depth, occ_t)
+                eager_outs.append(out)
+
+        self.count_path("single_eager", run)
+        self.bound("graph_vs_eager_mismatch",
+                   sum(self.outputs_mismatch(a, b) for a, b in zip(graph_outs, eager_outs)))
+        self.bound("graph_launch_mismatch", sum(
+            abs(self.path_launches["single"][k] - v) for k, v in self.path_launches["single_eager"].items()))
+        n = 10
+        starts = [tracker.init_from_nodes(self.rope.nodes(t, m)) for t in (0.0, 0.02)]
+        alone, mixed = [[], []], [[], []]
+        for k, s in enumerate(starts):
+            for f in frames[:n]:
+                s, o = tracker.step(s, *f)
+                alone[k].append((s, o))
+        cur = list(starts)
+        for f in frames[:n]:
+            for k in (0, 1):
+                cur[k], o = tracker.step(cur[k], *f)
+                mixed[k].append((cur[k], o))
+        self.bound("graph_interleaved_vs_alone_mismatch", sum(
+            self.outputs_mismatch(a[0], b[0]) + self.outputs_mismatch(a[1], b[1])
+            for k in (0, 1) for a, b in zip(alone[k], mixed[k])))
+        if torch.equal(cur[0].y, cur[1].y):
+            self.failures.append("graph_interleaved_streams_identical")
+        # The launches of a replay, measured: each kernel's spans in a
+        # profiler trace of replays, against what the capture recorded
+        # (CompiledStep.counts, added at every replay). A trace can lose
+        # spans but never invent one, so each kernel of the path must show
+        # at least one span a replay and at most its recorded count.
+        recorded = tracker._step.counts
+        traced = self.traced_launches(lambda: tracker.step(starts[0], *frames[0]), n)
+        self.metrics["graph_replay_launches"] = {"recorded": recorded, "traced_per_replay": traced}
+        log(f"  launches a replay: recorded {dict((k, v) for k, v in recorded.items() if v)}, "
+            f"traced {traced}")
+        for k, v in recorded.items():
+            if not (v == 0 == traced.get(k, 0) or 1 <= traced.get(k, 0) <= v):
+                self.failures.append(f"graph_traced_launches_{k}")
+                log(f"  {k}: {traced.get(k, 0)} spans a replay, recorded {v}  FAIL")
+
+    def traced_launches(self, fn, n):
+        """Each kernel's launches per call of ``fn`` as a torch.profiler trace
+        sees them: its device spans (by the kernel's name, KERNEL_FUNCS) over
+        ``n`` calls that follow ``n`` untimed ones in the same trace
+        (device_ms's rule), the fullest of three traces kept."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        fn()
+        torch.cuda.synchronize()
+        best: dict = {}
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                with record_function("chip_smoke_timed"):
+                    for _ in range(n):
+                        fn()
+                    torch.cuda.synchronize()
+            events = prof.events()
+            start = min(e.time_range.start for e in events if e.name == "chip_smoke_timed")
+            names = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.time_range.start >= start]
+            got = {k: sum(func in nm for nm in names) / n for k, func in KERNEL_FUNCS.items()}
+            if sum(got.values()) > sum(best.values()):
+                best = got
+        return best
+
+    def node_counts(self, n_frames: int = 10):
+        """ROADMAP §C fault 3: ``num_of_nodes`` 49, 64 and 100, past the
+        48 nodes of the kernels' narrow builds (V's 64, W's 65), over the
+        first ``n_frames`` frames of phase 4: every kernel of the path
+        launched on every frame (the wide builds), the compiled step and the
+        eager step bit for bit with the same launches, and the wide builds
+        against their plain versions (:meth:`wide_kernels`, also at 128
+        nodes). The closed loop against the float64 oracle at 49 nodes. At
+        64 and 100 the live profile loses the rope in the oracle itself and
+        the oracle's LLE raises once fewer than 7 guide nodes are visible
+        (PERF.md, fault 3), so there the port is held to the JAX package on
+        the CPU (tests/test_torch_node_range.py) and its distance from the
+        rendered rope is recorded."""
+        np, torch = self.np, self.torch
+        import dataclasses
+
+        from trackdlo_tpu_torch.models.trackdlo import Tracker, build_step_fn
+        from trackdlo_tpu_torch.oracle.pipeline import init_state as oracle_init, step_frame
+
+        frames = self.frames_data[:n_frames]
+        want = {k: v * n_frames // 30 for k, v in EXPECTED_LAUNCHES.items()}
+        for m in (49, 64, 100):
+            p = dataclasses.replace(self.params, num_of_nodes=m)
+            tracker = Tracker(p, self.intr, device=self.dev)
+            eager = build_step_fn(p, self.intr, jit=False, device=self.dev)
+            nodes = self.rope.nodes(0.0, m)
+            self.warm(tracker, tracker.init_from_nodes(nodes), frames[0])
+            runs = {}
+            for name, step in (("graph", tracker.step),
+                               ("eager", lambda s, r, d, o: eager(
+                                   s, r, d, torch.from_numpy(o != 0).to(self.dev)))):
+                state, outs, ms = tracker.init_from_nodes(nodes), [], []
+
+                def run(state=state, outs=outs, step=step, ms=ms):
+                    for f in frames:
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        state, out = step(state, *f)
+                        end.record()
+                        end.synchronize()
+                        ms.append(start.elapsed_time(end))
+                        outs.append(out)
+
+                self.count_path(f"nodes{m}_{name}", run)
+                runs[name] = outs
+                self.times[f"nodes{m}_step_{name}"] = {
+                    "median_ms": statistics.median(ms), "p90_ms": float(np.percentile(ms, 90)),
+                    "calls": len(ms)}
+            key = f"nodes{m}"
+            for name in ("graph", "eager"):
+                if self.path_launches[f"{key}_{name}"] != want:
+                    self.failures.append(f"{key}_{name}_launches")
+                    log(f"  {key} {name}: launches {self.path_launches[f'{key}_{name}']} != {want}  FAIL")
+            self.bound(f"{key}_graph_vs_eager_mismatch", sum(
+                self.outputs_mismatch(a, b) for a, b in zip(runs["graph"], runs["eager"])))
+            ys = [out.y.cpu().numpy() for out in runs["graph"]]
+            if any(not np.isfinite(y).all() or y.shape != (m, 3) for y in ys):
+                self.failures.append(f"{key}_finite")
+            gt_mm = [1000 * float(np.linalg.norm(y - self.rope.nodes(i / 15.0, m), axis=1).mean())
+                     for i, y in enumerate(ys, start=1)]
+            self.metrics[f"{key}_gt_per_frame_mm"] = gt_mm
+            self.metrics[f"{key}_iterations"] = [
+                [int(o.guide_iterations), int(o.iterations)] for o in runs["graph"]]
+            self.metrics[f"{key}_visible_nodes"] = [int(o.visible_mask.sum()) for o in runs["graph"]]
+            log(f"  {key}: visible nodes {self.metrics[f'{key}_visible_nodes']}; from the rope (mm) "
+                f"{[round(v, 2) for v in gt_mm]}; step median graph "
+                f"{self.times[f'{key}_step_graph']['median_ms']:.3f} ms, eager "
+                f"{self.times[f'{key}_step_eager']['median_ms']:.3f} ms")
+            self.wide_kernels(m, runs["graph"][0])
+            if m == 100:
+                self.wide_kernels(128, runs["graph"][0])
+            if m == 49:
+                o_state = oracle_init(nodes, p)
+                dev_mm = []
+                for (rgb, depth, occ), y in zip(frames, ys):
+                    o_state, _, _ = step_frame(o_state, rgb, depth, p, self.intr, occ)
+                    dev_mm.append(1000 * float(np.linalg.norm(y - o_state.y, axis=1).mean()))
+                self.metrics[f"{key}_per_frame_mm"] = dev_mm
+                log(f"  {key}: per-frame deviation from the oracle (mm) {[round(v, 4) for v in dev_mm]}")
+                self.bound(f"{key}_closed_loop_mean_mm", statistics.fmean(dev_mm))
+
+    def wide_kernels(self, m: int, out):
+        """The kernels' wide builds (m > 48; V past 64, W past 65) against
+        their plain versions on the same card inputs, on ``m`` nodes along
+        the rope and the cloud of ``out`` (a step's outputs), at phase 3's
+        bounds: E after 3 iterations with LLE and after 10 in the main-pass
+        configuration with the gate on (the same trips); V; W; S for 4
+        streams (two gated, both phase modes); G on the 4 streams' M-step
+        systems and on SPD systems against float64; F after 3 iterations; N
+        bit for bit."""
+        np, torch = self.np, self.torch
+        from trackdlo_tpu_torch.ops import priors as tp
+        from trackdlo_tpu_torch.ops.cpd_lle import (
+            CpdParams, em_loop_lockstep, em_staging, estep_scalars, fused_iteration, mstep_system,
+        )
+        from trackdlo_tpu_torch.ops.hopper_kernels import (
+            fused_em_iteration_plain, fused_em_loop, fused_em_loop_plain,
+            fused_estep_packed_batch, fused_estep_packed_batch_plain, gauss_jordan_solve_batched,
+            gauss_jordan_solve_batched_plain, nearest_point_sq, nearest_point_sq_plain,
+            pursuit_walks, pursuit_walks_plain,
+        )
+        from trackdlo_tpu_torch.ops.kernels import geodesic_coords
+        from trackdlo_tpu_torch.ops.visibility import compute_visibility
+        from trackdlo_tpu_torch.ops.visibility_kernel import fused_visibility
+
+        p, key, dev = self.params, f"nodes{m}", self.dev
+        x, xm = out.points, out.points_mask
+        nodes = torch.as_tensor(self.rope.nodes(0.0, m), dtype=torch.float32, device=dev)
+        nm = torch.ones(m, dtype=torch.bool, device=dev)
+        base = dict(beta=p.beta, lam=p.lam, lle_weight=p.lle_weight, mu=p.mu, max_iter=3,
+                    tol=0.0, include_lle=False, k_vis=p.k_vis,
+                    visibility_threshold=p.visibility_threshold, use_visibility=True)
+        calls = self.wide_calls.setdefault(m, {})  # (kernel, plain) pairs for the timing phase
+        # E
+        for name, extra in (("em3_lle", {"include_lle": True}), ("em10", {"max_iter": 10})):
+            st = em_staging(x, xm, nodes, nm, torch.tensor(0.001, device=dev),
+                            CpdParams(**{**base, **extra}),
+                            visible_count=torch.tensor(2 * m // 3, device=dev))
+            if name == "em10":
+                calls["em_loop"] = (lambda st=st: fused_em_loop(*st.args, **st.kwargs),
+                                    lambda st=st: fused_em_loop_plain(*st.args, **st.kwargs))
+            yk, sk = fused_em_loop(*st.args, **st.kwargs)
+            yp, sp = fused_em_loop_plain(*st.args, **st.kwargs)
+            if int(sk[1]) != int(sp[1]):
+                self.failures.append(f"{key}_{name}_iterations")
+            self.bound(f"{key}_{name}_max_m", float((yk - yp).abs().max()))
+        # V
+        intr = self.intr
+        proj = torch.as_tensor(np.array(intr.proj_matrix(), np.float32), device=dev)
+        v_args = (nodes, x, xm, proj, geodesic_coords(nodes), intr.height, intr.width,
+                  p.visibility_threshold, p.dlo_pixel_width, p.d_vis)
+        vk, vp = fused_visibility(*v_args), compute_visibility(*v_args)
+        calls["visibility"] = (lambda: fused_visibility(*v_args), lambda: compute_visibility(*v_args))
+        idx = sum(int((getattr(vk, f) != getattr(vp, f)).sum()) for f in (
+            "vis_idx", "vis_ext_idx", "vis_count", "vis_ext_count", "visible_mask",
+            "extended_mask", "not_self_occluded"))
+        self.bound(f"{key}_visibility_idx_mismatch", idx)
+        self.bound(f"{key}_visibility_max_m", max(
+            float((getattr(vk, f).clamp(max=1.0) - getattr(vp, f).clamp(max=1.0)).abs().max())
+            for f in ("shortest_node_pt_dists", "point_min_sq_all", "point_min_sq_ext")))
+        # W
+        wi = tp.walk_inputs(nodes, geodesic_coords(nodes), nodes + 0.002, vk.vis_ext_idx,
+                            vk.vis_ext_count, vk.vis_idx, vk.vis_count)
+        w_args = (wi.guides, wi.seglens, wi.ints, tp._EPS_BETWEEN)
+        calls["walks"] = (lambda: pursuit_walks(*w_args), lambda: pursuit_walks_plain(*w_args))
+        pk, mk = pursuit_walks(*w_args)
+        pp, mp = pursuit_walks_plain(*w_args)
+        self.bound(f"{key}_walks_mask_mismatch", int((mk != mp).sum()))
+        self.bound(f"{key}_walks_max_m", float(torch.where(mp[..., None], (pk - pp).abs(), 0.0).max()))
+        # S, G and F on 4 streams of the cloud, nodes along the rope
+        bsz = 4
+        yb = torch.stack([torch.as_tensor(self.rope.nodes(0.01 * b, m), dtype=torch.float32)
+                          for b in range(bsz)]).to(dev)
+        nmb = torch.ones((bsz, m), dtype=torch.bool, device=dev)
+        nmb[3, m // 2:] = False
+        yb = torch.where(nmb[..., None], yb, 0.0)
+        vcb = torch.tensor([m // 2, m, m // 2, m], device=dev)
+        s2b = torch.linspace(5e-4, 2e-3, bsz, device=dev)
+        params = CpdParams(**base)
+        st = em_staging(x.expand(bsz, -1, -1), xm.expand(bsz, -1), yb, nmb, s2b, params,
+                        visible_count=vcb)
+        scal = estep_scalars(st.args[0], s2b, params)
+        coord, nmf, xs, xms = st.args[2], st.args[3], st.args[9], st.args[10]
+        pv = torch.rand(nmf.shape, generator=torch.Generator().manual_seed(0)).to(dev) * nmf
+        pv = pv / pv.sum(dim=1, keepdim=True)
+        outside, short_mis = 0, 0
+        s_args = (scal, yb, coord, nmf, pv, xs, xms)
+        calls["estep_batch"] = (lambda: fused_estep_packed_batch(*s_args, two_phase=True),
+                                lambda: fused_estep_packed_batch_plain(*s_args, two_phase=True))
+        for two_phase in (True, False):
+            args = s_args
+            got = fused_estep_packed_batch(*args, two_phase=two_phase)
+            ref = fused_estep_packed_batch_plain(*args, two_phase=two_phase)
+            for g, r in zip(got[:3], ref[:3]):
+                outside += int((~((g - r).abs() <= 1e-6 + 2e-4 * r.abs())).sum())
+            short_mis += int((got[3] != ref[3]).sum())
+            if two_phase:
+                p1, px = ref[0], ref[1]
+        self.bound(f"{key}_estep_outside_tol", outside)
+        self.bound(f"{key}_estep_short_mismatch", short_mis)
+        a_sys, b_sys = mstep_system(st, p1, px, s2b, params)
+        calls["gj_solve"] = (lambda: gauss_jordan_solve_batched(a_sys, b_sys),
+                             lambda: gauss_jordan_solve_batched_plain(a_sys, b_sys))
+        wk = gauss_jordan_solve_batched(a_sys, b_sys)
+        wp = gauss_jordan_solve_batched_plain(a_sys, b_sys)
+        self.metrics[f"{key}_gj_mstep_vs_plain_rel"] = rel = (
+            float((wk - wp).abs().max()) / float(wp.abs().max()))
+        log(f"  {key}: G on the M-step systems, kernel vs plain relative {rel:.3g}")
+        rng = np.random.default_rng(m)
+        a_np = rng.standard_normal((8, m, m)).astype(np.float32)
+        a_np = a_np @ a_np.transpose(0, 2, 1) + m * np.eye(m, dtype=np.float32)
+        b_np = rng.standard_normal((8, m, 3)).astype(np.float32)
+        w64 = np.linalg.solve(a_np.astype(np.float64), b_np.astype(np.float64))
+        wk = gauss_jordan_solve_batched(torch.from_numpy(a_np).to(dev), torch.from_numpy(b_np).to(dev))
+        self.bound(f"{key}_gj_spd_vs_f64_max", float(np.abs(wk.cpu().numpy() - w64).max()))
+        fparams = CpdParams(**{**base, "include_lle": True, "use_fused_mstep": True})
+        stf = em_staging(x[None], xm[None], nodes[None], nm[None],
+                         torch.tensor([0.001], device=dev), fparams,
+                         visible_count=torch.tensor([2 * m // 3], device=dev))
+        y1, s1 = stf.args[1], stf.args[0][:, 0]
+        calls["em_iteration"] = (
+            lambda: fused_iteration(stf, y1, s1, fparams),
+            lambda: fused_iteration(stf, y1, s1, fparams, fused_em_iteration_plain))
+        yk, _, ik, _ = em_loop_lockstep(stf, fparams, lambda y, s: fused_iteration(stf, y, s, fparams))
+        yp, _, ip, _ = em_loop_lockstep(
+            stf, fparams, lambda y, s: fused_iteration(stf, y, s, fparams, fused_em_iteration_plain))
+        if not torch.equal(ik, ip):
+            self.failures.append(f"{key}_em3_fusedmstep_iterations")
+        self.bound(f"{key}_em3_fusedmstep_max_m", float((yk - yp).abs().max()))
+        # N
+        half = x.shape[0] // 2
+        nm_part = torch.arange(m, device=dev) < 2 * m // 3
+        mismatch = 0
+        n_args = (nodes, nm, x[:half], xm[:half])
+        calls["nearest"] = (lambda: nearest_point_sq(*n_args), lambda: nearest_point_sq_plain(*n_args))
+        for c in (n_args, (nodes, nm_part, x[half:], xm[half:]),
+                  (yb, nmb, xs[:, :half], xms[:, :half])):
+            mismatch += int((nearest_point_sq(*c) != nearest_point_sq_plain(*c)).sum())
+        self.bound(f"{key}_nearest_mismatch", mismatch)
+
+    def server(self, n_frames: int = 10):
+        """The TCP service on the card (``io.net.TrackerServer``, port 0):
+        two clients at once, ``n_frames`` each (the first initialises the
+        stream), every reply bit for bit a direct ``Tracker.step`` of the
+        same frames on the card."""
+        np = self.np
+        from trackdlo_tpu_torch.io.net import TrackerClient, TrackerServer
+        from trackdlo_tpu_torch.models.trackdlo import Tracker
+
+        streams = {
+            "a": [f for f in self.frames_data[:n_frames]],
+            "b": [self.frame(i / 15.0 + 0.02) for i in range(n_frames)],
+        }
+        srv = TrackerServer(self.params, self.intr, host="127.0.0.1", port=0, device=self.dev)
+        host, port = srv.start()
+        replies, errors = {}, []
+
+        def client(name):
+            try:
+                with TrackerClient(host, port) as cli:
+                    replies[name] = [cli.track(*f) for f in streams[name]]
+            except Exception as e:  # reported below as a failure
+                errors.append(repr(e))
+
+        try:
+            threads = [threading.Thread(target=client, args=(k,)) for k in streams]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            alive = any(t.is_alive() for t in threads)
+        finally:
+            srv.shutdown()
+        if alive or errors:
+            self.failures.append("server_clients")
+            log(f"  server: clients alive {alive}, errors {errors}  FAIL")
+            return
+        tracker = Tracker(self.params, self.intr, device=self.dev)
+        mismatch = 0
+        for name, frames in streams.items():
+            state = tracker.init_from_frame(frames[0][0], frames[0][1])
+            want = [(state.y, state.sigma2, None)]
+            for f in frames[1:]:
+                state, out = tracker.step(state, *f)
+                want.append((out.y, out.sigma2, out))
+            for got, (y, s2, out) in zip(replies[name], want, strict=True):
+                same = (np.array_equal(got["y"], y.cpu().numpy())
+                        and np.float32(got["sigma2"]) == np.float32(s2.item()))
+                if out is not None:
+                    same = same and (got["iterations"] == int(out.iterations)
+                                     and got["occlusion_state"] == int(out.occlusion_state)
+                                     and got["converged"] == bool(out.converged)
+                                     and np.array_equal(got["visible"], out.visible_mask.cpu().numpy()))
+                mismatch += not same
+        self.metrics["server_iterations"] = {k: [r["iterations"] for r in v] for k, v in replies.items()}
+        self.bound("server_vs_direct_mismatch", mismatch)
+
+    def gltp(self, n_frames: int = 10):
+        """``GltpTracker`` on the card (its step one CUDA graph) over the
+        first ``n_frames`` frames of phase 4, against the same tracker's
+        run on this machine's CPU."""
+        np = self.np
+        from trackdlo_tpu_torch.models.gltp import GltpTracker
+
+        frames = self.frames_data[:n_frames]
+        nodes = self.rope.nodes(0.0, self.params.M)
+        card = GltpTracker(self.params, self.intr, device=self.dev)
+        cpu = GltpTracker(self.params, self.intr, device="cpu")
+        self.warm(card, card.init_from_nodes(nodes), frames[0])
+        ys, iters = {}, {}
+
+        def run(tr, key):
+            state, ys[key], iters[key] = tr.init_from_nodes(nodes), [], []
+            for f in frames:
+                state, res = tr.step(state, *f)
+                ys[key].append(state.y.cpu().numpy())
+                iters[key].append(int(res.iterations))
+
+        self.count_path("gltp", lambda: run(card, "card"))
+        run(cpu, "cpu")
+        if self.path_launches["gltp"]["em_loop"] != n_frames:
+            self.failures.append("gltp_launches")
+        dev_mm = [1000 * float(np.linalg.norm(a - b, axis=1).mean())
+                  for a, b in zip(ys["card"], ys["cpu"])]
+        self.metrics.update(gltp_per_frame_mm=dev_mm, gltp_iterations=iters)
+        log(f"  GLTP card against CPU, per frame (mm): {[round(v, 4) for v in dev_mm]}; "
+            f"iterations {iters}")
+        self.bound("gltp_card_vs_cpu_mean_mm", statistics.fmean(dev_mm))
+
     def profile_loop(self, name: str, change: dict, n_frames: int, key: str, tripwire=None):
         """``Tracker.step`` with ``change`` to the live profile over the
         first ``n_frames`` frames of phase 4, its launches counted; held
@@ -1413,6 +1868,7 @@ class Smoke:
                 ys.append(state.y)
                 clouds.append(out.points[out.points_mask])
 
+        self.warm(tracker, state, frames[0])
         self.count_path(name, run)
         got = self.path_launches[name]
         want = {k: v * n_frames for k, v in COARSE_LAUNCHES.items()}
@@ -1832,6 +2288,26 @@ class Smoke:
             sum(t.numel() * t.element_size() for t in self.n_args) + yn.shape[0] * 4,
             OPS_SWEEP_PAIR * int(nmn.sum()) * int(xmn.sum()))
 
+    def wide_timing(self):
+        """The wide builds at 100 and 128 nodes on :meth:`wide_kernels`'
+        inputs: ms per call by CUDA events (kernel, then plain, in turns),
+        and the kernel's device time from the profiler."""
+        for m, calls in self.wide_calls.items():
+            if m not in (100, 128):
+                continue
+            for name, (kfn, pfn) in calls.items():
+                p1 = self.event_ms(pfn, 3)
+                k1 = self.event_ms(kfn, 20)
+                k2 = self.event_ms(kfn, 20)
+                p2 = self.event_ms(pfn, 3)
+                rec = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+                rec["device_ms"], rec["device_ops_per_call"] = self.device_ms(kfn, 20)
+                self.times[f"{name}_m{m}"] = rec
+                dev = ("not measured" if rec["device_ms"] is None
+                       else f"{rec['device_ms']:.4f} ms in {rec['device_ops_per_call']:g} ops")
+                log(f"  {name:12s} m={m}: kernel {rec['ms']:.4f} ms (device {dev})   plain "
+                    f"{rec['plain_ms']:.4f} ms")
+
     def timing(self):
         np, torch = self.np, self.torch
         import dataclasses
@@ -1863,9 +2339,22 @@ class Smoke:
         def single(rgb, depth, occ):
             holder["s"], _ = tracker.step(holder["s"], rgb, depth, occ)
 
-        rec = self.step_times("step", single, frames, self.timing_frames)
-        log(f"  Tracker.step per frame: median {rec['median_ms']:.3f} ms "
-            f"(p90 {rec['p90_ms']:.3f}, host wall median {rec['wall_median_ms']:.3f})")
+        from trackdlo_tpu_torch.models.trackdlo import build_step_fn
+
+        eager = build_step_fn(self.params, self.intr, jit=False, device=self.dev)
+        holder["e"] = holder["s"]
+
+        def single_eager(rgb, depth, occ):
+            occ_t = torch.from_numpy(occ != 0).to(self.dev)
+            holder["e"], _ = eager(holder["e"], rgb, depth, occ_t)
+
+        for i in range(10):
+            single_eager(*frames[i % len(frames)])
+        for key, fn in (("step", single), ("step_eager", single_eager)):
+            rec = self.step_times(key, fn, frames, self.timing_frames)
+            log(f"  Tracker.step per frame, {'one CUDA graph' if key == 'step' else 'eager'}: "
+                f"median {rec['median_ms']:.3f} ms (p90 {rec['p90_ms']:.3f}, host wall median "
+                f"{rec['wall_median_ms']:.3f})")
         c_tracker, holder["c"] = self.coarse
         for i in range(10):
             holder["c"], _ = c_tracker.step(holder["c"], *frames[i % len(frames)])
@@ -2070,11 +2559,15 @@ def main() -> int:
         torch.cuda.synchronize()
         phase_s["check"] = time.perf_counter() - t0
     if "loop" in phases:
-        log(f"[4] closed loop: {smoke.frames} frames against the float64 oracle; the coarse and "
-            "cells-only profiles")
+        log(f"[4] closed loop: {smoke.frames} frames against the float64 oracle, the compiled step "
+            "against the eager step; the coarse and cells-only profiles")
         t0 = time.perf_counter()
         smoke.closed_loop()
         smoke.coarse_loops()
+        log("    node counts past the kernels' ranges (49, 64, 100), the TCP service, GLTP")
+        smoke.node_counts()
+        smoke.server()
+        smoke.gltp()
         phase_s["loop"] = time.perf_counter() - t0
     if "batch" in phases and "loop" in phases and "check" in phases:
         log(f"[5] batched step: {N_STREAMS} streams in cohorts of {COHORT}, {smoke.frames} frames; "
@@ -2094,6 +2587,7 @@ def main() -> int:
         log(f"[7] timing on {card}")
         t0 = time.perf_counter()
         smoke.timing()
+        smoke.wide_timing()
         phase_s["timing"] = time.perf_counter() - t0
     phase_s["total"] = time.perf_counter() - t_start
     log(f"    seconds per phase: { {k: round(v, 1) for k, v in phase_s.items()} }")
@@ -2103,7 +2597,8 @@ def main() -> int:
         smoke.failures.append("jax_or_jax_package_imported")
     record = {
         "card": card, "toolchain": probe, "metrics": smoke.metrics, "bounds": BOUNDS,
-        "launches": smoke.launches, "path_launches": smoke.path_launches, "times": smoke.times,
+        "launches": smoke.launches, "path_launches": smoke.path_launches,
+        "times": smoke.times,
         "bounds_ms": smoke.bounds_ms, "failures": smoke.failures, "phases": sorted(phases),
         "phase_seconds": phase_s,
     }
@@ -2125,6 +2620,7 @@ def main() -> int:
         log("partial run: no result line")
         return 0
     kernels = []
+    traced = smoke.metrics["graph_replay_launches"]["traced_per_replay"]
     for name, (src, replaces) in KERNELS.items():
         launches = smoke.path_launches[LAUNCH_PATH.get(name, "single")][name]
         if launches <= 0:
@@ -2136,6 +2632,10 @@ def main() -> int:
             "ms": smoke.times[name]["ms"], "plain_ms": smoke.times[name]["plain_ms"],
             "bound_ms": smoke.bounds_ms[name][0], "bound_by": smoke.bounds_ms[name][1],
             "library_ms": smoke.times[name]["library_ms"],
+            # Single-path kernels: the launches of the counted run's replays as
+            # a profiler trace of replays sees them (graph_checks).
+            "launches_traced": (traced[name] * smoke.frames
+                                if LAUNCH_PATH.get(name, "single") == "single" else None),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -358,11 +358,13 @@ def test_cluster_shape_is_the_launch(cuda):
     clusters of a lockstep batch of 16 live streams at once."""
     from trackdlo_tpu_torch.ops.hopper_kernels import cluster_info, cluster_shape
 
-    for kernel in ("em_loop", "estep"):
-        for n in (0, 1, 700, 1024, 2000, 2048, 4096, 16384):
-            got = cluster_info(kernel, n)
-            assert (got["cluster_size"], got["rows_per_cta"]) == cluster_shape(n)
-            assert got["max_active_clusters"] >= 1
+    for kernel in ("em_loop", "estep", "em_iter"):
+        for m in (45, 128):
+            for n in (0, 1, 700, 1024, 2000, 2048, 4096, 16384):
+                got = cluster_info(kernel, n, m)
+                assert (got["cluster_size"], got["rows_per_cta"]) == cluster_shape(n)
+                assert got["max_active_clusters"] >= 1
+                assert got["smem_bytes"] <= 227 * 1024
     assert cluster_info("estep", 2048)["max_active_clusters"] >= 16
 
 
@@ -1184,3 +1186,197 @@ def test_sharded_em_on_gloo_ranks_sharing_the_card(cuda):
     assert a["iterations"] == b["iterations"] == 3
     assert np.array_equal(a["y"], b["y"]) and np.array_equal(a["sigma2"], b["sigma2"])
     assert np.abs(a["y"] - np_(ref.y)).max() <= 1e-6
+
+
+def _quarter_frames(n):
+    rope = SyntheticRope()
+    out = []
+    for i in range(1, n + 1):
+        rgb, depth = render_frame(rope, i / 15.0, QUARTER, rope_pixel_radius=3)
+        occ = np.ones((QUARTER.height, QUARTER.width), bool)
+        if i in (2, 3):
+            occ[:, int(0.39 * QUARTER.width):int(0.625 * QUARTER.width)] = False
+        out.append((rgb, depth, occ))
+    return out
+
+
+@pytest.mark.parametrize("m", [M, 64, 100])
+def test_graph_step_is_bit_equal_to_the_eager_step(cuda, m):
+    """``Tracker.step`` (one CUDA graph replayed a frame) against the eager
+    step on the card, five frames at a quarter of the live camera: every
+    output bit for bit, and the launch counts of the replays those of the
+    eager frames: every kernel of the path on every frame (past 48 nodes E's
+    wide build, past 64 V's, past 65 W's)."""
+    from trackdlo_tpu_torch.models.trackdlo import StepOutputs, Tracker, build_step_fn
+
+    params = live_params(max_points=512, dlo_pixel_width=10, num_of_nodes=m)
+    tracker = Tracker(params, QUARTER, device=cuda)
+    eager = build_step_fn(params, QUARTER, jit=False, device=cuda)
+    frames = _quarter_frames(5)
+    s_graph = s_eager = tracker.init_from_nodes(SyntheticRope().nodes(0.0, m))
+    tracker.step(s_graph, *frames[0])  # warm-up and capture
+    counts = []
+    for step in ("graph", "eager"):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        for rgb, depth, occ in frames:
+            if step == "graph":
+                s_graph, o_graph = tracker.step(s_graph, rgb, depth, occ)
+            else:
+                s_eager, o_eager = eager(s_eager, rgb, depth, torch.from_numpy(occ).to(cuda))
+        torch.cuda.synchronize()
+        counts.append(dict(_build.launch_counts))
+    assert counts[0] == counts[1]
+    for f in StepOutputs._fields:
+        assert torch.equal(getattr(o_graph, f), getattr(o_eager, f)), f
+    assert torch.equal(s_graph.y, s_eager.y) and torch.isfinite(s_graph.y).all()
+    assert counts[0]["em_loop"] == 10
+    assert counts[0]["visibility"] == counts[0]["walks"] == counts[0]["cell_sums"] == 5
+
+
+def test_graph_step_streams_interleave(cuda):
+    """Two states stepped in turns through one compiled step each end where
+    it ends stepped alone: every call's outputs are its own copies."""
+    from trackdlo_tpu_torch.models.trackdlo import Tracker
+
+    params = live_params(max_points=512, dlo_pixel_width=10)
+    tracker = Tracker(params, QUARTER, device=cuda)
+    frames = _quarter_frames(4)
+    rope = SyntheticRope()
+    starts = [tracker.init_from_nodes(rope.nodes(t, M)) for t in (0.0, 0.05)]
+    alone = []
+    for s in starts:
+        outs = []
+        for f in frames:
+            s, o = tracker.step(s, *f)
+            outs.append(o)
+        alone.append((s, outs))
+    a, b = starts
+    outs_a, outs_b = [], []
+    for f in frames:
+        a, oa = tracker.step(a, *f)
+        b, ob = tracker.step(b, *f)
+        outs_a.append(oa)
+        outs_b.append(ob)
+    for (s_alone, o_alone), s_mixed, o_mixed in ((alone[0], a, outs_a), (alone[1], b, outs_b)):
+        assert torch.equal(s_alone.y, s_mixed.y) and torch.equal(s_alone.sigma2, s_mixed.sigma2)
+        for x, y in zip(o_alone, o_mixed):
+            assert torch.equal(x.y, y.y) and torch.equal(x.points, y.points)
+    assert not torch.equal(a.y, b.y)
+
+
+def test_step_with_another_solver_stays_eager(cuda):
+    """Solvers other than "lu" run the per-iteration loop, which reads a
+    flag an iteration on the host: their step is built eager."""
+    from trackdlo_tpu_torch.models.trackdlo import CompiledStep, Tracker
+
+    assert isinstance(Tracker(live_params(), QUARTER, device=cuda)._step, CompiledStep)
+    assert not isinstance(Tracker(live_params(solver="lstsq"), QUARTER, device=cuda)._step,
+                          CompiledStep)
+
+
+def _wide_staging(m, cuda, n_streams=None, **extra):
+    """A main-pass (or, with extra, another) EM staging of ``m`` nodes along
+    the rope on the quarter camera's first frame."""
+    from trackdlo_tpu_torch.models.trackdlo import Tracker
+
+    tracker = Tracker(live_params(max_points=512, dlo_pixel_width=10, num_of_nodes=m), QUARTER,
+                      device=cuda)
+    rope = SyntheticRope()
+    state = tracker.init_from_nodes(rope.nodes(0.0, m))
+    _, out = tracker.step(state, *_quarter_frames(1)[0])
+    p = live_params()
+    params = CpdParams(**{**dict(beta=p.beta, lam=p.lam, lle_weight=p.lle_weight, mu=p.mu,
+                                 max_iter=10, tol=0.0, include_lle=False, k_vis=p.k_vis,
+                                 visibility_threshold=p.visibility_threshold,
+                                 use_visibility=True), **extra})
+    y = torch.as_tensor(rope.nodes(0.0, m), dtype=torch.float32, device=cuda)
+    nm = torch.ones(m, dtype=torch.bool, device=cuda)
+    args = (out.points, out.points_mask, y, nm, torch.tensor(0.001, device=cuda))
+    if n_streams is not None:
+        args = tuple(a.expand(n_streams, *a.shape).contiguous() for a in args)
+    vc = torch.tensor(2 * m // 3, device=cuda)
+    if n_streams is not None:
+        vc = vc.expand(n_streams).contiguous()
+    return em_staging(*args, params, visible_count=vc), params, out
+
+
+@pytest.mark.parametrize("m", [64, 100, 128])
+def test_wide_em_loop_matches_plain(cuda, m):
+    """Kernel E's 128-node build (G, HG and JG read from global memory,
+    [A | I | B] in the E-step's scratch) against its plain version after 10
+    iterations with the gate on, at phase 3's em10 bound."""
+    st, _, _ = _wide_staging(m, cuda)
+    yk, sk = fused_em_loop(*st.args, **st.kwargs)
+    yp, sp = fused_em_loop_plain(*st.args, **st.kwargs)
+    assert int(sk[1]) == int(sp[1]) == 10
+    assert float((yk - yp).abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("m", [65, 100, 128])
+def test_wide_visibility_and_walks_match_plain(cuda, m):
+    """Kernel V's two-word node masks and kernel W's four segments a lane
+    against their plain versions: indices and masks equal, distances and
+    positions at phase 3's bounds."""
+    from trackdlo_tpu_torch.ops import priors as tp
+    from trackdlo_tpu_torch.ops.kernels import geodesic_coords
+    from trackdlo_tpu_torch.ops.visibility import compute_visibility
+    from trackdlo_tpu_torch.ops.visibility_kernel import fused_visibility
+
+    _, _, out = _wide_staging(m, cuda)
+    y = torch.as_tensor(SyntheticRope().nodes(0.0, m), dtype=torch.float32, device=cuda)
+    p = live_params()
+    proj = torch.as_tensor(np.array(QUARTER.proj_matrix(), np.float32), device=cuda)
+    a = (y, out.points, out.points_mask, proj, geodesic_coords(y), QUARTER.height, QUARTER.width,
+         p.visibility_threshold, 10, p.d_vis)
+    vk, vp = fused_visibility(*a), compute_visibility(*a)
+    for f in ("visible_mask", "extended_mask", "not_self_occluded", "vis_idx", "vis_ext_idx",
+              "vis_count", "vis_ext_count"):
+        assert torch.equal(getattr(vk, f), getattr(vp, f)), f
+    assert float((vk.shortest_node_pt_dists - vp.shortest_node_pt_dists).abs().max()) <= 1e-6
+    wi = tp.walk_inputs(y, geodesic_coords(y), y + 0.002, vk.vis_ext_idx, vk.vis_ext_count,
+                        vk.vis_idx, vk.vis_count)
+    pk, mk = pursuit_walks(wi.guides, wi.seglens, wi.ints, tp._EPS_BETWEEN)
+    pp, mp = pursuit_walks_plain(wi.guides, wi.seglens, wi.ints, tp._EPS_BETWEEN)
+    assert torch.equal(mk, mp)
+    assert float(torch.where(mp[..., None], (pk - pp).abs(), 0.0).max()) <= 5e-6
+
+
+@pytest.mark.parametrize("m", [64, 128])
+def test_wide_batched_kernels_match_plain(cuda, m):
+    """Kernels S, G, F and N's wide builds against their plain versions on
+    4 streams: S within the E-step bound, G against float64 on SPD systems
+    as gj_solve_vs_f64_max, F after 3 iterations, N bit for bit."""
+    from trackdlo_tpu_torch.ops.cpd_lle import em_loop_lockstep, estep_scalars, fused_iteration
+    from trackdlo_tpu_torch.ops.hopper_kernels import (
+        fused_em_iteration_plain, fused_estep_packed_batch, fused_estep_packed_batch_plain,
+        gauss_jordan_solve_batched, nearest_point_sq, nearest_point_sq_plain,
+    )
+
+    st, params, _ = _wide_staging(m, cuda, n_streams=4)
+    s2 = st.args[0][:, 0]
+    scal = estep_scalars(st.args[0], s2, params)
+    args = (scal, st.args[1], st.args[2], st.args[3], st.args[3] / st.args[3].sum(1, keepdim=True),
+            st.args[9], st.args[10])
+    for two_phase in (True, False):
+        got = fused_estep_packed_batch(*args, two_phase=two_phase)
+        ref = fused_estep_packed_batch_plain(*args, two_phase=two_phase)
+        for g, r in zip(got[:3], ref[:3]):
+            assert bool(((g - r).abs() <= 1e-6 + 2e-4 * r.abs()).all())
+        assert torch.equal(got[3], ref[3])
+    rng = np.random.default_rng(m)
+    a = rng.standard_normal((4, m, m)).astype(np.float32)
+    a = a @ a.transpose(0, 2, 1) + m * np.eye(m, dtype=np.float32)
+    b = rng.standard_normal((4, m, 3)).astype(np.float32)
+    w = gauss_jordan_solve_batched(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda))
+    w64 = np.linalg.solve(a.astype(np.float64), b.astype(np.float64))
+    assert np.abs(w.cpu().numpy() - w64).max() <= 2e-8
+    fst, fparams, _ = _wide_staging(m, cuda, n_streams=1, max_iter=3, include_lle=True,
+                                    use_fused_mstep=True)
+    yk, _, ik, _ = em_loop_lockstep(fst, fparams, lambda y, s: fused_iteration(fst, y, s, fparams))
+    yp, _, ip, _ = em_loop_lockstep(
+        fst, fparams, lambda y, s: fused_iteration(fst, y, s, fparams, fused_em_iteration_plain))
+    assert torch.equal(ik, ip) and float((yk - yp).abs().max()) <= 1e-6
+    nm = torch.arange(m, device=cuda) < 2 * m // 3
+    c = (st.args[1][0], nm, st.args[9][0], st.args[10][0])
+    assert torch.equal(nearest_point_sq(*c), nearest_point_sq_plain(*c))

@@ -1,5 +1,6 @@
 """The port's own copies of the JAX package's numpy-only modules (config,
-io.sequence, dlo_init, the float64 oracle) against the originals, and an
+io.sequence, dlo_init, the float64 oracle, io.raw_sequence, utils.viz,
+evaluation.occlusion and evaluation.scenarios) against the originals, and an
 import scan: no file of the port, and not chip_smoke.py, imports jax or
 anything of trackdlo_tpu; nor does tests/torch_shard_workers.py, which the
 point-sharded tests' spawned ranks import."""
@@ -80,6 +81,59 @@ def test_initialize_nodes_equal():
         out.append(init.initialize_nodes(rgb, depth, params, intr))
     assert out[0].shape == (45, 3)
     assert np.array_equal(out[0], out[1])
+
+
+# Copies whose text is the original's but for the package name in imports.
+COPIES = ["io/raw_sequence.py", "utils/viz.py", "evaluation/occlusion.py",
+          "evaluation/scenarios.py"]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copied_module_is_the_original_but_for_imports(rel):
+    original = (REPO / "trackdlo_tpu" / rel).read_text()
+    copy = (REPO / "trackdlo_tpu_torch" / rel).read_text()
+    assert copy == original.replace("trackdlo_tpu.", "trackdlo_tpu_torch.")
+
+
+def test_raw_sequences_cross_between_the_packages(tmp_path):
+    import trackdlo_tpu.io.raw_sequence as jraw
+    import trackdlo_tpu_torch.io.raw_sequence as traw
+
+    intr = jcfg.CameraIntrinsics(**SMALL)
+    frames = [jseq.render_frame(jseq.SyntheticRope(), t, intr) for t in (0.0, 0.2)]
+    for write, read in ((jraw, traw), (traw, jraw)):
+        path = write.write_raw_sequence(str(tmp_path / f"{write.__name__}.tdlo"), frames)
+        back = read.read_raw_sequence(path)
+        assert len(back) == 2
+        for (r0, d0), (r1, d1) in zip(frames, back):
+            assert np.array_equal(r0, r1) and np.array_equal(d0, d1)
+
+
+def test_viz_occlusion_and_scenarios_bit_equal():
+    import trackdlo_tpu.evaluation.occlusion as jocc
+    import trackdlo_tpu.evaluation.scenarios as jsc
+    import trackdlo_tpu.utils.viz as jviz
+    import trackdlo_tpu_torch.evaluation.occlusion as tocc
+    import trackdlo_tpu_torch.evaluation.scenarios as tsc
+    import trackdlo_tpu_torch.utils.viz as tviz
+
+    intr = jcfg.CameraIntrinsics(**SMALL)
+    proj = np.asarray(intr.proj_matrix())
+    rgb, _ = jseq.render_frame(jseq.SyntheticRope(), 0.1, intr)
+    y = jseq.SyntheticRope().nodes(0.1, 45)
+    vis = np.arange(45) % 3 > 0
+    occ = tocc.rect_mask(120, 160, (40, 30, 90, 80))
+    assert np.array_equal(occ, jocc.rect_mask(120, 160, (40, 30, 90, 80)))
+    assert np.array_equal(tviz.draw_tracking_overlay(rgb, y, proj, vis, occ),
+                          jviz.draw_tracking_overlay(rgb, y, proj, vis, occ))
+    assert tviz.geometry_markers(y) == jviz.geometry_markers(y)
+    assert tocc.gt_bbox_rect(y, 50, proj, 120, 160) == jocc.gt_bbox_rect(y, 50, proj, 120, 160)
+    for name in ("stationary", "self_occlusion"):
+        a = tsc.generate(tsc.make_scenario(name), 2, tcfg.CameraIntrinsics(**SMALL), 45)
+        b = jsc.generate(jsc.make_scenario(name), 2, intr, 45)
+        assert a[2] == b[2] and np.array_equal(a[1], b[1])
+        for (ra, da), (rb, db) in zip(a[0], b[0]):
+            assert np.array_equal(ra, rb) and np.array_equal(da, db)
 
 
 def _imports(path: Path):

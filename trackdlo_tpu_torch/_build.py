@@ -110,11 +110,12 @@ SIGNATURES = {
         _P,  # out
         _P,
     ],
-    # Kernels E, S and F launch as thread-block clusters: for n rows, the
-    # cluster size, the rows per CTA and how many clusters the card holds.
-    "trackdlo_em_loop_cluster_info": [_I, _P],
-    "trackdlo_estep_cluster_info": [_I, _P],
-    "trackdlo_em_iter_cluster_info": [_I, _P],
+    # Kernels E, S and F launch as thread-block clusters: for n rows and m
+    # nodes, the cluster size, the rows per CTA, how many clusters the card
+    # holds and a CTA's shared memory.
+    "trackdlo_em_loop_cluster_info": [_I, _I, _P],
+    "trackdlo_estep_cluster_info": [_I, _I, _P],
+    "trackdlo_em_iter_cluster_info": [_I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -136,6 +137,13 @@ def count_launch(name: str) -> None:
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def add_counts(delta: dict) -> None:
+    """Add a difference of two copies of ``launch_counts`` to the counters
+    (a CUDA graph's replay adds the launches its capture recorded)."""
+    for k, v in delta.items():
+        launch_counts[k] += v
 
 
 def _sources() -> list[Path]:

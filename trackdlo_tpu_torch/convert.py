@@ -30,6 +30,14 @@ def state_from_numpy(y, sigma2, geodesic_coord, device=None) -> TrackerState:
     )
 
 
+def to_numpy(a) -> np.ndarray:
+    """A tensor on any device, or any array (numpy, the JAX package's), as
+    a numpy array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def state_to_numpy(state: TrackerState) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(y, sigma2, geodesic_coord) as numpy float32 arrays."""
     return tuple(t.detach().cpu().numpy().astype(np.float32) for t in state)

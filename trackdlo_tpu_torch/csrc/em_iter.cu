@@ -56,6 +56,11 @@
 //   node move in one warp, rows lane and lane + 32 a lane, then shuffle
 //   trees.
 // No float atomics: a result is the same run to run.
+//
+// Node bound: compiled for at most 48 nodes (the layout above) and for at
+// most 128, where G, HG and JG stay in global memory (L2) and are read
+// where the system and T are formed (the same operations on the same
+// operands), and the search warp holds four rows a lane.
 #include "estep_cluster.cuh"
 #include "gj.cuh"
 
@@ -63,13 +68,11 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int MMAX = td::EC_MMAX;
 constexpr int THREADS = 512;
 constexpr int NWARPS = THREADS / 32;
 constexpr float TWO_PI = 6.283185307179586f;
 // The widest row of [A | B]: m + 3 entries, padded by at most 31.
-constexpr int WMAX = MMAX + 3 + 31;
-static_assert(MMAX == td::GJ_MMAX, "the pivot pick holds at most GJ_MMAX rows");
+__host__ __device__ constexpr int f_wmax(int mm) { return mm + 3 + 31; }
 
 struct FArgs {
   const float* s2;   // sigma2 of stream s at s2[s * s2_stride]
@@ -92,15 +95,24 @@ struct FArgs {
   float* stats;  // (B, 2): sigma2_new, delta
 };
 
+// The (m, m) inputs G, HG and JG, in shared memory in the narrow layout.
+template <int MM, bool NARROW = (MM <= td::EC_MMAX)>
+struct Mats {
+  float g[MM * MM], hg[MM * MM], jg[MM * MM];
+};
+template <int MM>
+struct Mats<MM, false> {};
+
+template <int MM>
 struct Smem {
-  td::EstepSmem<THREADS> es;  // the iterate y, coord, node mask, the points
-  float part[td::EC_MAX_CLUSTER][td::EC_NSUM];  // every CTA's partial sums (CTA 0's copy)
-  float g[MMAX * MMAX], hg[MMAX * MMAX], jg[MMAX * MMAX];
-  float y0[MMAX * 3], hy0[MMAX * 3], pd[MMAX * 3];
-  float aug[MMAX * WMAX];  // [A | B], row stride f_stride
-  float w[MMAX * 3], t[MMAX * 3];
-  float diag[MMAX];
-  int perm[MMAX];   // the row pivoted at each step
+  td::EstepSmem<THREADS, MM> es;  // the iterate y, coord, node mask, the points
+  float part[td::EC_MAX_CLUSTER][td::EcShape<MM>::kNsum];  // every CTA's partial sums (CTA 0's copy)
+  Mats<MM> mats;
+  float y0[MM * 3], hy0[MM * 3], pd[MM * 3];
+  float aug[MM * f_wmax(MM)];  // [A | B], row stride f_stride
+  float w[MM * 3], t[MM * 3];
+  float diag[MM];
+  int perm[MM];     // the row pivoted at each step
   int piv_row[2];   // a step's pivot row and value, by step parity
   float piv_val[2];
 };
@@ -120,18 +132,22 @@ __device__ __forceinline__ int f_stride(int m, int per_row) {
 
 // The search warp's pick of a step's pivot among its rows' values (row 0 if
 // every candidate is NaN, as argmax gives); marks it used.
-__device__ __forceinline__ int f_pick(int m, unsigned long long& used, const float (&col)[2],
+template <int RPL, int MM>
+__device__ __forceinline__ int f_pick(int m, td::GjRows<MM>& used, const float (&col)[RPL],
                                       float& pv) {
   int ridx = td::gj_pick(m, used, col, pv);
   if (ridx >= m) ridx = 0;
-  used |= 1ull << ridx;
+  used.add(ridx);
   return ridx;
 }
 
+template <int MMAX>
 __global__ void __launch_bounds__(THREADS, 1) em_iter_kernel(FArgs A) {
+  constexpr bool NARROW = MMAX <= td::EC_MMAX;
+  constexpr int RPL = (MMAX + 31) / 32;  // the search warp's rows a lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& S = *reinterpret_cast<Smem*>(smem_raw);
-  td::EstepSmem<THREADS>& E = S.es;
+  Smem<MMAX>& S = *reinterpret_cast<Smem<MMAX>*>(smem_raw);
+  auto& E = S.es;
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rank = (int)cluster.block_rank();
@@ -142,10 +158,12 @@ __global__ void __launch_bounds__(THREADS, 1) em_iter_kernel(FArgs A) {
 
   // CTA 0's M-step inputs arrive while the E-step runs.
   if (rank == 0) {
-    for (int k = tid; k < m * m; k += THREADS) {
-      cp_async4(&S.g[k], A.g + mm + k);
-      cp_async4(&S.hg[k], A.hg + mm + k);
-      cp_async4(&S.jg[k], A.jg + mm + k);
+    if constexpr (NARROW) {
+      for (int k = tid; k < m * m; k += THREADS) {
+        cp_async4(&S.mats.g[k], A.g + mm + k);
+        cp_async4(&S.mats.hg[k], A.hg + mm + k);
+        cp_async4(&S.mats.jg[k], A.jg + mm + k);
+      }
     }
     for (int k = tid; k < m * 3; k += THREADS) {
       cp_async4(&S.y0[k], A.y0 + m3 + k);
@@ -197,7 +215,8 @@ __global__ void __launch_bounds__(THREADS, 1) em_iter_kernel(FArgs A) {
                          (int)v_count_f, m_pad, m};
   td::ec_estep_partials<false, true>(sc, npts, 1, E);
   if (!(gate > 0.0f)) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  if (tid < 4 * m + 2) cluster.map_shared_rank(&S.part[rank][0], 0)[tid] = E.part[1][tid];
+  for (int i = tid; i < 4 * m + 2; i += THREADS)
+    cluster.map_shared_rank(&S.part[rank][0], 0)[i] = E.part[1][i];
   cluster.sync();
   // Past the barrier no CTA reads another's shared memory.
   if (rank != 0) return;
@@ -221,15 +240,27 @@ __global__ void __launch_bounds__(THREADS, 1) em_iter_kernel(FArgs A) {
   const int width = f_stride(m, per_row);
   const float lam_s2 = A.lam * s2;
   const float lle_s2 = s2 * A.coef_lle;
+  const float* gm;
+  const float* hgm;
+  const float* jgm;
+  if constexpr (NARROW) {
+    gm = S.mats.g;
+    hgm = S.mats.hg;
+    jgm = S.mats.jg;
+  } else {
+    gm = A.g + mm;
+    hgm = A.hg + mm;
+    jgm = A.jg + mm;
+  }
   for (int k = tid; k < m * (m + 3); k += THREADS) {
     const int r = k / (m + 3), col = k - r * (m + 3);
     float v;
     if (col < m) {
       if (E.nm[r] > 0.0f && E.nm[col] > 0.0f) {
         const int e = r * m + col;
-        v = p1[r] * S.g[e] + (r == col ? lam_s2 : 0.0f);
-        v = v + lle_s2 * S.hg[e];
-        v = v + A.alpha * S.jg[e];
+        v = p1[r] * gm[e] + (r == col ? lam_s2 : 0.0f);
+        v = v + lle_s2 * hgm[e];
+        v = v + A.alpha * jgm[e];
       } else {
         v = r == col ? 1.0f : 0.0f;
       }
@@ -245,16 +276,19 @@ __global__ void __launch_bounds__(THREADS, 1) em_iter_kernel(FArgs A) {
   __syncthreads();
 
   // The one-hot elimination, one barrier a step. The search warp's rows
-  // (lane, lane + 32) and their values of the current column; an update
+  // (lane + 32 h) and their values of the current column; an update
   // thread's row (-1: none) and first column.
   const bool searcher = warp == NWARPS - 1;
   const int my_r = !searcher && tid < per_row * m ? tid / per_row : -1;
   const int my_g = tid - my_r * per_row;
-  float col[2] = {0.0f, 0.0f};
-  unsigned long long used = 0ull;
+  float col[RPL];
+#pragma unroll
+  for (int h = 0; h < RPL; ++h) col[h] = 0.0f;
+  td::GjRows<MMAX> used;
+  used.clear();
   if (searcher) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < RPL; ++h) {
       const int r = lane + 32 * h;
       if (r < m) col[h] = S.aug[r * width];
     }
@@ -276,9 +310,10 @@ __global__ void __launch_bounds__(THREADS, 1) em_iter_kernel(FArgs A) {
       // Column k + 1 of every row (the first B column at the last step),
       // then step k + 1's pivot among those values.
       const int cn = k + 1;
-      float nxt[2] = {0.0f, 0.0f};
+      float nxt[RPL];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < RPL; ++h) {
+        nxt[h] = 0.0f;
         const int r = lane + 32 * h;
         if (r >= m) continue;
         const float xv = S.aug[r * width + cn];
@@ -290,8 +325,8 @@ __global__ void __launch_bounds__(THREADS, 1) em_iter_kernel(FArgs A) {
         nxt[h] = xv - f * S.aug[p * width + cn];
         S.aug[r * width + cn] = nxt[h];
       }
-      col[0] = nxt[0];
-      col[1] = nxt[1];
+#pragma unroll
+      for (int h = 0; h < RPL; ++h) col[h] = nxt[h];
       if (k + 1 < m) {
         float pvn;
         const int ridx = f_pick(m, used, col, pvn);
@@ -321,14 +356,14 @@ __global__ void __launch_bounds__(THREADS, 1) em_iter_kernel(FArgs A) {
   for (int q = tid; q < m * 3; q += THREADS) {
     const int r = q / 3, d = q - r * 3;
     float acc = 0.0f;
-    for (int j = 0; j < m; ++j) acc = acc + S.g[r * m + j] * S.w[j * 3 + d];
+    for (int j = 0; j < m; ++j) acc = acc + gm[r * m + j] * S.w[j * 3 + d];
     const float tv = E.nm[r] > 0.0f ? S.y0[q] + acc : S.y0[q];
     S.t[q] = tv;
     A.t[m3 + q] = tv;
   }
   __syncthreads();
 
-  // The sigma^2 update and the mean node move: rows lane and lane + 32 per
+  // The sigma^2 update and the mean node move: rows lane, lane + 32, .. per
   // lane, then shuffle trees.
   if (warp == 0) {
     float tr_pxt = 0.0f, tr_tt = 0.0f, move = 0.0f;
@@ -355,11 +390,12 @@ __global__ void __launch_bounds__(THREADS, 1) em_iter_kernel(FArgs A) {
 }
 
 // The launch configuration for B streams of n rows: B clusters of C CTAs.
+template <int MMAX>
 cudaError_t em_iter_config(int n_streams, int n, cudaLaunchConfig_t* cfg,
                            cudaLaunchAttribute* attr, cudaStream_t stream) {
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err =
-      cudaFuncSetAttribute(em_iter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = (int)sizeof(Smem<MMAX>);
+  cudaError_t err = cudaFuncSetAttribute(em_iter_kernel<MMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int c = td::ec_cluster_size(n);
   *cfg = cudaLaunchConfig_t{};
@@ -376,6 +412,17 @@ cudaError_t em_iter_config(int n_streams, int n, cudaLaunchConfig_t* cfg,
   return cudaSuccess;
 }
 
+template <int MMAX>
+int launch(const FArgs& a, int n_streams, void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = em_iter_config<MMAX>(n_streams, a.n, &cfg, &attr, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, em_iter_kernel<MMAX>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int trackdlo_em_iter(const float* s2, int s2_stride, const float* dyn, const float* cc,
@@ -385,30 +432,32 @@ extern "C" int trackdlo_em_iter(const float* s2, int s2_stride, const float* dyn
                                 const float* x, const float* xm, int n_streams, int m, int n,
                                 float muf, float k_vis, float tau_vis, float lam, float coef_lle,
                                 float alpha, float* t, float* stats, void* stream) {
-  if (m < 1 || m > MMAX || n < 0 || n_streams < 0 || td::ec_rows_per_cta(n) > td::EC_PMAX ||
+  if (m < 1 || m > td::EC_MMAX_WIDE || n < 0 || n_streams < 0 ||
+      td::ec_rows_per_cta(n) > td::EC_PMAX ||
       (long long)n_streams * td::ec_cluster_size(n) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (n_streams == 0) return 0;
-  FArgs a{s2, dyn, cc, y, y0, coord, nm, g, hg, hy0, jg, pd, x, xm, s2_stride, m, n,
-          muf, k_vis, tau_vis, lam, coef_lle, alpha, t, stats};
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = em_iter_config(n_streams, n, &cfg, &attr, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, em_iter_kernel, a);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const FArgs a{s2, dyn, cc, y, y0, coord, nm, g, hg, hy0, jg, pd, x, xm, s2_stride, m, n,
+                muf, k_vis, tau_vis, lam, coef_lle, alpha, t, stats};
+  return m <= td::EC_MMAX ? launch<td::EC_MMAX>(a, n_streams, stream)
+                          : launch<td::EC_MMAX_WIDE>(a, n_streams, stream);
 }
 
-// For n rows: out[0] the cluster size, out[1] the rows per CTA, out[2] how
-// many such clusters the card can hold at once.
-extern "C" int trackdlo_em_iter_cluster_info(int n, int* out) {
-  if (n < 0) return (int)cudaErrorInvalidValue;
+// For n rows and m nodes: out[0] the cluster size, out[1] the rows per CTA,
+// out[2] how many such clusters the card can hold at once, out[3] the
+// shared memory of one CTA in bytes.
+extern "C" int trackdlo_em_iter_cluster_info(int n, int m, int* out) {
+  if (n < 0 || m < 1 || m > td::EC_MMAX_WIDE) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = em_iter_config(1, n, &cfg, &attr, nullptr);
+  const bool narrow = m <= td::EC_MMAX;
+  cudaError_t err = narrow ? em_iter_config<td::EC_MMAX>(1, n, &cfg, &attr, nullptr)
+                           : em_iter_config<td::EC_MMAX_WIDE>(1, n, &cfg, &attr, nullptr);
   if (err != cudaSuccess) return (int)err;
   out[0] = td::ec_cluster_size(n);
   out[1] = td::ec_rows_per_cta(n);
-  return (int)cudaOccupancyMaxActiveClusters(&out[2], em_iter_kernel, &cfg);
+  out[3] = (int)cfg.dynamicSmemBytes;
+  return narrow ? (int)cudaOccupancyMaxActiveClusters(&out[2], em_iter_kernel<td::EC_MMAX>, &cfg)
+                : (int)cudaOccupancyMaxActiveClusters(&out[2], em_iter_kernel<td::EC_MMAX_WIDE>,
+                                                      &cfg);
 }

@@ -33,6 +33,14 @@
 //   iteration (ROADMAP, fault 1).
 // The arithmetic is the plain version's: the divisions stay divisions, and
 // no float atomics are used, so results are identical run to run.
+//
+// Node bound: the kernel is compiled for at most 48 nodes (the layout
+// above) and for at most 128. At 128 the three (m, m) inputs, A, and their
+// pieces (~450 KB) do not fit in shared memory: G, HG and JG stay in global
+// memory (L2), A's entries are formed from them where the solve reads them
+// and cut into pieces there (the same operations, so the same values), and
+// [A | I | B] lives in the E-step's scratch, which is free during the
+// M-step.
 #include "estep_cluster.cuh"
 #include "gj.cuh"
 
@@ -40,7 +48,6 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int MMAX = td::EC_MMAX;
 constexpr int THREADS = 512;
 constexpr float TWO_PI = 6.283185307179586f;
 
@@ -63,41 +70,81 @@ struct EmArgs {
   float* stats;  // [4]: sigma2, iterations, converged, delta
 };
 
+template <int MM, bool NARROW = (MM <= td::EC_MMAX)>
 struct Smem {
-  float y0[MMAX * 3], hy0[MMAX * 3], pd[MMAX * 3];
-  float g[MMAX * MMAX], hg[MMAX * MMAX], jg[MMAX * MMAX];
-  float a[MMAX * MMAX];  // the M-step system A w = B
-  float b[MMAX * 3], w[MMAX * 3], t[MMAX * 3];
-  float asp[3 * MMAX * MMAX], gsp[3 * MMAX * MMAX], wsp[3 * MMAX * 3];  // split3 pieces
-  td::GjSmem gj;
-  td::EstepSmem<THREADS> es;  // the iterate y, coord, node mask, the points
+  float y0[MM * 3], hy0[MM * 3], pd[MM * 3];
+  float g[MM * MM], hg[MM * MM], jg[MM * MM];
+  float a[MM * MM];  // the M-step system A w = B
+  float b[MM * 3], w[MM * 3], t[MM * 3];
+  float asp[3 * MM * MM], gsp[3 * MM * MM], wsp[3 * MM * 3];  // split3 pieces
+  td::GjSmem<MM> gj;
+  td::EstepSmem<THREADS, MM> es;  // the iterate y, coord, node mask, the points
   float s2, delta;
   int it, done, converged;
 };
-static_assert(MMAX == td::GJ_MMAX, "kernel E and the shared solve differ in MMAX");
+// The wide layout: G, HG, JG and A are read where they are needed, and
+// [A | I | B] lives in the E-step's scratch.
+template <int MM>
+struct Smem<MM, false> {
+  float y0[MM * 3], hy0[MM * 3], pd[MM * 3];
+  float b[MM * 3], w[MM * 3], t[MM * 3];
+  float wsp[3 * MM * 3];
+  td::GjSmem<MM> gj;
+  td::EstepSmem<THREADS, MM, MM * td::gj_wmax(MM)> es;
+  float s2, delta;
+  int it, done, converged;
+};
+static_assert(td::EC_MMAX == td::GJ_MMAX && td::EC_MMAX_WIDE == td::GJ_MMAX_WIDE,
+              "kernel E and the shared solve differ in their node bounds");
 
+// The M-step matrix A of the wide layout, formed from G, HG and JG in global
+// memory where it is read: the narrow layout's operations on the same
+// operands.
+struct EmMatrix {
+  const float *g, *hg, *jg, *p1, *nm;
+  int m;
+  float lam_s2, lle_s2, alpha;
+  __device__ __forceinline__ float value(int r, int c) const {
+    if (nm[r] > 0.0f && nm[c] > 0.0f) {
+      const int k = r * m + c;
+      float v = p1[r] * g[k] + (r == c ? lam_s2 : 0.0f);
+      v = v + lle_s2 * hg[k];
+      v = v + alpha * jg[k];
+      return v;
+    }
+    return r == c ? 1.0f : 0.0f;
+  }
+  __device__ __forceinline__ void get(int r, int c, float (&p)[3]) const {
+    td::split3(value(r, c), p[0], p[1], p[2]);
+  }
+};
+
+template <int MM>
 __global__ void __launch_bounds__(THREADS, 1) em_loop_kernel(EmArgs A) {
+  constexpr bool NARROW = MM <= td::EC_MMAX;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& S = *reinterpret_cast<Smem*>(smem_raw);
-  td::EstepSmem<THREADS>& E = S.es;
+  Smem<MM>& S = *reinterpret_cast<Smem<MM>*>(smem_raw);
+  auto& E = S.es;
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m = A.m, n = A.n;
 
-  for (int k = tid; k < MMAX * 3; k += THREADS) {
+  for (int k = tid; k < MM * 3; k += THREADS) {
     const bool in = k < m * 3;
     S.y0[k] = in ? A.y0[k] : 0.0f;
     E.y[k] = in ? A.y0[k] : 0.0f;
     S.hy0[k] = in ? A.hy0[k] : 0.0f;
     S.pd[k] = in ? A.pd[k] : 0.0f;
   }
-  for (int k = tid; k < m * m; k += THREADS) {
-    S.g[k] = A.g[k];
-    S.hg[k] = A.hg[k];
-    S.jg[k] = A.jg[k];
-    td::split3(A.g[k], S.gsp[k], S.gsp[m * m + k], S.gsp[2 * m * m + k]);
+  if constexpr (NARROW) {
+    for (int k = tid; k < m * m; k += THREADS) {
+      S.g[k] = A.g[k];
+      S.hg[k] = A.hg[k];
+      S.jg[k] = A.jg[k];
+      td::split3(A.g[k], S.gsp[k], S.gsp[m * m + k], S.gsp[2 * m * m + k]);
+    }
   }
-  for (int k = tid; k < MMAX; k += THREADS) {
+  for (int k = tid; k < MM; k += THREADS) {
     E.coord[k] = k < m ? A.coord[k] : 0.0f;
     E.nm[k] = k < m ? A.nm[k] : 0.0f;
     E.pv[k] = 0.0f;
@@ -147,18 +194,20 @@ __global__ void __launch_bounds__(THREADS, 1) em_loop_kernel(EmArgs A) {
     // M-step system A w = B.
     const float lam_s2 = A.lam * s2;
     const float lle_s2 = s2 * A.coef_lle;
-    for (int k = tid; k < m * m; k += THREADS) {
-      const int r = k / m, c = k - r * m;
-      float v;
-      if (E.nm[r] > 0.0f && E.nm[c] > 0.0f) {
-        v = p1[r] * S.g[k] + (r == c ? lam_s2 : 0.0f);
-        v = v + lle_s2 * S.hg[k];
-        v = v + A.alpha * S.jg[k];
-      } else {
-        v = r == c ? 1.0f : 0.0f;
+    if constexpr (NARROW) {
+      for (int k = tid; k < m * m; k += THREADS) {
+        const int r = k / m, c = k - r * m;
+        float v;
+        if (E.nm[r] > 0.0f && E.nm[c] > 0.0f) {
+          v = p1[r] * S.g[k] + (r == c ? lam_s2 : 0.0f);
+          v = v + lle_s2 * S.hg[k];
+          v = v + A.alpha * S.jg[k];
+        } else {
+          v = r == c ? 1.0f : 0.0f;
+        }
+        S.a[k] = v;
+        td::split3(v, S.asp[k], S.asp[m * m + k], S.asp[2 * m * m + k]);
       }
-      S.a[k] = v;
-      td::split3(v, S.asp[k], S.asp[m * m + k], S.asp[2 * m * m + k]);
     }
     for (int k = tid; k < m * 3; k += THREADS) {
       const int r = k / 3, d = k - r * 3;
@@ -168,18 +217,29 @@ __global__ void __launch_bounds__(THREADS, 1) em_loop_kernel(EmArgs A) {
       S.b[k] = v * E.nm[r];
     }
     __syncthreads();
-    td::gj_solve<THREADS, td::GjScale::kExponentBits>(m, S.a, S.b, S.w, S.gj, S.asp, S.wsp);
+    if constexpr (NARROW) {
+      const td::DenseA am{S.a, td::SplitPieces{S.asp, m * m, m}, m};
+      td::gj_solve<THREADS, td::GjScale::kExponentBits>(m, am, S.b, S.w, S.gj, S.gj.aug, S.wsp);
+    } else {
+      const EmMatrix am{A.g, A.hg, A.jg, p1, E.nm, m, lam_s2, lle_s2, A.alpha};
+      td::gj_solve<THREADS, td::GjScale::kExponentBits>(m, am, S.b, S.w, S.gj, E.scratch, S.wsp);
+    }
     // T = Y0 + G W (inactive rows stay at Y0).
     td::split3_all<THREADS>(m * 3, S.w, S.wsp);
     __syncthreads();
     for (int q = tid; q < m * 3; q += THREADS) {
       const int r = q / 3, d = q - r * 3;
-      const float acc = td::exact_split_dot(m, S.gsp, m * m, r, S.wsp, m * 3, d);
+      float acc;
+      if constexpr (NARROW) {
+        acc = td::exact_split_dot(m, td::SplitPieces{S.gsp, m * m, m}, r, S.wsp, m * 3, d);
+      } else {
+        acc = td::exact_split_dot(m, td::SplitOnRead{A.g, m}, r, S.wsp, m * 3, d);
+      }
       S.t[q] = E.nm[r] > 0.0f ? S.y0[q] + acc : S.y0[q];
     }
     __syncthreads();
-    // sigma^2 and the mean node move: rows lane and lane + 32 per lane, then
-    // a shuffle tree (every lane the same bits).
+    // sigma^2 and the mean node move: rows lane, lane + 32, .. per lane,
+    // then a shuffle tree (every lane the same bits).
     if (warp == 0) {
       float tr_pxt = 0.0f, tr_tt = 0.0f, move = 0.0f;
       for (int r = lane; r < m; r += 32) {
@@ -224,11 +284,12 @@ __global__ void __launch_bounds__(THREADS, 1) em_loop_kernel(EmArgs A) {
 }
 
 // The launch configuration for n rows: C CTAs, one cluster.
+template <int MM>
 cudaError_t em_loop_config(int n, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
                            cudaStream_t stream) {
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err =
-      cudaFuncSetAttribute(em_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = (int)sizeof(Smem<MM>);
+  cudaError_t err = cudaFuncSetAttribute(em_loop_kernel<MM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int c = td::ec_cluster_size(n);
   *cfg = cudaLaunchConfig_t{};
@@ -245,6 +306,17 @@ cudaError_t em_loop_config(int n, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* 
   return cudaSuccess;
 }
 
+template <int MM>
+int launch(const EmArgs& a, void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = em_loop_config<MM>(a.n, &cfg, &attr, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, em_loop_kernel<MM>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int trackdlo_em_loop(
@@ -253,28 +325,28 @@ extern "C" int trackdlo_em_loop(
     const float* pd, const float* x, const float* xm, int m, int n, float muf,
     float k_vis, float tau_vis, float lam, float coef_lle, float alpha,
     float tol, int max_iter, float* y_out, float* stats, void* stream) {
-  if (m < 1 || m > MMAX || n < 0 || td::ec_rows_per_cta(n) > td::EC_PMAX)
+  if (m < 1 || m > td::EC_MMAX_WIDE || n < 0 || td::ec_rows_per_cta(n) > td::EC_PMAX)
     return (int)cudaErrorInvalidValue;
-  EmArgs a{dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm, m, n,
-           muf, k_vis, tau_vis, lam, coef_lle, alpha, tol, max_iter, y_out, stats};
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = em_loop_config(n, &cfg, &attr, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, em_loop_kernel, a);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const EmArgs a{dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm, m, n,
+                 muf, k_vis, tau_vis, lam, coef_lle, alpha, tol, max_iter, y_out, stats};
+  return m <= td::EC_MMAX ? launch<td::EC_MMAX>(a, stream) : launch<td::EC_MMAX_WIDE>(a, stream);
 }
 
-// For n rows: out[0] the cluster size, out[1] the rows per CTA, out[2] how
-// many such clusters the card can hold at once.
-extern "C" int trackdlo_em_loop_cluster_info(int n, int* out) {
-  if (n < 0) return (int)cudaErrorInvalidValue;
+// For n rows and m nodes: out[0] the cluster size, out[1] the rows per CTA,
+// out[2] how many such clusters the card can hold at once, out[3] the
+// shared memory of one CTA in bytes.
+extern "C" int trackdlo_em_loop_cluster_info(int n, int m, int* out) {
+  if (n < 0 || m < 1 || m > td::EC_MMAX_WIDE) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = em_loop_config(n, &cfg, &attr, nullptr);
+  const bool narrow = m <= td::EC_MMAX;
+  cudaError_t err = narrow ? em_loop_config<td::EC_MMAX>(n, &cfg, &attr, nullptr)
+                           : em_loop_config<td::EC_MMAX_WIDE>(n, &cfg, &attr, nullptr);
   if (err != cudaSuccess) return (int)err;
   out[0] = td::ec_cluster_size(n);
   out[1] = td::ec_rows_per_cta(n);
-  return (int)cudaOccupancyMaxActiveClusters(&out[2], em_loop_kernel, &cfg);
+  out[3] = (int)cfg.dynamicSmemBytes;
+  return narrow ? (int)cudaOccupancyMaxActiveClusters(&out[2], em_loop_kernel<td::EC_MMAX>, &cfg)
+                : (int)cudaOccupancyMaxActiveClusters(&out[2], em_loop_kernel<td::EC_MMAX_WIDE>,
+                                                      &cfg);
 }

@@ -23,14 +23,14 @@
 // pad rows) and gives 0 outside them; the gate blends p·(1 + g·(pv − 1))
 // and c_plain + g·(c_vis − c_plain); the one-phase mode takes the
 // visibility weights as input. CTA rank 0 of each cluster writes the
-// stream's P1, PX, stats and shortest_sq.
+// stream's P1, PX, stats and shortest_sq. It is compiled for at most 48
+// nodes and for at most 128 (estep_cluster.cuh's wide layout).
 #include "estep_cluster.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int MMAX = td::EC_MMAX;
 constexpr int THREADS = 256;
 
 struct EArgs {
@@ -48,9 +48,10 @@ struct EArgs {
   float* short_sq;  // (B, m)
 };
 
+template <int MMAX>
 __global__ void __launch_bounds__(THREADS, 1) estep_kernel(EArgs A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  td::EstepSmem<THREADS>& E = *reinterpret_cast<td::EstepSmem<THREADS>*>(smem_raw);
+  auto& E = *reinterpret_cast<td::EstepSmem<THREADS, MMAX>*>(smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
   const int rank = (int)cluster.block_rank();
@@ -104,11 +105,12 @@ __global__ void __launch_bounds__(THREADS, 1) estep_kernel(EArgs A) {
 }
 
 // The launch configuration for B streams of n rows: B clusters of C CTAs.
+template <int MMAX>
 cudaError_t estep_config(int n_streams, int n, cudaLaunchConfig_t* cfg,
                          cudaLaunchAttribute* attr, cudaStream_t stream) {
-  const int smem = (int)sizeof(td::EstepSmem<THREADS>);
-  cudaError_t err =
-      cudaFuncSetAttribute(estep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = (int)sizeof(td::EstepSmem<THREADS, MMAX>);
+  cudaError_t err = cudaFuncSetAttribute(estep_kernel<MMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int c = td::ec_cluster_size(n);
   *cfg = cudaLaunchConfig_t{};
@@ -125,34 +127,46 @@ cudaError_t estep_config(int n_streams, int n, cudaLaunchConfig_t* cfg,
   return cudaSuccess;
 }
 
+template <int MMAX>
+int launch(const EArgs& a, void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = estep_config<MMAX>(a.n_streams, a.n, &cfg, &attr, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, estep_kernel<MMAX>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int trackdlo_estep(const float* scal, const float* y, const float* coord,
                               const float* nm, const float* pv, const float* x, const float* xm,
                               int n_streams, int m, int n, int two_phase, float* p1, float* px,
                               float* stats, float* short_sq, void* stream) {
-  if (m < 1 || m > MMAX || n < 0 || n_streams < 0 || td::ec_rows_per_cta(n) > td::EC_PMAX)
+  if (m < 1 || m > td::EC_MMAX_WIDE || n < 0 || n_streams < 0 ||
+      td::ec_rows_per_cta(n) > td::EC_PMAX)
     return (int)cudaErrorInvalidValue;
   if (n_streams == 0) return 0;
-  EArgs a{scal, y, coord, nm, pv, x, xm, n_streams, m, n, two_phase, p1, px, stats, short_sq};
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = estep_config(n_streams, n, &cfg, &attr, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, estep_kernel, a);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const EArgs a{scal, y, coord, nm, pv, x, xm, n_streams, m, n, two_phase, p1, px, stats, short_sq};
+  return m <= td::EC_MMAX ? launch<td::EC_MMAX>(a, stream) : launch<td::EC_MMAX_WIDE>(a, stream);
 }
 
-// For n rows: out[0] the cluster size, out[1] the rows per CTA, out[2] how
-// many such clusters the card can hold at once.
-extern "C" int trackdlo_estep_cluster_info(int n, int* out) {
-  if (n < 0) return (int)cudaErrorInvalidValue;
+// For n rows and m nodes: out[0] the cluster size, out[1] the rows per CTA,
+// out[2] how many such clusters the card can hold at once, out[3] the
+// shared memory of one CTA in bytes.
+extern "C" int trackdlo_estep_cluster_info(int n, int m, int* out) {
+  if (n < 0 || m < 1 || m > td::EC_MMAX_WIDE) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = estep_config(1, n, &cfg, &attr, nullptr);
+  const bool narrow = m <= td::EC_MMAX;
+  cudaError_t err = narrow ? estep_config<td::EC_MMAX>(1, n, &cfg, &attr, nullptr)
+                           : estep_config<td::EC_MMAX_WIDE>(1, n, &cfg, &attr, nullptr);
   if (err != cudaSuccess) return (int)err;
   out[0] = td::ec_cluster_size(n);
   out[1] = td::ec_rows_per_cta(n);
-  return (int)cudaOccupancyMaxActiveClusters(&out[2], estep_kernel, &cfg);
+  out[3] = (int)cfg.dynamicSmemBytes;
+  return narrow ? (int)cudaOccupancyMaxActiveClusters(&out[2], estep_kernel<td::EC_MMAX>, &cfg)
+                : (int)cudaOccupancyMaxActiveClusters(&out[2], estep_kernel<td::EC_MMAX_WIDE>,
+                                                      &cfg);
 }

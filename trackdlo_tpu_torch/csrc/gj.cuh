@@ -66,20 +66,52 @@
 
 namespace td {
 
+// The node bound MM is a compile-time parameter: GJ_MMAX (48) and
+// GJ_MMAX_WIDE (128). The narrow layout keeps [A/e | I | B/e] and the
+// inverse in GjSmem; the wide one (a 128-node [A | I | B] is ~145 KB) takes
+// [A | I | B] from the caller, who may lend it memory that is free during
+// the solve, and reads the inverse from it where the refinement needs it
+// (the same quotient, so the same bits).
 constexpr int GJ_MMAX = 48;
-static_assert(GJ_MMAX <= 64, "the used rows live in a 64-bit mask");
+constexpr int GJ_MMAX_WIDE = 128;
 // The widest row: 2 m + 3 entries, padded by at most 31.
-constexpr int GJ_WMAX = 2 * GJ_MMAX + 3 + 31;
+__host__ __device__ constexpr int gj_wmax(int mm) { return 2 * mm + 3 + 31; }
 
-struct GjSmem {
-  float aug[GJ_MMAX * GJ_WMAX];  // [A/e | I in pivot order | B/e], row stride gj_stride
-  float inv[GJ_MMAX * GJ_MMAX];
-  float r[GJ_MMAX * 3];
-  float e[GJ_MMAX], diag[GJ_MMAX];
-  int perm[GJ_MMAX];  // the row pivoted at each step
-  int pos[GJ_MMAX];   // the step at which each row was pivoted
-  int piv_row[2];     // a step's pivot row and value, by step parity
+// The small per-system state of the solve.
+template <int MM>
+struct GjState {
+  float r[MM * 3];
+  float e[MM], diag[MM];
+  int perm[MM];  // the row pivoted at each step
+  int pos[MM];   // the step at which each row was pivoted
+  int piv_row[2];  // a step's pivot row and value, by step parity
   float piv_val[2];
+};
+
+template <int MM, bool OWN = (MM <= GJ_MMAX)>
+struct GjSmem : GjState<MM> {
+  static constexpr int kMM = MM;
+  float aug[MM * gj_wmax(MM)];  // [A/e | I in pivot order | B/e], row stride gj_stride
+  float inv[MM * MM];
+};
+template <int MM>
+struct GjSmem<MM, false> : GjState<MM> {
+  static constexpr int kMM = MM;
+};
+
+// The rows used as pivots so far, one bit a row.
+template <int MM>
+struct GjRows {
+  static constexpr int kWords = (MM + 63) / 64;
+  unsigned long long w[kWords];
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) w[i] = 0ull;
+  }
+  __device__ __forceinline__ bool has(int r) const { return (w[r >> 6] >> (r & 63)) & 1ull; }
+  __device__ __forceinline__ void add(int r) {
+    if (r < 64 * kWords) w[r >> 6] |= 1ull << (r & 63);
+  }
 };
 
 // The two row-scale rules of the TPU kernels. They differ by a factor of 2
@@ -136,20 +168,39 @@ __device__ __forceinline__ void split3_all(int n, const float* v, float* sp) {
   for (int i = threadIdx.x; i < n; i += THREADS) split3(v[i], sp[i], sp[n + i], sp[2 * n + i]);
 }
 
+// A (rows, k) row-major with its pieces stored by split3_all of n floats.
+struct SplitPieces {
+  const float* sp;
+  int n, k;
+  __device__ __forceinline__ void get(int r, int j, float (&p)[3]) const {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) p[i] = sp[i * n + r * k + j];
+  }
+};
+
+// A (rows, k) row-major in memory, its pieces cut where they are read.
+struct SplitOnRead {
+  const float* a;
+  int k;
+  __device__ __forceinline__ void get(int r, int j, float (&p)[3]) const {
+    split3(a[r * k + j], p[0], p[1], p[2]);
+  }
+};
+
 // Entry (r, d) of _exact_dot(A, W) for A (rows, k) and W (k, 3), from
-// their pieces (split3_all of n_a and of n_w floats): for each piece pair
-// in the order (hi, hi), (hi, mid), .., (lo, lo) the sum over j in order of
-// the exact products, then the nine sums added in that order.
-__device__ __forceinline__ float exact_split_dot(int k, const float* asp, int n_a, int r,
-                                                 const float* wsp, int n_w, int d) {
+// their pieces (A's from ``pa_src``, W's by split3_all of n_w floats): for
+// each piece pair in the order (hi, hi), (hi, mid), .., (lo, lo) the sum
+// over j in order of the exact products, then the nine sums added in that
+// order.
+template <class PA>
+__device__ __forceinline__ float exact_split_dot(int k, const PA& pa_src, int r, const float* wsp,
+                                                 int n_w, int d) {
   float acc[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int j = 0; j < k; ++j) {
     float pa[3], pw[3];
+    pa_src.get(r, j, pa);
 #pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      pa[p] = asp[p * n_a + r * k + j];
-      pw[p] = wsp[p * n_w + j * 3 + d];
-    }
+    for (int p = 0; p < 3; ++p) pw[p] = wsp[p * n_w + j * 3 + d];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -173,10 +224,10 @@ __device__ __forceinline__ unsigned gj_pivot_key(float v, bool used) {
 // Threads per row of the update warps (all warps but the last).
 __host__ __device__ constexpr int gj_per_row(int threads, int m) { return (threads - 32) / m; }
 
-// The most slots (1 .. m + 2) one update thread owns, over every m.
-__host__ __device__ constexpr int gj_slots(int threads) {
+// The most slots (1 .. m + 2) one update thread owns, over every m <= mm.
+__host__ __device__ constexpr int gj_slots(int threads, int mm) {
   int most = 0;
-  for (int m = 1; m <= GJ_MMAX; ++m) {
+  for (int m = 1; m <= mm; ++m) {
     const int per = gj_per_row(threads, m);
     const int s = (m + 2 + per - 1) / per;
     most = s > most ? s : most;
@@ -186,24 +237,25 @@ __host__ __device__ constexpr int gj_slots(int threads) {
 
 // The row stride: at least 2 m + 3 and equal to the threads per row modulo
 // 32, so the consecutive rows of one warp start on consecutive banks.
-__device__ __forceinline__ int gj_stride(int m, int per_row) {
+__host__ __device__ constexpr int gj_stride(int m, int per_row) {
   const int w = 2 * m + 3;
   return w + (((per_row - w) % 32) + 32) % 32;
 }
 
-// The search warp's pick among its two rows' values (lane and lane + 32):
+// The search warp's pick among its rows' values (row lane + 32 h in v[h]):
 // the row step k + 1 pivots on (m when every unused candidate is NaN and no
 // row is used) and, in every lane, its value.
-__device__ __forceinline__ int gj_pick(int m, unsigned long long used, const float (&v)[2],
+template <int RPL, int MM>
+__device__ __forceinline__ int gj_pick(int m, const GjRows<MM>& used, const float (&v)[RPL],
                                        float& pv) {
   const int lane = threadIdx.x & 31;
   unsigned key = 0u;
   int row = m;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < RPL; ++h) {
     const int r = lane + 32 * h;
     if (r < m) {
-      const unsigned kr = gj_pivot_key(v[h], (used >> r) & 1ull);
+      const unsigned kr = gj_pivot_key(v[h], used.has(r));
       if (kr > key) {
         key = kr;
         row = r;
@@ -213,23 +265,67 @@ __device__ __forceinline__ int gj_pick(int m, unsigned long long used, const flo
   const unsigned best = __reduce_max_sync(TD_FULL_MASK, key);
   const int ridx =
       best == 0u ? m : (int)__reduce_min_sync(TD_FULL_MASK, key == best ? (unsigned)row : ~0u);
-  const float mine = (ridx >> 5) ? v[1] : v[0];
+  float mine = v[0];
+#pragma unroll
+  for (int h = 1; h < RPL; ++h)
+    if ((ridx >> 5) == h) mine = v[h];
   const float got = __shfl_sync(TD_FULL_MASK, mine, ridx & 31);
   pv = ridx < m ? got : __int_as_float(0x7fffffff);
   return ridx;
 }
 
-// Solves A w = B for one system: ``a`` (m*m, row-major) and ``b`` (m*3)
-// unscaled, ``a_split`` a's pieces (split3_all of m*m), all in shared
-// memory; ``w`` (m*3) in shared memory is written, and ``w_split`` (3*m*3
-// floats of shared memory) holds w's pieces during the refinement. Every
-// thread of the block calls it; it ends after a barrier.
-template <int THREADS, GjScale RULE>
-__device__ void gj_solve(int m, const float* a, const float* b, float* w, GjSmem& G,
-                         const float* a_split, float* w_split) {
+// A in shared memory (m*m, row-major) with its pieces by split3_all.
+struct DenseA {
+  const float* a;
+  SplitPieces pcs;
+  int m;
+  __device__ __forceinline__ float value(int r, int c) const { return a[r * m + c]; }
+  __device__ __forceinline__ void get(int r, int j, float (&p)[3]) const { pcs.get(r, j, p); }
+};
+
+// Three refinement steps of w against the unscaled system A w = B:
+// w += inv ((B - A w) / e), A w by exact_split_dot; ``inv(k, c)`` gives an
+// entry of the inverse. Every thread of the block calls it; it ends after a
+// barrier.
+template <int THREADS, class AM, class GS, class INV>
+__device__ void gj_refine(int m, const AM& A, const float* b, float* w, GS& G, float* w_split,
+                          INV inv) {
+  const int tid = threadIdx.x;
+  for (int step = 0; step < 3; ++step) {
+    split3_all<THREADS>(m * 3, w, w_split);
+    __syncthreads();
+    for (int q = tid; q < m * 3; q += THREADS) {
+      const int r = q / 3, d = q % 3;
+      const float acc = exact_split_dot(m, A, r, w_split, m * 3, d);
+      G.r[q] = (b[q] - acc) / G.e[r];
+    }
+    __syncthreads();
+    for (int q = tid; q < m * 3; q += THREADS) {
+      const int r = q / 3, d = q % 3;
+      float acc = 0.0f;
+      for (int j = 0; j < m; ++j) acc = fmaf(inv(r, j), G.r[j * 3 + d], acc);
+      w[q] = w[q] + acc;
+    }
+    __syncthreads();
+  }
+}
+
+// Solves A w = B for one system: ``A`` an accessor of the unscaled matrix
+// (``value(r, c)`` and its split3 pieces ``get(r, c, p)``, DenseA for one in
+// shared memory), ``b`` (m*3) unscaled in shared memory; ``w`` (m*3) in
+// shared memory is written, and ``w_split`` (3*m*3 floats of shared memory)
+// holds w's pieces during the refinement. ``aug`` is shared memory for
+// [A/e | I | B/e], m rows of gj_stride(m, gj_per_row(THREADS, m)) floats
+// (the narrow layout passes G.aug). Every thread of the block calls it; it
+// ends after a barrier.
+template <int THREADS, GjScale RULE, class AM, int MM, bool OWN>
+__device__ void gj_solve(int m, const AM& A, const float* b, float* w, GjSmem<MM, OWN>& G,
+                         float* aug, float* w_split) {
   constexpr int NWARPS = THREADS / 32;
-  constexpr int NC = gj_slots(THREADS);
+  constexpr int NC = gj_slots(THREADS, MM);
+  constexpr int RPL = (MM + 31) / 32;  // the search warp's rows a lane
   static_assert(THREADS >= 256 && THREADS % 32 == 0, "the update warps need 224 threads");
+  static_assert(MM <= THREADS - 32, "an update thread per row");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool searcher = warp == NWARPS - 1;
   const int per_row = gj_per_row(THREADS, m);
@@ -238,7 +334,7 @@ __device__ void gj_solve(int m, const float* a, const float* b, float* w, GjSmem
   // Row scales, one warp per row (a maximum is exact in any order).
   for (int r = warp; r < m; r += NWARPS) {
     float d = 0.0f;
-    for (int c = lane; c < m; c += 32) d = fmaxf(d, fabsf(a[r * m + c]));
+    for (int c = lane; c < m; c += 32) d = fmaxf(d, fabsf(A.value(r, c)));
     for (int off = 16; off > 0; off >>= 1) d = fmaxf(d, __shfl_xor_sync(TD_FULL_MASK, d, off));
     if (lane == 0) {
       G.e[r] = gj_row_scale<RULE>(d);
@@ -250,28 +346,31 @@ __device__ void gj_solve(int m, const float* a, const float* b, float* w, GjSmem
     const float er = G.e[r];
     for (int c = lane; c < 2 * m + 3; c += 32) {
       float v;
-      if (c < m) v = a[r * m + c] / er;
+      if (c < m) v = A.value(r, c) / er;
       else if (c < 2 * m) v = 0.0f;  // written when its row is pivoted
       else v = b[r * 3 + c - 2 * m] / er;
-      G.aug[r * width + c] = v;
+      aug[r * width + c] = v;
     }
   }
   __syncthreads();
-  // The search warp's rows (lane, lane + 32) and the values of their current
+  // The search warp's rows (lane + 32 h) and the values of their current
   // column; an update thread's row (-1: none) and first slot.
-  float col[2] = {0.0f, 0.0f};
-  unsigned long long used = 0ull;
+  float col[RPL];
+#pragma unroll
+  for (int h = 0; h < RPL; ++h) col[h] = 0.0f;
+  GjRows<MM> used;
+  used.clear();
   const int my_r = !searcher && tid < per_row * m ? tid / per_row : -1;
   const int my_g = tid - my_r * per_row;
   if (searcher) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < RPL; ++h) {
       const int r = lane + 32 * h;
-      if (r < m) col[h] = G.aug[r * width];
+      if (r < m) col[h] = aug[r * width];
     }
     float pv;
     const int ridx = gj_pick(m, used, col, pv);
-    used |= 1ull << ridx;
+    used.add(ridx);
     if (lane == 0) {
       G.piv_row[0] = ridx;
       G.piv_val[0] = pv;
@@ -289,28 +388,29 @@ __device__ void gj_solve(int m, const float* a, const float* b, float* w, GjSmem
       // Slot 0, column k + 1 (the fresh identity column when m == 1).
       const int c = k + 1;
       const bool fresh = m == 1;
-      float nxt[2] = {0.0f, 0.0f};
+      float nxt[RPL];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < RPL; ++h) {
+        nxt[h] = 0.0f;
         const int r = lane + 32 * h;
         if (r >= m) continue;
         if (r == p) {
-          if (fresh) G.aug[r * width + c] = 1.0f;
-          nxt[h] = G.aug[r * width + c];
+          if (fresh) aug[r * width + c] = 1.0f;
+          nxt[h] = aug[r * width + c];
           continue;
         }
         const float f = col[h] / pv_safe;
-        const float x = fresh ? 0.0f : G.aug[r * width + c];
-        const float y = fresh ? 1.0f : G.aug[p * width + c];
+        const float x = fresh ? 0.0f : aug[r * width + c];
+        const float y = fresh ? 1.0f : aug[p * width + c];
         nxt[h] = x - f * y;
-        G.aug[r * width + c] = nxt[h];
+        aug[r * width + c] = nxt[h];
       }
-      col[0] = nxt[0];
-      col[1] = nxt[1];
+#pragma unroll
+      for (int h = 0; h < RPL; ++h) col[h] = nxt[h];
       if (k + 1 < m) {
         float pvn;
         const int ridx = gj_pick(m, used, col, pvn);
-        used |= 1ull << ridx;
+        used.add(ridx);
         if (lane == 0) {
           G.piv_row[(k + 1) & 1] = ridx;
           G.piv_val[(k + 1) & 1] = pvn;
@@ -321,8 +421,8 @@ __device__ void gj_solve(int m, const float* a, const float* b, float* w, GjSmem
       }
     } else if (my_r >= 0) {
       const int r = my_r;
-      float* row = G.aug + r * width;
-      const float* prow = G.aug + p * width;
+      float* row = aug + r * width;
+      const float* prow = aug + p * width;
       if (r == p) {
         // The pivot row keeps its values; its fresh identity entry is 1.
         const int j = m - 1;
@@ -344,36 +444,34 @@ __device__ void gj_solve(int m, const float* a, const float* b, float* w, GjSmem
     }
     __syncthreads();
   }
-  // inv[k] and w[k] from the row pivoted at step k, one warp per step (NaN
-  // where no row was: every candidate of column 0 was NaN).
+  // w[k] (and, in the narrow layout, inv[k]) from the row pivoted at step k,
+  // one warp per step (NaN where no row was: every candidate of column 0 was
+  // NaN).
+  const float nan = __int_as_float(0x7fffffff);
   for (int k = warp; k < m; k += NWARPS) {
     const float dg = fabsf(G.diag[k]) < 1e-30f ? 1.0f : G.diag[k];
     const int pr = G.perm[k];
-    const float* row = G.aug + (pr < m ? pr : 0) * width;
-    const float nan = __int_as_float(0x7fffffff);
+    const float* row = aug + (pr < m ? pr : 0) * width;
     for (int c = lane; c < m + 3; c += 32) {
-      if (c < m) G.inv[k * m + c] = pr < m ? row[m + G.pos[c]] / dg : nan;
-      else w[k * 3 + c - m] = pr < m ? row[2 * m + c - m] / dg : nan;
+      if (c < m) {
+        if constexpr (OWN) G.inv[k * m + c] = pr < m ? row[m + G.pos[c]] / dg : nan;
+      } else {
+        w[k * 3 + c - m] = pr < m ? row[2 * m + c - m] / dg : nan;
+      }
     }
   }
   __syncthreads();
-  // Refinement against the unscaled system.
-  for (int step = 0; step < 3; ++step) {
-    split3_all<THREADS>(m * 3, w, w_split);
-    __syncthreads();
-    for (int q = tid; q < m * 3; q += THREADS) {
-      const int r = q / 3, d = q % 3;
-      const float acc = exact_split_dot(m, a_split, m * m, r, w_split, m * 3, d);
-      G.r[q] = (b[q] - acc) / G.e[r];
-    }
-    __syncthreads();
-    for (int q = tid; q < m * 3; q += THREADS) {
-      const int r = q / 3, d = q % 3;
-      float acc = 0.0f;
-      for (int j = 0; j < m; ++j) acc = fmaf(G.inv[r * m + j], G.r[j * 3 + d], acc);
-      w[q] = w[q] + acc;
-    }
-    __syncthreads();
+  if constexpr (OWN) {
+    // Refinement against the unscaled system, the inverse from G.inv.
+    gj_refine<THREADS>(m, A, b, w, G, w_split, [&](int k, int c) { return G.inv[k * m + c]; });
+  } else {
+    // The same refinement, each entry of the inverse read from [A | I | B]
+    // (the quotient the narrow layout stores).
+    gj_refine<THREADS>(m, A, b, w, G, w_split, [&](int k, int c) {
+      const float dg = fabsf(G.diag[k]) < 1e-30f ? 1.0f : G.diag[k];
+      const int pr = G.perm[k];
+      return pr < m ? aug[pr * width + m + G.pos[c]] / dg : nan;
+    });
   }
 }
 

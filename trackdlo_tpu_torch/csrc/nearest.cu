@@ -29,7 +29,9 @@
 
 namespace {
 
-constexpr int MMAX = 48;
+// Nothing in the layout depends on the node bound (a thread keeps one node);
+// it needs m <= THREADS / 4, so that a node has at least four slices.
+constexpr int MMAX = 128;
 constexpr int THREADS = 512;
 constexpr int NWARPS = THREADS / 32;
 constexpr int TILE = 2048;  // rows compacted at a time

@@ -36,11 +36,13 @@
 // A minimum is exact in any order, so every value is the plain version's;
 // pixel coordinates use an IEEE divide and truncation, with pz == 0
 // guarded.
+//
+// Node bound: compiled for at most 64 nodes (one 64-bit word a node mask,
+// four nodes a warp in sweep 1) and for at most 128 (two words, eight).
 #include "common.cuh"
 
 namespace {
 
-constexpr int MMAX = 64;
 constexpr int THREADS = 512;
 constexpr int NWARPS = THREADS / 32;
 constexpr int SEG = 2048;  // rows compacted at a time
@@ -52,6 +54,7 @@ __device__ __forceinline__ float sqd(const float* y, int j, float x0, float x1, 
   return d0 * d0 + d1 * d1 + d2 * d2;
 }
 
+template <int MMAX>
 struct Smem {
   float px[SEG], py[SEG], pz[SEG];  // the segment's valid points, in row order
   int pidx[SEG];                    // and their rows
@@ -60,15 +63,57 @@ struct Smem {
   float pu[MMAX], pv[MMAX], ru[MMAX], rv[MMAX];
   int rank[MMAX];
   int covered[MMAX];
-  unsigned bits[2][2];  // vis and ext masks, words of nodes 0..31 and 32..63
+  unsigned bits[2][MMAX / 32];  // vis and ext masks, a word per 32 nodes
   int wcount[NWARPS];
+};
+
+// A set of nodes, one bit a node in W 64-bit words.
+template <int W>
+struct NodeMask {
+  unsigned long long w[W];
+  __device__ __forceinline__ bool has(int j) const { return (w[j >> 6] >> (j & 63)) & 1ull; }
+  __device__ __forceinline__ int count() const {
+    int c = 0;
+#pragma unroll
+    for (int i = 0; i < W; ++i) c += __popcll(w[i]);
+    return c;
+  }
+  // Members below node j.
+  __device__ __forceinline__ int count_below(int j) const {
+    int c = 0;
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const int lo = 64 * i;
+      if (j >= lo + 64) c += __popcll(w[i]);
+      else if (j > lo) c += __popcll(w[i] & ((1ull << (j - lo)) - 1ull));
+    }
+    return c;
+  }
+  // The highest member at or below node j, else -1.
+  __device__ __forceinline__ int prev_at_or_below(int j) const {
+    for (int i = j >> 6; i >= 0; --i) {
+      unsigned long long x = w[i];
+      if (i == (j >> 6)) x &= ~0ull >> (63 - (j & 63));
+      if (x) return 64 * i + 63 - __clzll(x);
+    }
+    return -1;
+  }
+  // The lowest member at or above node j, else -1.
+  __device__ __forceinline__ int next_at_or_above(int j) const {
+    const unsigned long long x = w[j >> 6] >> (j & 63);
+    if (x) return j + __ffsll(x) - 1;
+    for (int i = (j >> 6) + 1; i < W; ++i)
+      if (w[i]) return 64 * i + __ffsll(w[i]) - 1;
+    return -1;
+  }
 };
 
 // Compacts the valid rows [r0, min(n, r0 + SEG)) into S (row order) and
 // writes the sentinel to both point minima of every other row; returns the
 // count (the same in every thread). Starts with a barrier (no thread still
 // reads the previous segment) and ends in one.
-__device__ int compact_segment(const float* x, const uint8_t* xm, int n, int r0, Smem& S,
+template <class SM>
+__device__ int compact_segment(const float* x, const uint8_t* xm, int n, int r0, SM& S,
                                float* pmin_all, float* pmin_ext) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r1 = min(n, r0 + SEG);
@@ -102,16 +147,22 @@ __device__ int compact_segment(const float* x, const uint8_t* xm, int n, int r0,
   return count;
 }
 
-// The 64-bit node mask of the flags ``f`` of threads 0..63 (the others pass
+// The node mask of the flags ``f`` of threads 0..MMAX-1 (the others pass
 // false): every thread calls it; ends in a barrier.
-__device__ unsigned long long node_mask(bool f, unsigned (&word)[2]) {
+template <int MMAX>
+__device__ NodeMask<MMAX / 64> node_mask(bool f, unsigned (&word)[MMAX / 32]) {
   const int tid = threadIdx.x;
   const unsigned bal = __ballot_sync(TD_FULL_MASK, f);
-  if (tid < 64 && (tid & 31) == 0) word[tid >> 5] = bal;
+  if (tid < MMAX && (tid & 31) == 0) word[tid >> 5] = bal;
   __syncthreads();
-  return (unsigned long long)word[0] | ((unsigned long long)word[1] << 32);
+  NodeMask<MMAX / 64> mask;
+#pragma unroll
+  for (int i = 0; i < MMAX / 64; ++i)
+    mask.w[i] = (unsigned long long)word[2 * i] | ((unsigned long long)word[2 * i + 1] << 32);
+  return mask;
 }
 
+template <int MMAX>
 __global__ void __launch_bounds__(THREADS, 1) visibility_kernel(
     const float* __restrict__ y_in, const float* __restrict__ x,
     const uint8_t* __restrict__ xm, const float* __restrict__ proj,
@@ -121,7 +172,7 @@ __global__ void __launch_bounds__(THREADS, 1) visibility_kernel(
     long long* vis_idx, long long* ext_idx, long long* counts, float* pmin_all,
     float* pmin_ext) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& S = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<MMAX>& S = *reinterpret_cast<Smem<MMAX>*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t sm = (size_t)blockIdx.x * m, sn = (size_t)blockIdx.x * n;
   y_in += sm * 3;
@@ -230,28 +281,25 @@ __global__ void __launch_bounds__(THREADS, 1) visibility_kernel(
   // Visible: not self-occluded and near the cloud; then the geodesic gap
   // fill between the nearest visible neighbours, and the packs.
   const bool vis = tid < m && !S.covered[tid] && S.shortest[tid] <= tau_vis;
-  const unsigned long long vmask = node_mask(vis, S.bits[0]);
+  const auto vmask = node_mask<MMAX>(vis, S.bits[0]);
   bool ext = false;
   if (tid < m) {
     ext = vis;
-    const unsigned long long below = vmask & (~0ull >> (63 - tid));  // bits 0..tid
-    const unsigned long long above = vmask >> tid;                    // bits tid..
-    if (!ext && below && above) {
-      const int prev = 63 - __clzll(below);
-      const int next = tid + __ffsll(above) - 1;
-      ext = fabsf(S.coord[next] - S.coord[prev]) <= d_vis;
+    if (!ext) {
+      const int prev = vmask.prev_at_or_below(tid);
+      const int next = vmask.next_at_or_above(tid);
+      if (prev >= 0 && next >= 0) ext = fabsf(S.coord[next] - S.coord[prev]) <= d_vis;
     }
     not_occ_out[tid] = S.covered[tid] ? 0 : 1;
     shortest_out[tid] = S.shortest[tid];
     visible_out[tid] = vis ? 1 : 0;
     extended_out[tid] = ext ? 1 : 0;
   }
-  const unsigned long long emask = node_mask(ext, S.bits[1]);
+  const auto emask = node_mask<MMAX>(ext, S.bits[1]);
   if (tid < m) {
-    const unsigned long long lower = (1ull << tid) - 1ull;
-    const int cv = __popcll(vmask), ce = __popcll(emask);
-    if (vis) vis_idx[__popcll(vmask & lower)] = tid;
-    if (ext) ext_idx[__popcll(emask & lower)] = tid;
+    const int cv = vmask.count(), ce = emask.count();
+    if (vis) vis_idx[vmask.count_below(tid)] = tid;
+    if (ext) ext_idx[emask.count_below(tid)] = tid;
     if (tid >= cv) vis_idx[tid] = m - 1;
     if (tid >= ce) ext_idx[tid] = m - 1;
     if (tid == 0) {
@@ -273,12 +321,29 @@ __global__ void __launch_bounds__(THREADS, 1) visibility_kernel(
       for (int j = 0; j < m; ++j) {
         const float d = sqd(S.y, j, x0, x1, x2);
         ma = fminf(ma, d);
-        if ((emask >> j) & 1ull) me = fminf(me, d);
+        if (emask.has(j)) me = fminf(me, d);
       }
       pmin_all[S.pidx[q]] = ma;
       pmin_ext[S.pidx[q]] = me;
     }
   }
+}
+
+template <int MMAX>
+int launch(const float* y, const float* x, const uint8_t* xm, const float* proj,
+           const float* coord, int n_streams, int m, int n, int img_rows, int img_cols,
+           float tau_vis, float w_half, float d_vis, uint8_t* visible, uint8_t* extended,
+           uint8_t* not_occ, float* shortest, long long* vis_idx, long long* ext_idx,
+           long long* counts, float* pmin_all, float* pmin_ext, cudaStream_t stream) {
+  const int smem = (int)sizeof(Smem<MMAX>);
+  cudaError_t err = cudaFuncSetAttribute(visibility_kernel<MMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  visibility_kernel<MMAX><<<n_streams, THREADS, smem, stream>>>(
+      y, x, xm, proj, coord, m, n, img_rows, img_cols, tau_vis, w_half, d_vis,
+      visible, extended, not_occ, shortest, vis_idx, ext_idx, counts, pmin_all,
+      pmin_ext);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -289,15 +354,13 @@ extern "C" int trackdlo_visibility(
     float tau_vis, float w_half, float d_vis, uint8_t* visible,
     uint8_t* extended, uint8_t* not_occ, float* shortest, long long* vis_idx,
     long long* ext_idx, long long* counts, float* pmin_all, float* pmin_ext, void* stream) {
-  if (m < 2 || m > MMAX || n < 0 || n_streams < 0) return (int)cudaErrorInvalidValue;
+  if (m < 2 || m > 128 || n < 0 || n_streams < 0) return (int)cudaErrorInvalidValue;
   if (n_streams == 0) return 0;
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err =
-      cudaFuncSetAttribute(visibility_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  visibility_kernel<<<n_streams, THREADS, smem, (cudaStream_t)stream>>>(
-      y, x, xm, proj, coord, m, n, img_rows, img_cols, tau_vis, w_half, d_vis,
-      visible, extended, not_occ, shortest, vis_idx, ext_idx, counts, pmin_all,
-      pmin_ext);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return m <= 64 ? launch<64>(y, x, xm, proj, coord, n_streams, m, n, img_rows, img_cols,
+                              tau_vis, w_half, d_vis, visible, extended, not_occ, shortest,
+                              vis_idx, ext_idx, counts, pmin_all, pmin_ext, st)
+                 : launch<128>(y, x, xm, proj, coord, n_streams, m, n, img_rows, img_cols,
+                               tau_vis, w_half, d_vis, visible, extended, not_occ, shortest,
+                               vis_idx, ext_idx, counts, pmin_all, pmin_ext, st);
 }

@@ -29,6 +29,9 @@
 // operands (the library is built with -fmad=false), each division a true
 // quotient. `valid` is written as bytes 0/1 straight into the caller's
 // torch.bool tensor.
+//
+// Node bound: two segments a lane take up to 65 nodes, four up to 129; a
+// launch takes the two-segment build where m <= 65.
 #include <climits>
 
 #include "common.cuh"
@@ -36,8 +39,18 @@
 namespace {
 
 constexpr int WARPS_PER_BLOCK = 4;
-constexpr int SEG_PER_LANE = 2;  // up to 64 segments (m <= 65)
 
+// Element i of a lane's registers v[0..K) for a warp-uniform i.
+template <int K>
+__device__ __forceinline__ float pick_reg(const float (&v)[K], int i) {
+  float out = v[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k)
+    if (i == k) out = v[k];
+  return out;
+}
+
+template <int SEG_PER_LANE>
 __global__ void walks_kernel(const float* __restrict__ guides,
                              const float* __restrict__ seglens,
                              const int* __restrict__ ints, int n_walks, int m,
@@ -110,7 +123,7 @@ __global__ void walks_kernel(const float* __restrict__ guides,
   for (int step = 0; step < m - 1; ++step) {
     if (!(last <= outer_hi && node_pos + 1 <= m - 1)) break;
     const int li = min(max(node_pos, 0), m - 2);
-    const float look = __shfl_sync(TD_FULL_MASK, (li >> 5) ? look_at[1] : look_at[0], li & 31);
+    const float look = __shfl_sync(TD_FULL_MASK, pick_reg(look_at, li >> 5), li & 31);
     float chx[SEG_PER_LANE], chy[SEG_PER_LANE], chz[SEG_PER_LANE];
     int first_local = INT_MAX;
 #pragma unroll
@@ -159,11 +172,10 @@ __global__ void walks_kernel(const float* __restrict__ guides,
     }
     const int first = __reduce_min_sync(TD_FULL_MASK, first_local);
     if (first == INT_MAX) break;  // no acceptable segment: the walk ends
-    const int owner = first & 31;
-    const bool hi_seg = (first >> 5) != 0;
-    cx = __shfl_sync(TD_FULL_MASK, hi_seg ? chx[1] : chx[0], owner);
-    cy = __shfl_sync(TD_FULL_MASK, hi_seg ? chy[1] : chy[0], owner);
-    cz = __shfl_sync(TD_FULL_MASK, hi_seg ? chz[1] : chz[0], owner);
+    const int owner = first & 31, k_seg = first >> 5;
+    cx = __shfl_sync(TD_FULL_MASK, pick_reg(chx, k_seg), owner);
+    cy = __shfl_sync(TD_FULL_MASK, pick_reg(chy, k_seg), owner);
+    cz = __shfl_sync(TD_FULL_MASK, pick_reg(chz, k_seg), owner);
     last = first;
     node_pos += 1;
     if (lane == 0) {
@@ -180,10 +192,16 @@ __global__ void walks_kernel(const float* __restrict__ guides,
 extern "C" int trackdlo_walks(const float* guides, const float* seglens,
                               const int* ints, int n_walks, int m, float eps,
                               float* pos, uint8_t* valid, void* stream) {
-  if (m < 2 || m > 32 * SEG_PER_LANE + 1 || n_walks < 0) return (int)cudaErrorInvalidValue;
+  if (m < 2 || m > 32 * 4 + 1 || n_walks < 0) return (int)cudaErrorInvalidValue;
   if (n_walks == 0) return 0;
   const int blocks = (n_walks + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  walks_kernel<<<blocks, 32 * WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-      guides, seglens, ints, n_walks, m, eps, pos, valid);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (m <= 32 * 2 + 1) {
+    walks_kernel<2><<<blocks, 32 * WARPS_PER_BLOCK, 0, st>>>(guides, seglens, ints, n_walks, m,
+                                                            eps, pos, valid);
+  } else {
+    walks_kernel<4><<<blocks, 32 * WARPS_PER_BLOCK, 0, st>>>(guides, seglens, ints, n_walks, m,
+                                                            eps, pos, valid);
+  }
   return (int)cudaGetLastError();
 }

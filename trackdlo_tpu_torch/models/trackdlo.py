@@ -5,18 +5,23 @@ runs: preprocessing (kernel P, compaction with kernel C, voxel snap) → visibil
 (kernel V) → pre-registration EM over the extended-visible guide nodes
 (kernel E) → occlusion dispatch and prior walks (kernel W) → main EM
 (kernel E). Every stage stays on the tracker's device; nothing is read back
-to the host inside a step. The same stages run over a leading stream axis in
-the batched step, and with the cloud sharded over a process group in the
-point-sharded step (:mod:`trackdlo_tpu_torch.parallel`).
+to the host inside a step. On the card, :func:`build_step_fn` captures the
+whole step once as one CUDA graph and replays it every frame (the
+counterpart of the JAX package's one jitted step); ``Tracker`` steps through
+it. The same stages run over a leading stream axis in the batched step, and
+with the cloud sharded over a process group in the point-sharded step
+(:mod:`trackdlo_tpu_torch.parallel`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from trackdlo_tpu_torch import _build
 from trackdlo_tpu_torch.config import CameraIntrinsics, TrackerParams
 from trackdlo_tpu_torch.device import resolve_device, set_full_fp32
 from trackdlo_tpu_torch.ops.collectives import shard_slice
@@ -64,19 +69,21 @@ def init_state(init_nodes, params: TrackerParams, device=None) -> TrackerState:
     )
 
 
+def _host_tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy frame as a tensor to copy to ``device``: u16 depth as its
+    bits in int16 (the kernels read them as u16), in pinned memory for a
+    CUDA device."""
+    arr = np.ascontiguousarray(a)
+    t = torch.from_numpy(arr.view(np.int16) if arr.dtype == np.uint16 else arr)
+    return t.pin_memory() if device.type == "cuda" else t
+
+
 def host_to_device(a, device: torch.device) -> torch.Tensor:
-    """A frame (numpy or tensor) on ``device``; u16 depth travels as its
-    bits in int16 (the kernels read them as u16), through pinned memory to
-    a CUDA device."""
+    """A frame (numpy or tensor) on ``device``, through pinned memory to a
+    CUDA device."""
     if isinstance(a, torch.Tensor):
         return a.to(device, non_blocking=True)
-    arr = np.ascontiguousarray(a)
-    if arr.dtype == np.uint16:
-        arr = arr.view(np.int16)
-    t = torch.from_numpy(arr)
-    if device.type == "cuda":
-        t = t.pin_memory().to(device, non_blocking=True)
-    return t
+    return _host_tensor(a, device).to(device, non_blocking=True)
 
 
 def preprocess_for_step(rgb, depth, occlusion_mask, *, params: TrackerParams,
@@ -185,6 +192,148 @@ def _track_from_points(state: TrackerState, pc: PointCloud, proj: torch.Tensor, 
     return new_state, outputs
 
 
+def _step_impl(state: TrackerState, rgb, depth, occ, *, params: TrackerParams,
+               intr: CameraIntrinsics, cell_px: int, proj: torch.Tensor):
+    """The eager per-frame step on ``proj``'s device: the frame to the
+    device, preprocessing, then :func:`_track_from_points`."""
+    dev = proj.device
+    pc = preprocess_for_step(
+        host_to_device(rgb, dev), host_to_device(depth, dev),
+        host_to_device(occ, dev).contiguous(), params=params, intr=intr, cell_px=cell_px,
+    )
+    return _track_from_points(state, pc, proj, params=params, intr=intr)
+
+
+def _tree_map(fn, tree):
+    """``fn`` of every tensor in nested (named) tuples."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        parts = [_tree_map(fn, v) for v in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    return tree
+
+
+def _copy_outputs(tree):
+    """A copy of every tensor of ``tree``; a tensor that appears twice (the
+    state's y and the outputs' y) is copied once and stays one tensor."""
+    copies: dict = {}
+
+    def copy_once(t):
+        if id(t) not in copies:
+            copies[id(t)] = t.clone()
+        return copies[id(t)]
+
+    return _tree_map(copy_once, tree)
+
+
+def _copy_into(dst: torch.Tensor, src, name: str) -> None:
+    """``src`` (a tensor, or a numpy array through pinned memory) into the
+    static buffer ``dst``: same shape and dtype (u16 depth as its int16
+    bits), copied without a host synchronisation."""
+    if not isinstance(src, torch.Tensor):
+        src = _host_tensor(src, dst.device)
+    if src.dtype == torch.uint16 and dst.dtype == torch.int16:
+        src = src.view(torch.int16)
+    if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+        raise ValueError(f"{name} must be {tuple(dst.shape)} {dst.dtype}, "
+                         f"got {tuple(src.shape)} {src.dtype}")
+    dst.copy_(src, non_blocking=True)
+
+
+class CompiledStep:
+    """A step ``fn(state, rgb, depth, occ) -> outputs`` captured once as one
+    CUDA graph over static input buffers and replayed every call.
+
+    The first call warms ``fn`` up eagerly on a side stream (the kernel
+    library loads, every launcher sets its attributes, every cache fills),
+    then captures it into one ``torch.cuda.CUDAGraph``. Each call copies the
+    frame into the static rgb, depth (its int16 bits) and occlusion buffers
+    (numpy through pinned memory) and the state into the static state,
+    replays the graph, and returns copies of the outputs taken out of the
+    graph's memory pool: what one call returns is never overwritten by the
+    next, so streams can interleave their states through one step. The
+    kernel wrappers count their launches in Python, so once while capturing:
+    that count is recorded and added to ``_build``'s counters at each
+    replay. Nothing falls back: a capture that fails raises. Calls must not
+    overlap (callers serialise them, as the TCP server's device lock does)."""
+
+    def __init__(self, fn: Callable, device: torch.device, params: TrackerParams,
+                 intr: CameraIntrinsics):
+        self.fn, self.device = fn, device
+        h, w, m = intr.height, intr.width, params.num_of_nodes
+        self._shapes = dict(y=((m, 3), torch.float32), sigma2=((), torch.float32),
+                            geodesic_coord=((m,), torch.float32), rgb=((h, w, 3), torch.uint8),
+                            depth=((h, w), torch.int16), occ=((h, w), torch.bool))
+        self.graph = None
+        self.counts = None
+        self._inputs = None
+        self._outputs = None
+
+    def _load(self, state, rgb, depth, occ) -> None:
+        for name, src in zip(self._inputs, (*state, rgb, depth, occ)):
+            _copy_into(self._inputs[name], src, name)
+
+    def _args(self):
+        b = self._inputs
+        return (TrackerState(b["y"], b["sigma2"], b["geodesic_coord"]), b["rgb"], b["depth"],
+                b["occ"])
+
+    def _capture(self, state, rgb, depth, occ) -> None:
+        dev = self.device
+        self._inputs = {k: torch.empty(shape, dtype=dt, device=dev)
+                        for k, (shape, dt) in self._shapes.items()}
+        self._load(state, rgb, depth, occ)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.fn(*self._args())
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(_build.launch_counts)
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outputs = self.fn(*self._args())
+        finally:
+            after = dict(_build.launch_counts)
+            counts = {k: after[k] - before[k] for k in after}
+            _build.add_counts({k: -v for k, v in counts.items()})
+        self.graph, self.counts, self._outputs = graph, counts, outputs
+
+    def __call__(self, state, rgb, depth, occ):
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                self._capture(state, rgb, depth, occ)
+            self._load(state, rgb, depth, occ)
+            self.graph.replay()
+            _build.add_counts(self.counts)
+            return _copy_outputs(self._outputs)
+
+
+def build_step_fn(params: TrackerParams, intr: CameraIntrinsics, jit: bool = True,
+                  device=None):
+    """The per-frame step ``(state, rgb u8 (H, W, 3), depth u16 (H, W), occ
+    bool (H, W)) -> (state, outputs)`` on ``device`` (the CUDA card unless
+    the caller names the CPU); the frame may be numpy arrays or tensors.
+
+    On a CUDA device with ``jit`` (the default, as the JAX package's
+    ``jax.jit``): a :class:`CompiledStep`, the whole step captured at the
+    first call as one CUDA graph and replayed every frame. With
+    ``jit=False``, on the CPU, or with a solver other than ``"lu"``, the
+    eager step: those solvers run the per-iteration EM loop, which reads one
+    flag an iteration on the host (``ops.cpd_lle.em_loop_lockstep``), so
+    no graph can hold it. Either way the hyperparameters are fixed when the
+    step is built."""
+    dev = resolve_device(device)
+    set_full_fp32()
+    cell_px = params.downsample_cell_px or default_cell_px(params.downsample_leaf_size, intr.fx)
+    proj = torch.as_tensor(np.array(intr.proj_matrix(), np.float32), device=dev)
+    fn = functools.partial(_step_impl, params=params, intr=intr, cell_px=cell_px, proj=proj)
+    if jit and dev.type == "cuda" and params.solver == "lu":
+        return CompiledStep(fn, dev, params, intr)
+    return fn
+
+
 class Tracker:
     """Tracking API on one device.
 
@@ -197,19 +346,19 @@ class Tracker:
 
     ``device="cuda"`` without a GPU raises; it never falls back to the CPU.
     On a CUDA device every former TPU kernel of the step runs as a
-    hand-written CUDA kernel; on the CPU the plain versions run."""
+    hand-written CUDA kernel (up to 128 nodes, ``hopper_kernels.NODE_MAX``;
+    more raise there), and ``step``
+    replays the step's CUDA graph (:func:`build_step_fn`; eager with a
+    solver other than ``"lu"``); on the CPU the plain versions run
+    eagerly."""
 
     def __init__(self, params: TrackerParams, intrinsics: CameraIntrinsics, device=None):
         self.params = params
         self.intrinsics = intrinsics
         self.device = resolve_device(device)
-        set_full_fp32()
-        self.cell_px = params.downsample_cell_px or default_cell_px(
-            params.downsample_leaf_size, intrinsics.fx
-        )
-        self._proj = torch.as_tensor(
-            np.array(intrinsics.proj_matrix(), np.float32), device=self.device
-        )
+        self._step = build_step_fn(params, intrinsics, device=self.device)
+        fn = self._step.fn if isinstance(self._step, CompiledStep) else self._step
+        self._proj = fn.keywords["proj"]
         self._full_occ = None
 
     def init_from_nodes(self, nodes) -> TrackerState:
@@ -246,11 +395,7 @@ class Tracker:
             occ = host_to_device(occlusion_mask, self.device) != 0
             if occ.ndim == 3:
                 occ = occ.any(dim=-1)
-        pc = preprocess_for_step(
-            host_to_device(rgb, self.device), host_to_device(depth, self.device), occ.contiguous(),
-            params=self.params, intr=self.intrinsics, cell_px=self.cell_px,
-        )
-        return _track_from_points(state, pc, self._proj, params=self.params, intr=self.intrinsics)
+        return self._step(state, rgb, depth, occ)
 
     def step_from_points(self, state: TrackerState, points):
         """One update from a caller-supplied (N, 3) cloud, skipping the RGB-D

@@ -9,7 +9,8 @@ for one), ``gauss_jordan_solve_batched`` (kernel G, csrc/gj_solve.cu),
 (kernel N, csrc/nearest.cu).
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel (or raises).
+tensors it launches the kernel (or raises, as for more nodes than
+:data:`NODE_MAX` gives).
 """
 
 from __future__ import annotations
@@ -37,21 +38,41 @@ def cluster_shape(n: int) -> tuple[int, int]:
     return c, -(-n // c)
 
 
+# The most nodes each kernel takes on the card. E, S, G and F are compiled
+# for at most 48 and for at most 128 nodes (EC_MMAX and EC_MMAX_WIDE,
+# csrc/estep_cluster.cuh; GJ_MMAX and GJ_MMAX_WIDE, csrc/gj.cuh) and launch
+# the 48-node build where it takes m; N keeps one node a thread (128,
+# csrc/nearest.cu); V is compiled for 64 and 128 nodes (one or two 64-bit
+# words a node mask, csrc/visibility.cu); W for 65 and 129 guides (two or
+# four segments a lane, csrc/walks.cu).
+NODE_MAX = {"em_loop": 128, "estep": 128, "estep_batch": 128, "gj_solve": 128,
+            "em_iteration": 128, "nearest": 128, "visibility": 128, "walks": 129}
+
+
+def check_nodes(fn: str, name: str, m: int, lo: int = 1) -> None:
+    """Raise unless kernel ``name`` (a launch counter's name) takes ``m``
+    nodes on the card; ``fn`` names the wrapper in the message."""
+    if not lo <= m <= NODE_MAX[name]:
+        raise ValueError(f"{fn}: m={m} outside [{lo}, {NODE_MAX[name]}]")
+
+
 def _check_cluster_rows(name: str, n: int) -> None:
     if cluster_shape(n)[1] > _CTA_MAX_ROWS:
         raise ValueError(f"{name}: n={n} rows exceed {_CLUSTER_MAX * _CTA_MAX_ROWS}")
 
 
-def cluster_info(kernel: str, n: int) -> dict:
+def cluster_info(kernel: str, n: int, m: int = 45) -> dict:
     """Kernel E's (``"em_loop"``), S's (``"estep"``) or F's (``"em_iter"``)
-    cluster launch for ``n`` rows on the current card: the cluster size, the
-    rows per CTA and how many such clusters the card can hold at once."""
+    cluster launch for ``n`` rows and ``m`` nodes on the current card: the
+    cluster size, the rows per CTA, how many such clusters the card can hold
+    at once and a CTA's shared memory in bytes (of the build for ``m``)."""
     import ctypes
 
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     fn = getattr(_build.lib(), f"trackdlo_{kernel}_cluster_info")
-    _build.check(fn(int(n), ctypes.addressof(out)), f"trackdlo_{kernel}_cluster_info")
-    return {"cluster_size": out[0], "rows_per_cta": out[1], "max_active_clusters": out[2]}
+    _build.check(fn(int(n), int(m), ctypes.addressof(out)), f"trackdlo_{kernel}_cluster_info")
+    return {"cluster_size": out[0], "rows_per_cta": out[1], "max_active_clusters": out[2],
+            "smem_bytes": out[3]}
 
 
 # ---------------------------------------------------------------------------
@@ -178,9 +199,11 @@ def fused_em_loop_plain(
     alpha: float, tol: float, max_iter: int,
 ):
     """The EM loop in plain tensor ops; same inputs and outputs as
-    :func:`fused_em_loop`. The M-step is a direct solve. Iterations after
-    convergence are computed but frozen out, so nothing is read back to the
-    host (on the CPU the loop stops at convergence)."""
+    :func:`fused_em_loop`. The M-step is a direct solve (``solve_ex`` with
+    its error check off: ``torch.linalg.solve``'s routine and values, without
+    the host read of its status on the card). Iterations after convergence
+    are computed but frozen out, so nothing is read back to the host (on the
+    CPU the loop stops at convergence)."""
     ph = EmPhasesPlain(dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm, muf=muf, k_vis=k_vis,
                        tau_vis=tau_vis, lam=lam, coef_lle=coef_lle, alpha=alpha)
     dev = y0.device
@@ -194,7 +217,7 @@ def fused_em_loop_plain(
         active = ~done
         p1, px, np_total, tr_x = ph.estep(y, s2)
         a, b = ph.mstep(p1, px, s2)
-        t = ph.update(torch.linalg.solve(a, b))
+        t = ph.update(torch.linalg.solve_ex(a, b)[0])
         s2_new, delta = ph.sigma2(t, y, p1, px, np_total, tr_x)
         new_done = delta < tol
 
@@ -231,8 +254,7 @@ def fused_em_loop(
         return fused_em_loop_plain(*args.values(), **kw)
     dev = _build.require_cuda("fused_em_loop", args)
     m, n = y0.shape[0], x.shape[0]
-    if not 1 <= m <= 48:
-        raise ValueError(f"fused_em_loop: m={m} outside [1, 48]")
+    check_nodes("fused_em_loop", "em_loop", m)
     _check_cluster_rows("fused_em_loop", n)
     y_out = torch.empty((m, 3), dtype=_F32, device=dev)
     stats = torch.empty((4,), dtype=_F32, device=dev)
@@ -348,8 +370,7 @@ def pursuit_walks(guides, seglens, ints, eps: float = 1e-4):
         dict(ints=torch.int32),
     )
     n_w, m, _ = guides.shape
-    if not 2 <= m <= 65:
-        raise ValueError(f"pursuit_walks: m={m} outside [2, 65]")
+    check_nodes("pursuit_walks", "walks", m, lo=2)
     pos, valid = alloc_walks_out(n_w, m, dev)
     code = _build.lib().trackdlo_walks(
         guides.data_ptr(), seglens.data_ptr(), ints.data_ptr(), n_w, m, float(eps),
@@ -455,8 +476,7 @@ def _estep_launch(name, scal, y, coord, nm, pv, x, xm, two_phase):
     )
     bsz, m, _ = y.shape
     n = x.shape[1]
-    if not 1 <= m <= 48:
-        raise ValueError(f"{name}: m={m} outside [1, 48]")
+    check_nodes(name, "estep", m)
     _check_cluster_rows(name, n)
     if tuple(scal.shape) != (bsz, 8) or tuple(x.shape) != (bsz, n, 3) or tuple(xm.shape) != (bsz, n):
         raise ValueError(f"{name}: scal/x/xm shapes do not match y")
@@ -540,8 +560,7 @@ def gauss_jordan_solve_batched(a, b, g=None, y0=None):
     tensors = dict(a=a, b=b) if g is None else dict(a=a, b=b, g=g, y0=y0)
     dev = _build.require_cuda("gauss_jordan_solve_batched", tensors)
     n_sys, m, _ = a.shape
-    if not 1 <= m <= 48:
-        raise ValueError(f"gauss_jordan_solve_batched: m={m} outside [1, 48]")
+    check_nodes("gauss_jordan_solve_batched", "gj_solve", m)
     if tuple(a.shape) != (n_sys, m, m) or tuple(b.shape) != (n_sys, m, 3):
         raise ValueError("gauss_jordan_solve_batched: a must be (B, m, m) and b (B, m, 3)")
     w = torch.empty((n_sys, m, 3), dtype=_F32, device=dev)
@@ -707,8 +726,7 @@ def _em_iteration_launch(name, s2, dyn, cc, y, y0, nm, coord, g, hg, hy0, jg, pd
     dev = _build.require_cuda(name, args)
     bsz, m, _ = y.shape
     n = x.shape[1]
-    if not 1 <= m <= 48:
-        raise ValueError(f"{name}: m={m} outside [1, 48]")
+    check_nodes(name, "em_iteration", m)
     _check_cluster_rows(name, n)
     shapes = dict(dyn=(bsz, 4), y0=(bsz, m, 3), coord=(bsz, m), nm=(bsz, m), g=(bsz, m, m),
                   hg=(bsz, m, m), hy0=(bsz, m, 3), jg=(bsz, m, m), pd=(bsz, m, 3), x=(bsz, n, 3),
@@ -763,8 +781,7 @@ def nearest_point_sq(y, node_mask, x, x_mask):
                               dict(nm=args["nm"].dtype, xm=args["xm"].dtype))
     bsz, m, _ = args["y"].shape
     n = args["x"].shape[1]
-    if not 1 <= m <= 48:
-        raise ValueError(f"nearest_point_sq: m={m} outside [1, 48]")
+    check_nodes("nearest_point_sq", "nearest", m)
     shapes = dict(y=(bsz, m, 3), nm=(bsz, m), x=(bsz, n, 3), xm=(bsz, n))
     for k, want in shapes.items():
         if tuple(args[k].shape) != want:

@@ -71,8 +71,11 @@ def walk_inputs(y, geodesic_coord, guide_nodes, vis_ext_idx, vis_ext_count,
     iota = torch.arange(m, device=dev)
     v = vis_ext_count
 
+    # A 0-dim tensor index reads its value to the host, so the two
+    # data-dependent picks below go through a one-element gather.
+    pick = lambda idx: vis_ext_idx.gather(0, idx.clamp(0, m - 1).reshape(1))[0]
     first_ext = vis_ext_idx[0]
-    last_ext = vis_ext_idx[(v - 1).clamp(0, m - 1)]
+    last_ext = pick(v - 1)
     head_vis = first_ext == 0
     tail_vis = last_ext == m - 1
     state = torch.where(
@@ -107,7 +110,7 @@ def walk_inputs(y, geodesic_coord, guide_nodes, vis_ext_idx, vis_ext_count,
     guide_rev = guide_nodes[(v - 1 - iota).clamp(0, m - 1)]
 
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    start_node = vis_ext_idx[align_idx.clamp(0, m - 1)]
+    start_node = pick(align_idx)
     start_guide_rev = (v - 1 - align_idx).clamp(0, m - 1)
     walk_guides = torch.stack([guide_nodes, guide_rev, guide_nodes, guide_rev])
     walk_seglens = torch.stack([seg_len_fwd, seg_len_rev, seg_len_fwd, seg_len_rev])

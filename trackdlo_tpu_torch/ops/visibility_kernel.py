@@ -12,6 +12,7 @@ import math
 import torch
 
 from trackdlo_tpu_torch import _build
+from trackdlo_tpu_torch.ops.hopper_kernels import check_nodes
 from trackdlo_tpu_torch.ops.visibility import VisibilityOut, compute_visibility
 
 fused_visibility_plain = compute_visibility
@@ -75,8 +76,7 @@ def fused_visibility(
     )
     lead = y.shape[:-2]
     m, n = y.shape[-2], x.shape[-2]
-    if not 2 <= m <= 64:
-        raise ValueError(f"fused_visibility: m={m} outside [2, 64]")
+    check_nodes("fused_visibility", "visibility", m, lo=2)
     if (len(lead) > 1 or tuple(x.shape) != (*lead, n, 3) or tuple(x_mask.shape) != (*lead, n)
             or tuple(geodesic_coord.shape) != (*lead, m)):
         raise ValueError("fused_visibility: y/x/x_mask/geodesic_coord shapes do not match")

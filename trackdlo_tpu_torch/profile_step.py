@@ -1,17 +1,19 @@
 """Where the time of a tracking step goes on the card: a torch.profiler
 trace of a steady window of frames at the live profile (720p, M=45), for
-``Tracker.step`` or, with ``--batch``, the batched step of that many
+``Tracker.step`` (its step one CUDA graph replayed a frame; ``--eager``: the
+eager step, ``build_step_fn(jit=False)``) or, with ``--batch``, the batched step of that many
 streams (in cohorts of ``--cohort``); ``--profile coarse`` (``parity_split=False``)
 or ``cells`` (``exact_voxels=False``) for the preprocessing options.
 
 Run on a machine with a CUDA GPU, from the repository root:
 
-    python -m trackdlo_tpu_torch.profile_step [--frames 20] [--batch 16 --cohort 8] [--profile coarse]
+    python -m trackdlo_tpu_torch.profile_step [--frames 20] [--eager] [--batch 16 --cohort 8] [--profile coarse]
 
 Prints the per-frame wall time, the device's busy share of it, the kernel
 launches and host-to-device copies per frame and the ops with the most
 device time, and writes them to ``chiprun_out/profile_step.json`` (or
-``profile_step_b<batch>.json``, with ``_<profile>`` for an option). Fails
+``profile_step_b<batch>.json``, with ``_<profile>`` for an option and
+``_eager`` for the eager step). Fails
 without a GPU.
 """
 
@@ -28,7 +30,7 @@ import torch
 
 from trackdlo_tpu_torch.config import CameraIntrinsics, live_params
 from trackdlo_tpu_torch.io.sequence import SyntheticRope, render_frame
-from trackdlo_tpu_torch.models.trackdlo import Tracker, TrackerState
+from trackdlo_tpu_torch.models.trackdlo import Tracker, TrackerState, build_step_fn
 from trackdlo_tpu_torch.parallel import build_batched_step_fn
 
 
@@ -58,6 +60,8 @@ def main() -> int:
     ap.add_argument("--cohort", type=int, default=None, help="cohort size of the batched step")
     ap.add_argument("--profile", choices=sorted(PROFILES), default="parity",
                     help="preprocessing: parity split (the default profile), coarse or cells")
+    ap.add_argument("--eager", action="store_true",
+                    help="one stream: the eager step instead of Tracker.step's CUDA graph")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: CUDA is not available")
@@ -71,7 +75,12 @@ def main() -> int:
     if b == 1:
         state = tracker.init_from_nodes(rope.nodes(0.0, params.M))
         frames = [render_frame(rope, i / 15.0, intr) for i in range(1, 11)]
-        step = tracker.step
+        if args.eager:
+            eager = build_step_fn(params, intr, jit=False, device="cuda")
+            full = torch.ones((intr.height, intr.width), dtype=torch.bool, device="cuda")
+            step = lambda s, rgb, depth: eager(s, rgb, depth, full)
+        else:
+            step = tracker.step
     else:
         # Stream s at phase offset 0.01·s, as chip_smoke.py's batched loop.
         state = TrackerState(*(torch.stack(f) for f in zip(*(
@@ -100,6 +109,7 @@ def main() -> int:
         "card": card,
         "profile": args.profile,
         "streams": b,
+        "step": "batched" if b > 1 else ("eager" if args.eager else "graph"),
         "cohort": args.cohort,
         "frames": args.frames,
         "wall_ms_per_frame": wall_us / 1e3 / args.frames,
@@ -125,7 +135,8 @@ def main() -> int:
         print(f"  {t['device_ms_per_frame']:9.4f} ms  {t['calls_per_frame']:7.1f} calls  {t['name'][:90]}")
     os.makedirs("chiprun_out", exist_ok=True)
     name = "profile_step" + ("" if b == 1 else f"_b{b}")
-    name += ("" if args.profile == "parity" else f"_{args.profile}") + ".json"
+    name += ("" if args.profile == "parity" else f"_{args.profile}")
+    name += ("_eager" if args.eager and b == 1 else "") + ".json"
     with open(os.path.join("chiprun_out", name), "w") as f:
         json.dump(rec, f, indent=1)
     if not np.isfinite(state.y.cpu().numpy()).all():
