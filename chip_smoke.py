@@ -8,7 +8,7 @@ Run from the repository root on a machine with a CUDA GPU:
 Phases, in order (any failure exits nonzero and prints no result line):
 
 1. toolchain: the card's name and power limit, torch's CUDA version, nvcc;
-2. build: compile the ten CUDA sources (twelve kernels and modes) from
+2. build: compile the eleven CUDA sources (thirteen kernels and modes) from
    ``trackdlo_tpu_torch/csrc``, one ``nvcc`` per source, all started
    together;
 3. check: kernels E and S's cluster launches (size, rows per CTA, clusters
@@ -33,7 +33,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
    previous design's saved outputs (recorded); kernel N (each node's
    nearest point on one shard of the cloud) bit-equal to its plain version,
    alone and for 4 streams, with bool and float32 masks, one device op a
-   call;
+   call; kernel L (the EM loop's trip flag) against its plain version;
 4. closed loop: ``Tracker.step`` (its step one CUDA graph, replayed a
    frame) over 30 occluded frames against the float64 oracle, with the
    kernels' launch counts and the EM trip-count gate (each pass's mean
@@ -46,14 +46,25 @@ Phases, in order (any failure exits nonzero and prints no result line):
    versions of kernels past their node ranges, on the card), 10 frames each,
    graph against eager and against the oracle; the TCP service on the card
    with two clients, every reply a direct step's; GLTP on the card against
-   its CPU run;
+   its CPU run; the reference cells through the compiled steps: 45 occluded
+   frames (``full``) and the oracle's own clouds through the compiled
+   ``Tracker.step_from_points`` (``same_pts``), the native library's clouds
+   through it (graph bit for bit eager), perf/trip_counts.py's 40 frames'
+   trips, and the evaluation profile (``eval_params()``) beside the JAX
+   package's CPU run of the same frames (perf/eval_profile_jax_cpu.json);
 5. batch: the batched step over 16 streams in cohorts of 8 for 30 frames,
-   each frame held against the single-stream step from the same state and
-   against a lockstep batch of 16, streams 0 and 15 against the oracle, the
-   exact lockstep launch count; then ``Tracker.step`` with
-   ``solver="lstsq"`` (the single-stream per-iteration route) against the
-   oracle; then the coarse batched step, 4 streams for 10 frames, its
-   clouds against the single-stream coarse step's;
+   each frame set one CUDA graph (every cohort's EM loops conditional WHILE
+   nodes whose trips kernel L decides on the card), each frame held against
+   the single-stream step from the same state and against a lockstep batch
+   of 16, streams 0 and 15 against the oracle, the exact lockstep launch
+   count (the trips counted on the card); the graph against the eager
+   step, and a lockstep batch of 8 the same way, with no host read inside
+   a replay; a trace of replays (S, G and L spans); then ``Tracker.step``
+   with ``solver="lstsq"`` (the single-stream per-iteration route, one
+   graph) against the oracle and its eager step; kernel F's route
+   (``cpd_lle(use_fused_mstep=True)``) as a graph against its eager run;
+   then the coarse batched step, 4 streams for 10 frames, its clouds
+   against the single-stream coarse step's;
 6. shard: the point-sharded step (``build_parallel_step_fn``) on 2 gloo
    ranks sharing the card (NCCL refuses two ranks on one GPU), the mesh 1
    data × 2 model, over the 30 frames of phase 4: the shards' counts against
@@ -61,11 +72,15 @@ Phases, in order (any failure exits nonzero and prints no result line):
    against ``Tracker.step`` from the same state (phase 5's nudge rule), the
    exact launch counts, the per-frame time (CUDA events);
 7. timing: the per-frame single step (parity as one CUDA graph and eager,
-   and coarse), the batched step (CUDA events) and each kernel beside its plain version and, for the
+   and coarse), the batched step at b16/c8 and b8 (graph and eager), the
+   lstsq step and ``step_from_points`` (graph and eager), all by CUDA
+   events, and each kernel beside its plain version and, for the
    solve, beside ``torch.linalg.solve``, with its device time from a
    ``torch.profiler`` trace; kernel P also with the L2 flushed before each
    launch; kernel C in the main path's derived mode; kernel F also beside
-   one iteration of the single-stream per-iteration route.
+   one iteration of the single-stream per-iteration route; the wide builds
+   at 100 and 128 nodes with their bounds (G also beside
+   ``torch.linalg.solve``).
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after. The last two lines of standard output are the card line
@@ -108,7 +123,8 @@ BOUNDS = {
     # The JAX package's audit fields (perf/tpu_kernel_numerics.py:36-55) that
     # the checks above do not cover, under its names and bounds: kernel E
     # against its plain version after 10 iterations (tol 0); the plain
-    # version of kernel G (torch.linalg.solve, on the card) against float64;
+    # version of kernel G (LU and two triangular solves, on the card)
+    # against float64;
     # kernel W's 4·B walks against each stream's walks alone.
     "em10_pallas_vs_xla_max_m": 2e-6,
     # ROADMAP §C fault 1: on the four saved pre-registration passes, kernel
@@ -243,6 +259,32 @@ BOUNDS = {
     # closed loop's bound.
     "server_vs_direct_mismatch": 0,
     "gltp_card_vs_cpu_mean_mm": 1.0,
+    # The per-iteration EM loop on the device (a conditional WHILE node of a
+    # CUDA graph, kernel L deciding the trips). Kernel L against its plain
+    # version; the batched step at b16/c8 and at b8 lockstep, the single step
+    # with solver "lstsq", kernel F's route (cpd_lle(use_fused_mstep=True))
+    # and the points step, each as one graph, bit for bit its eager run; no
+    # host read inside a replay (torch.cuda.set_sync_debug_mode("error")).
+    "loop_flag_mismatch": 0,
+    "batched_graph_vs_eager_mismatch": 0,
+    "b8_graph_vs_eager_mismatch": 0,
+    "batched_graph_host_reads": 0,
+    "lstsq_graph_vs_eager_mismatch": 0,
+    "fused_graph_vs_eager_mismatch": 0,
+    "native_graph_vs_eager_mismatch": 0,
+    "solver_graphs_vs_eager_mismatch": 0,
+    # The reference cells (perf/parity_decomposition.py, perf/trip_counts.py):
+    # same_pts (the oracle's own clouds through the compiled points step, 30
+    # frames) and the 45-frame occluded loop, each at the closed loop's
+    # bound; the 40 unoccluded frames' mean trips a pass within one of the
+    # oracle's.
+    "same_pts_mean_mm": 1.0,
+    "occl45_closed_loop_mean_mm": 1.0,
+    "trip40_pre_mean_delta": 1.0,
+    "trip40_main_mean_delta": 1.0,
+    # The evaluation profile: held at 1 mm only where the JAX package's CPU
+    # build meets it on the same frames (perf/eval_profile_jax_cpu.json).
+    "eval_closed_loop_mean_mm": 1.0,
 }
 # The port's names of four fields of the JAX package's audit, beside the
 # audit's own.
@@ -255,11 +297,12 @@ JAX_NAMES = {
 N_STREAMS, COHORT = 16, 8
 EXPECTED_LAUNCHES = {"cell_sums": 30, "compact": 30, "visibility": 30, "walks": 30, "em_loop": 60,
                      "estep": 0, "estep_batch": 0, "gj_solve": 0, "cell_sums_votes": 0,
-                     "cell_sums_cells": 0, "em_iteration": 0, "nearest": 0}
+                     "cell_sums_cells": 0, "em_iteration": 0, "nearest": 0, "loop_flag": 0}
 # Per frame of the coarse (votes) and cells-only loops: kernel P's mode,
 # V, W, and kernel E twice; neither C nor the parity mode.
 COARSE_LAUNCHES = {"visibility": 1, "walks": 1, "em_loop": 2, "cell_sums": 0, "compact": 0,
-                   "em_iteration": 0, "estep": 0, "estep_batch": 0, "gj_solve": 0, "nearest": 0}
+                   "em_iteration": 0, "estep": 0, "estep_batch": 0, "gj_solve": 0, "nearest": 0,
+                   "loop_flag": 0}
 KERNELS = {
     "cell_sums": ("trackdlo_tpu_torch/csrc/cell_sums.cu", "trackdlo_tpu/ops/preprocess_kernel.py:470"),
     "compact": ("trackdlo_tpu_torch/csrc/compact.cu", "trackdlo_tpu/ops/preprocess_kernel.py:617"),
@@ -273,16 +316,21 @@ KERNELS = {
     "cell_sums_cells": ("trackdlo_tpu_torch/csrc/cell_sums.cu", "trackdlo_tpu/ops/preprocess_kernel.py:470"),
     "em_iteration": ("trackdlo_tpu_torch/csrc/em_iter.cu", "trackdlo_tpu/ops/pallas_kernels.py:482"),
     "nearest": ("trackdlo_tpu_torch/csrc/nearest.cu", "trackdlo_tpu/ops/pallas_kernels.py:556"),
+    # Kernel L replaces no pallas_call: it decides the trips of the EM loop
+    # that the JAX package runs as a lax.while_loop.
+    "loop_flag": ("trackdlo_tpu_torch/csrc/loop_flag.cu",
+                  "none; the while_loop condition at trackdlo_tpu/ops/cpd_lle.py:212"),
 }
 # Each launch counter's CUDA kernel, by the name a profiler trace shows.
 KERNEL_FUNCS = {"cell_sums": "cell_sums_kernel", "compact": "compact_kernel",
                 "visibility": "visibility_kernel", "walks": "walks_kernel",
                 "em_loop": "em_loop_kernel", "estep": "estep_kernel", "gj_solve": "gj_solve_kernel",
-                "em_iteration": "em_iter_kernel", "nearest": "nearest_kernel"}
+                "em_iteration": "em_iter_kernel", "nearest": "nearest_kernel",
+                "loop_flag": "loop_flag_kernel"}
 # The path whose run gives each kernel's launch count in the kernels line.
 LAUNCH_PATH = {"estep": "lstsq", "estep_batch": "batched", "gj_solve": "batched",
                "cell_sums_votes": "coarse", "cell_sums_cells": "cells", "em_iteration": "fused",
-               "nearest": "sharded"}
+               "nearest": "sharded", "loop_flag": "batched"}
 SHARD_RANKS = 2
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory and
@@ -473,7 +521,8 @@ class Smoke:
         self.bits: dict = {}  # outputs kept bit for bit (chiprun_out/exact_products_bits.npz)
         self.walk_bits: dict = {}  # kernel W's inputs and outputs (chiprun_out/walks_bits.npz)
         self.bounds_ms: dict = {}
-        self.wide_calls: dict = {}  # m -> kernel name -> (kernel call, plain call)
+        self.wide_calls: dict = {}  # m -> kernel name -> (kernel call, plain call[, library call])
+        self.wide_bounds: dict = {}  # m -> kernel name -> (bound ms, what bounds it)
         self.failures: list[str] = []
 
     # -- helpers -----------------------------------------------------------
@@ -633,7 +682,8 @@ class Smoke:
         _build.reset_launch_counts()
         out = fn()
         self.torch.cuda.synchronize()
-        self.path_launches[path] = dict(_build.launch_counts)
+        # The trips of the loops inside replayed graphs, counted on the card.
+        self.path_launches[path] = dict(_build.settle_counts())
         log(f"  launches in the {path} run: {self.path_launches[path]}")
         return out
 
@@ -645,8 +695,11 @@ class Smoke:
         tracker.step(state, *frame)
 
     def outputs_mismatch(self, a, b) -> int:
-        """How many fields of two StepOutputs (or states) differ in any bit."""
-        return sum(not self.torch.equal(x, y) for x, y in zip(a, b))
+        """How many fields of two StepOutputs (or states) differ in any bit
+        (float32 fields compared as their bits, so two equal NaNs match)."""
+        torch = self.torch
+        bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+        return sum(not torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
 
     # -- phase 3: kernels against their plain versions ----------------------
     def cluster_launches(self):
@@ -1359,6 +1412,28 @@ class Smoke:
             extra = max(extra, e)
         self.bound("nearest_extra_device_ops", extra)
 
+    def check_loop_flag(self):
+        """Kernel L alone against its plain version: random done flags and
+        trip counts of 1 to 80 streams and max_iter 0 to 11 (its inputs at
+        b16/c8 are 8 streams, at b8 8). Kept for the timing phase: the b16
+        frame set's shape."""
+        np, torch = self.np, self.torch
+        from trackdlo_tpu_torch.ops.graph_loop import loop_flag, loop_flag_plain
+
+        rng = np.random.default_rng(0)
+        mismatch = 0
+        for _ in range(200):
+            b = int(rng.integers(1, 81))
+            done = torch.from_numpy(rng.random(b) < 0.8).to(self.dev)
+            it = torch.from_numpy(rng.integers(0, 12, b).astype(np.int32)).to(self.dev)
+            mi = int(rng.integers(0, 12))
+            mismatch += int(int(loop_flag(done, it, mi)) != int(loop_flag_plain(done, it, mi)))
+        self.bound("loop_flag_mismatch", mismatch)
+        self.kernel_err["loop_flag"] = float(mismatch)
+        self.l_args = (torch.zeros(COHORT, dtype=torch.bool, device=self.dev),
+                       torch.full((COHORT,), 3, dtype=torch.int32, device=self.dev),
+                       self.params.max_iter)
+
     # -- phase 4: closed loop against the oracle -----------------------------
     def closed_loop(self):
         np, torch = self.np, self.torch
@@ -1425,6 +1500,132 @@ class Smoke:
         self.trip_count_gate(port_trips, np.array(oracle_trips))
         self.bits.update(loop_y=state.y.cpu().numpy(), loop_trips=port_trips)
         self.tracker, self.state, self.frames_data = tracker, state, frames
+        # The loop's clouds padded to max_points (a points step's static
+        # cloud), for kernel F's graph.
+        cap = p.max_points
+        self.loop_clouds = []
+        for out in outs:
+            pts = torch.zeros((cap, 3), dtype=torch.float32, device=self.dev)
+            msk = torch.zeros(cap, dtype=torch.bool, device=self.dev)
+            n = out.points.shape[0]
+            pts[:n], msk[:n] = out.points, out.points_mask
+            self.loop_clouds.append((pts, msk))
+
+    def reference_cells(self, n_occl: int = 45, n_trip: int = 40, n_eval: int = 30,
+                        n_native: int = 10):
+        """The reference's own cells, each through the compiled steps:
+
+        - 45 frames, columns 500:800 occluded on frames 10-20
+          (perf/parity_decomposition.py --occlude): ``Tracker.step`` against
+          the float64 oracle (``full``), and the oracle's own clouds through
+          ``Tracker.step_from_points`` (``same_pts``, its CUDA graph; the
+          bound on the first 30 frames);
+        - the native library's clouds (``native.preprocess_frame``) of the
+          first 10 frames through the compiled points step and eagerly, bit
+          for bit;
+        - perf/trip_counts.py's 40 unoccluded frames: each pass's mean trips
+          against the oracle's;
+        - the evaluation profile (``eval_params()`` as shipped, 30
+          unoccluded frames, one graph): deviation and trips, beside the
+          JAX package's CPU run of the same frames."""
+        np, torch = self.np, self.torch
+        from trackdlo_tpu_torch import native
+        from trackdlo_tpu_torch.config import eval_params
+        from trackdlo_tpu_torch.models.trackdlo import Tracker, build_points_step_fn
+        from trackdlo_tpu_torch.oracle.pipeline import init_state as oracle_init, step_frame
+
+        p, intr = self.params, self.intr
+        dev_mm = lambda y, ref: 1000 * float(np.linalg.norm(y.cpu().numpy() - ref, axis=1).mean())
+
+        m = p.M
+        tracker = Tracker(p, intr, device=self.dev)
+        s_full = s_pts = tracker.init_from_nodes(self.rope.nodes(0.0, m))
+        o_state = oracle_init(self.rope.nodes(0.0, m), p)
+        full_mm, pts_mm, frames = [], [], []
+        self.oracle_clouds = []
+        for i in range(1, n_occl + 1):
+            rgb, depth, occ = self.frame(i / 15.0, occlude=10 <= i <= 20)
+            frames.append((rgb, depth, occ))
+            o_state, _, aux = step_frame(o_state, rgb, depth, p, intr, occ)
+            s_full, _ = tracker.step(s_full, rgb, depth, occ)
+            s_pts, _ = tracker.step_from_points(s_pts, aux["points"])
+            self.oracle_clouds.append(aux["points"])
+            full_mm.append(dev_mm(s_full.y, o_state.y))
+            pts_mm.append(dev_mm(s_pts.y, o_state.y))
+        self.metrics.update(occl45_per_frame_mm=full_mm, same_pts_per_frame_mm=pts_mm,
+                            same_pts_45_mean_mm=statistics.fmean(pts_mm))
+        log(f"  45 occluded frames: same_pts over 45 frames {statistics.fmean(pts_mm):.4f} mm")
+        self.bound("occl45_closed_loop_mean_mm", statistics.fmean(full_mm))
+        self.bound("same_pts_mean_mm", statistics.fmean(pts_mm[:30]))
+
+        cap = p.max_points
+        graph_t = Tracker(p, intr, device=self.dev)
+        eager = build_points_step_fn(p, intr, jit=False, device=self.dev)
+        sg = se = graph_t.init_from_nodes(self.rope.nodes(0.0, m))
+        mismatch, sizes = 0, []
+        for rgb, depth, occ in frames[:n_native]:
+            cloud = native.preprocess_frame(rgb, depth, p, intr, occlusion_mask=occ, max_points=cap)
+            sizes.append(len(cloud))
+            sg, og = graph_t.step_from_points(sg, cloud)
+            pts = np.zeros((cap, 3), np.float32)
+            msk = np.zeros(cap, bool)
+            pts[:len(cloud)], msk[:len(cloud)] = cloud, True
+            se, oe = eager(se, pts, msk)
+            mismatch += self.outputs_mismatch(og, oe)
+        self.metrics["native_cloud_sizes"] = sizes
+        log(f"  native clouds: {sizes} points")
+        self.bound("native_graph_vs_eager_mismatch", mismatch + self.outputs_mismatch(sg, se))
+
+        trip_t = Tracker(p, intr, device=self.dev)
+        st = trip_t.init_from_nodes(self.rope.nodes(0.0, m))
+        o_state = oracle_init(self.rope.nodes(0.0, m), p)
+        port, oracle = [], []
+        for i in range(1, n_trip + 1):
+            rgb, depth = self.render(self.rope, i / 15.0, intr)
+            with oracle_trip_counts() as trips:
+                o_state, _, _ = step_frame(o_state, rgb, depth, p, intr)
+            oracle.append(trips if len(trips) == 2 else [0, *trips])
+            st, out = trip_t.step(st, rgb, depth)
+            port.append([int(out.guide_iterations), int(out.iterations)])
+        port_a, oracle_a = np.array(port), np.array(oracle)
+        means = {f"{who}_{name}": float(a[:, k].mean()) for who, a in (("port", port_a), ("oracle", oracle_a))
+                 for k, name in enumerate(("pre", "main"))}
+        self.metrics.update(trip40=means, trip40_port=port, trip40_oracle=oracle)
+        log(f"  40 unoccluded frames, mean trips: {means}")
+        self.bound("trip40_pre_mean_delta", means["port_pre"] - means["oracle_pre"])
+        self.bound("trip40_main_mean_delta", means["port_main"] - means["oracle_main"])
+
+        ep = eval_params()
+        me = ep.M
+        eval_t = Tracker(ep, intr, device=self.dev)
+        st = eval_t.init_from_nodes(self.rope.nodes(0.0, me))
+        o_state = oracle_init(self.rope.nodes(0.0, me), ep)
+        mm, port, oracle = [], [], []
+        for i in range(1, n_eval + 1):
+            rgb, depth = self.render(self.rope, i / 15.0, intr)
+            with oracle_trip_counts() as trips:
+                o_state, _, _ = step_frame(o_state, rgb, depth, ep, intr)
+            oracle.append(trips if len(trips) == 2 else [0, *trips])
+            st, out = eval_t.step(st, rgb, depth)
+            port.append([int(out.guide_iterations), int(out.iterations)])
+            mm.append(dev_mm(st.y, o_state.y))
+        port_a, oracle_a = np.array(port), np.array(oracle)
+        with open(os.path.join(ROOT, "perf", "eval_profile_jax_cpu.json")) as f:
+            jax_cpu = json.load(f)
+        rec = {"mean_mm": statistics.fmean(mm), "max_mm": max(mm), "per_frame_mm": mm,
+               "port_pre_trips_mean": float(port_a[:, 0].mean()),
+               "port_main_trips_mean": float(port_a[:, 1].mean()),
+               "oracle_pre_trips_mean": float(oracle_a[:, 0].mean()),
+               "oracle_main_trips_mean": float(oracle_a[:, 1].mean()),
+               "jax_cpu_mean_mm": jax_cpu["mean_mm"],
+               "jax_cpu_main_trips_mean": jax_cpu["jax_main_trips_mean"]}
+        self.metrics["eval_profile"] = rec
+        log(f"  eval profile, 30 frames: {rec['mean_mm']:.4f} mm from the oracle (JAX CPU build "
+            f"{rec['jax_cpu_mean_mm']:.4f} mm); trips pre {rec['port_pre_trips_mean']:.3f} / main "
+            f"{rec['port_main_trips_mean']:.3f}, oracle {rec['oracle_pre_trips_mean']:.3f} / "
+            f"{rec['oracle_main_trips_mean']:.3f}, JAX main {rec['jax_cpu_main_trips_mean']:.3f}")
+        if jax_cpu["mean_mm"] <= BOUNDS["eval_closed_loop_mean_mm"]:
+            self.bound("eval_closed_loop_mean_mm", rec["mean_mm"])
 
     def trip_count_gate(self, port, oracle):
         """The EM trip counts of the closed loop, (frames, 2) arrays of the
@@ -1647,16 +1848,22 @@ class Smoke:
                     tol=0.0, include_lle=False, k_vis=p.k_vis,
                     visibility_threshold=p.visibility_threshold, use_visibility=True)
         calls = self.wide_calls.setdefault(m, {})  # (kernel, plain) pairs for the timing phase
+        # Each wide call's least time on the card, by kernel_bounds' rules.
+        wb = self.wide_bounds.setdefault(m, {})
         # E
         for name, extra in (("em3_lle", {"include_lle": True}), ("em10", {"max_iter": 10})):
             st = em_staging(x, xm, nodes, nm, torch.tensor(0.001, device=dev),
                             CpdParams(**{**base, **extra}),
                             visible_count=torch.tensor(2 * m // 3, device=dev))
+            yk, sk = fused_em_loop(*st.args, **st.kwargs)
+            yp, sp = fused_em_loop_plain(*st.args, **st.kwargs)
             if name == "em10":
                 calls["em_loop"] = (lambda st=st: fused_em_loop(*st.args, **st.kwargs),
                                     lambda st=st: fused_em_loop_plain(*st.args, **st.kwargs))
-            yk, sk = fused_em_loop(*st.args, **st.kwargs)
-            yp, sp = fused_em_loop_plain(*st.args, **st.kwargs)
+                n_e, nv = x.shape[0], int(st.n_count)
+                wb["em_loop"] = bound(n_e * 16 + 3 * m * m * 4 + 6 * m * 12 + 16 + m * 12 + 16,
+                                      int(sk[1]) * ((OPS_SWEEP_PAIR + OPS_ESTEP_PAIR) * m * nv
+                                                    + em_mstep_ops(m)))
             if int(sk[1]) != int(sp[1]):
                 self.failures.append(f"{key}_{name}_iterations")
             self.bound(f"{key}_{name}_max_m", float((yk - yp).abs().max()))
@@ -1667,6 +1874,8 @@ class Smoke:
                   p.visibility_threshold, p.dlo_pixel_width, p.d_vis)
         vk, vp = fused_visibility(*v_args), compute_visibility(*v_args)
         calls["visibility"] = (lambda: fused_visibility(*v_args), lambda: compute_visibility(*v_args))
+        wb["visibility"] = bound(x.shape[0] * 21 + m * 32 + 48,
+                                 2 * OPS_SWEEP_PAIR * m * int(xm.sum()) + 20 * m * m)
         idx = sum(int((getattr(vk, f) != getattr(vp, f)).sum()) for f in (
             "vis_idx", "vis_ext_idx", "vis_count", "vis_ext_count", "visible_mask",
             "extended_mask", "not_self_occluded"))
@@ -1679,6 +1888,9 @@ class Smoke:
                             vk.vis_ext_count, vk.vis_idx, vk.vis_count)
         w_args = (wi.guides, wi.seglens, wi.ints, tp._EPS_BETWEEN)
         calls["walks"] = (lambda: pursuit_walks(*w_args), lambda: pursuit_walks_plain(*w_args))
+        nw, mw = wi.guides.shape[:2]
+        wb["walks"] = bound(nw * (mw * 12 + (mw - 1) * 4 + 20 + mw * 13),
+                            nw * (mw - 1) * (mw - 1) * OPS_WALK_STEP_SEG)
         pk, mk = pursuit_walks(*w_args)
         pp, mp = pursuit_walks_plain(*w_args)
         self.bound(f"{key}_walks_mask_mismatch", int((mk != mp).sum()))
@@ -1703,6 +1915,9 @@ class Smoke:
         s_args = (scal, yb, coord, nmf, pv, xs, xms)
         calls["estep_batch"] = (lambda: fused_estep_packed_batch(*s_args, two_phase=True),
                                 lambda: fused_estep_packed_batch_plain(*s_args, two_phase=True))
+        sweep = OPS_SWEEP_PAIR if bool((scal[:, 3] > 0).any()) else 0
+        wb["estep_batch"] = bound(bsz * (32 + xs.shape[1] * 16 + m * 12 * 2 + m * 4 * 5 + 8),
+                                  sum((sweep + OPS_ESTEP_PAIR) * m * int(v) for v in st.n_count))
         for two_phase in (True, False):
             args = s_args
             got = fused_estep_packed_batch(*args, two_phase=two_phase)
@@ -1716,7 +1931,9 @@ class Smoke:
         self.bound(f"{key}_estep_short_mismatch", short_mis)
         a_sys, b_sys = mstep_system(st, p1, px, s2b, params)
         calls["gj_solve"] = (lambda: gauss_jordan_solve_batched(a_sys, b_sys),
-                             lambda: gauss_jordan_solve_batched_plain(a_sys, b_sys))
+                             lambda: gauss_jordan_solve_batched_plain(a_sys, b_sys),
+                             lambda: torch.linalg.solve(a_sys, b_sys))
+        wb["gj_solve"] = bound(bsz * (m * m + 2 * m * 3) * 4, bsz * gj_solve_ops(m))
         wk = gauss_jordan_solve_batched(a_sys, b_sys)
         wp = gauss_jordan_solve_batched_plain(a_sys, b_sys)
         self.metrics[f"{key}_gj_mstep_vs_plain_rel"] = rel = (
@@ -1734,6 +1951,11 @@ class Smoke:
                          torch.tensor([0.001], device=dev), fparams,
                          visible_count=torch.tensor([2 * m // 3], device=dev))
         y1, s1 = stf.args[1], stf.args[0][:, 0]
+        n_f, nv_f = stf.args[9].shape[1], int(stf.n_count[0])
+        sweep_f = OPS_SWEEP_PAIR if bool(stf.args[0][0, 3] > 0) else 0
+        wb["em_iteration"] = bound(
+            20 + m * 12 * 2 + m * 4 * 2 + 3 * m * m * 4 + 2 * m * 12 + n_f * 16 + m * 12 + 8,
+            (sweep_f + OPS_ESTEP_PAIR) * m * nv_f + onehot_mstep_ops(m))
         calls["em_iteration"] = (
             lambda: fused_iteration(stf, y1, s1, fparams),
             lambda: fused_iteration(stf, y1, s1, fparams, fused_em_iteration_plain))
@@ -1749,6 +1971,8 @@ class Smoke:
         mismatch = 0
         n_args = (nodes, nm, x[:half], xm[:half])
         calls["nearest"] = (lambda: nearest_point_sq(*n_args), lambda: nearest_point_sq_plain(*n_args))
+        wb["nearest"] = bound(sum(t.numel() * t.element_size() for t in n_args) + m * 4,
+                              OPS_SWEEP_PAIR * int(nm.sum()) * int(xm[:half].sum()))
         for c in (n_args, (nodes, nm_part, x[half:], xm[half:]),
                   (yb, nmb, xs[:, :half], xms[:, :half])):
             mismatch += int((nearest_point_sq(*c) != nearest_point_sq_plain(*c)).sum())
@@ -1931,13 +2155,16 @@ class Smoke:
             self.tracker.init_from_nodes(n) for n in init))))
         frames = [self.batch_frames(i) for i in range(1, self.frames + 1)]
         befores, outs = [], []
+        state0 = state
+        fn_c8(state, *frames[0])  # the first call captures the frame set's graph
 
         def run():
             nonlocal state
-            for rgb, depth, occ in frames:
-                befores.append(state)
-                state, out = fn_c8(state, rgb, depth, occ)
-                outs.append(out)
+            with self.sync_errors():
+                for rgb, depth, occ in frames:
+                    befores.append(state)
+                    state, out = fn_c8(state, rgb, depth, occ)
+                    outs.append(out)
 
         self.count_path("batched", run)
         got = self.path_launches["batched"]
@@ -1951,6 +2178,8 @@ class Smoke:
                 sl = slice(c * COHORT, (c + 1) * COHORT)
                 trips += int(out.guide_iterations[sl].max()) + int(out.iterations[sl].max())
         want["estep_batch"] = want["gj_solve"] = trips
+        # Kernel L: once a trip and once before each cohort's two EM loops.
+        want["loop_flag"] = trips + 2 * n_cohorts * self.frames
         mismatch = sum(abs(got[k] - want[k]) for k in want)
         log(f"  expected launches: {want}")
         self.bound("batched_launch_mismatch", mismatch)
@@ -2035,6 +2264,183 @@ class Smoke:
             self.failures.append("batched_occlusion_states")
         self.batch_fns = (fn_c8, fn_lock)
         self.batch_state, self.batch_frames_data = state, frames
+        self.batch_init, self.batch_outs = state0, outs
+
+    def batched_graph(self):
+        """The batched step as one CUDA graph a frame set: the b16/c8 run of
+        batched_loop against the eager step over the same 30 frame sets from
+        the same state, every output bit for bit; a lockstep batch of 8
+        (streams 0-7) through its graph and eagerly, bit for bit; no host
+        read inside a replay (sync debug mode "error" around the replays);
+        and a profiler trace of replays: S, G and kernel L show at least one
+        span a replay and no more than the trips the card counted."""
+        torch = self.torch
+        from trackdlo_tpu_torch.models.trackdlo import TrackerState
+        from trackdlo_tpu_torch.parallel import build_batched_step_fn
+
+        p, intr = self.params, self.intr
+        frames, init = self.batch_frames_data, self.batch_init
+        eager = build_batched_step_fn(p, intr, cohort_size=COHORT, device=self.dev, jit=False)
+        state, mismatch = init, 0
+        for (rgb, depth, occ), out in zip(frames, self.batch_outs):
+            state, e_out = eager(state, rgb, depth, occ)
+            mismatch += self.outputs_mismatch(out, e_out)
+        mismatch += self.outputs_mismatch(state, self.batch_state)
+        self.bound("batched_graph_vs_eager_mismatch", mismatch)
+
+        b8 = 8
+        g8 = build_batched_step_fn(p, intr, device=self.dev)
+        e8 = build_batched_step_fn(p, intr, device=self.dev, jit=False)
+        s0 = TrackerState(*(v[:b8] for v in init))
+        fr8 = [tuple(a[:b8] for a in f) for f in frames]
+        g8(s0, *fr8[0])  # capture
+        sg, outs = s0, []
+
+        def run():
+            nonlocal sg
+            with self.sync_errors():
+                for f in fr8:
+                    sg, o = g8(sg, *f)
+                    outs.append(o)
+
+        self.count_path("b8_graph", run)
+        want = sum(int(o.guide_iterations.max()) + int(o.iterations.max()) for o in outs)
+        got = self.path_launches["b8_graph"]
+        if got["estep_batch"] != want or got["gj_solve"] != want or (
+                got["loop_flag"] != want + 2 * len(fr8)):
+            self.failures.append("b8_graph_launches")
+            log(f"  b8 graph launches {got} against {want} trips  FAIL")
+        se, mismatch = s0, 0
+        for f, o in zip(fr8, outs):
+            se, eo = e8(se, *f)
+            mismatch += self.outputs_mismatch(o, eo)
+        self.bound("b8_graph_vs_eager_mismatch", mismatch + self.outputs_mismatch(sg, se))
+
+        # One replay's launches, counted on the card, against a trace of
+        # replays of the same call.
+        fn_c8 = self.batch_fns[0]
+        one = self.count_path("batched_one_replay", lambda: fn_c8(init, *frames[0]))
+        per = self.path_launches["batched_one_replay"]
+        traced = self.traced_launches(lambda: fn_c8(init, *frames[0]), 5)
+        self.metrics["batched_replay_launches"] = {"counted": per, "traced_per_replay": traced}
+        log(f"  launches a b16/c8 replay: counted {dict((k, v) for k, v in per.items() if v)}, "
+            f"traced {traced}")
+        for k in ("estep", "gj_solve", "loop_flag"):
+            n = per["estep_batch"] if k == "estep" else per[k]
+            if not 1 <= traced.get(k, 0) <= n:
+                self.failures.append(f"batched_traced_launches_{k}")
+                log(f"  {k}: {traced.get(k, 0)} spans a replay, counted {n}  FAIL")
+        del one
+
+    @contextlib.contextmanager
+    def sync_errors(self):
+        """torch's synchronisation debug mode at "error" inside the block: a
+        host read of a device value raises; counted into
+        batched_graph_host_reads."""
+        torch = self.torch
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        except RuntimeError as e:
+            self.metrics.setdefault("host_read_errors", []).append(str(e)[:300])
+            self.host_reads = getattr(self, "host_reads", 0) + 1
+            raise
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def solver_graphs(self, n_frames: int = 5, n_streams: int = 4):
+        """The other solvers' graphs against their eager steps: the single
+        step with "xla_lu", "normal_cholesky" and, after them, "lstsq" again
+        (5 frames), the batched step
+        of 4 streams with "xla_lu" (5 frame sets), every output bit for bit;
+        "svd_lstsq" (and, batched, "normal_cholesky" and "lstsq") stay eager
+        (models.trackdlo.EAGER_SOLVERS, BATCH_EAGER_SOLVERS)."""
+        torch = self.torch
+        import dataclasses
+
+        from trackdlo_tpu_torch.models.trackdlo import (
+            CompiledStep, TrackerState, build_step_fn,
+        )
+        from trackdlo_tpu_torch.parallel import build_batched_step_fn
+
+        m, mismatch, kinds = self.params.M, 0, {}
+        # lstsq again after the others: a body with cuSOLVER calls captured
+        # after other such bodies in the process (one body stream a device).
+        for solver in ("xla_lu", "normal_cholesky", "lstsq"):
+            p = dataclasses.replace(self.params, solver=solver)
+            graph = build_step_fn(p, self.intr, device=self.dev)
+            eager = build_step_fn(p, self.intr, jit=False, device=self.dev)
+            kinds[solver] = type(graph).__name__
+            sg = se = self.tracker.init_from_nodes(self.rope.nodes(0.0, m))
+            for rgb, depth, occ in self.frames_data[:n_frames]:
+                occ_t = torch.from_numpy(occ != 0).to(self.dev)
+                sg, og = graph(sg, rgb, depth, occ_t)
+                se, oe = eager(se, rgb, depth, occ_t)
+                mismatch += self.outputs_mismatch(og, oe)
+            # The normal equations square the pre-registration system's
+            # conditioning (~4e6): at the live profile this solver's step
+            # ends in NaN, eager and graph alike. Recorded, not held.
+            self.metrics[f"{solver}_step_finite"] = bool(torch.isfinite(sg.y).all())
+            if not isinstance(graph, CompiledStep):
+                self.failures.append(f"{solver}_step_not_a_graph")
+        for solver in ("xla_lu",):
+            p = dataclasses.replace(self.params, solver=solver)
+            graph = build_batched_step_fn(p, self.intr, device=self.dev)
+            eager = build_batched_step_fn(p, self.intr, device=self.dev, jit=False)
+            sg = se = TrackerState(*(v[:n_streams] for v in self.batch_init))
+            for f in self.batch_frames_data[:n_frames]:
+                f = tuple(a[:n_streams] for a in f)
+                sg, og = graph(sg, *f)
+                se, oe = eager(se, *f)
+                mismatch += self.outputs_mismatch(og, oe)
+        self.metrics["solver_step_kinds"] = kinds
+        self.bound("solver_graphs_vs_eager_mismatch", mismatch)
+
+    def fused_graph(self, n_frames: int = 10):
+        """Kernel F's route as a CUDA graph: the main pass of cpd_lle with
+        use_fused_mstep=True (a CpdParams option: TrackerParams has no field
+        for it, in the JAX package either) on the closed loop's first 10
+        clouds, captured through CompiledStep over a static cloud and
+        replayed; bit for bit the eager call, the trips from the card."""
+        torch = self.torch
+        from trackdlo_tpu_torch.models.trackdlo import CompiledStep, TrackerState, points_shapes
+        from trackdlo_tpu_torch.ops.cpd_lle import CpdParams, cpd_lle
+
+        p, m = self.params, self.params.M
+        main = CpdParams(beta=p.beta, lam=p.lam, lle_weight=p.lle_weight, mu=p.mu,
+                         max_iter=p.max_iter, tol=p.tol, include_lle=False,
+                         visibility_threshold=p.visibility_threshold,
+                         prune_radius=p.prune_radius, use_fused_mstep=True)
+
+        def fused(state, points, mask):
+            res = cpd_lle(points, mask, state.y, torch.ones(m, dtype=torch.bool, device=self.dev),
+                          state.sigma2, main)
+            return TrackerState(res.y, res.sigma2, state.geodesic_coord), res
+
+        graph = CompiledStep(fused, self.dev, points_shapes(p))
+        clouds = self.loop_clouds[:n_frames]
+        start = self.tracker.init_from_nodes(self.rope.nodes(0.0, m))
+        graph(start, *clouds[0])  # capture
+        sg, se, outs, mismatch = start, start, [], 0
+
+        def run():
+            nonlocal sg
+            with self.sync_errors():
+                for c in clouds:
+                    sg, r = graph(sg, *c)
+                    outs.append(r)
+
+        self.count_path("fused_graph", run)
+        for c, r in zip(clouds, outs):
+            se, er = fused(se, *c)
+            mismatch += self.outputs_mismatch(r, er)
+        self.bound("fused_graph_vs_eager_mismatch", mismatch + self.outputs_mismatch(sg, se))
+        trips = sum(int(r.iterations) for r in outs)
+        got = self.path_launches["fused_graph"]
+        self.metrics["fused_graph_trips"] = [int(r.iterations) for r in outs]
+        if got["em_iteration"] != trips or got["loop_flag"] != trips + len(clouds):
+            self.failures.append("fused_graph_launches")
+            log(f"  fused graph launches {got} against {trips} trips  FAIL")
 
     def lstsq_loop(self, n_frames: int = 10):
         np = self.np
@@ -2047,15 +2453,34 @@ class Smoke:
         intr, m = self.intr, p.M
         tracker = Tracker(p, intr, device=self.dev)
         state = tracker.init_from_nodes(self.rope.nodes(0.0, m))
-        ys = []
+        ys, outs = [], []
+        start = state
+        self.warm(tracker, state, self.frames_data[0])
 
         def run():
             nonlocal state
-            for rgb, depth, occ in self.frames_data[:n_frames]:
-                state, _ = tracker.step(state, rgb, depth, occ)
-                ys.append(state.y)
+            with self.sync_errors():
+                for rgb, depth, occ in self.frames_data[:n_frames]:
+                    state, out = tracker.step(state, rgb, depth, occ)
+                    ys.append(state.y)
+                    outs.append(out)
 
         self.count_path("lstsq", run)
+        # The compiled lstsq step (its per-iteration loop a conditional node)
+        # against the eager one, frame by frame.
+        from trackdlo_tpu_torch.models.trackdlo import build_step_fn
+
+        eager = build_step_fn(p, intr, jit=False, device=self.dev)
+        se, mismatch = start, 0
+        for (rgb, depth, occ), out in zip(self.frames_data[:n_frames], outs):
+            se, eo = eager(se, rgb, depth, self.torch.from_numpy(occ != 0).to(self.dev))
+            mismatch += self.outputs_mismatch(out, eo)
+        self.bound("lstsq_graph_vs_eager_mismatch", mismatch + self.outputs_mismatch(state, se))
+        self.solver_graphs()
+        trips = sum(int(o.guide_iterations) + int(o.iterations) for o in outs)
+        if self.path_launches["lstsq"]["estep"] != trips:
+            self.failures.append("lstsq_trip_launches")
+            log(f"  lstsq: {self.path_launches['lstsq']['estep']} S launches, {trips} trips  FAIL")
         if self.path_launches["lstsq"]["estep"] == 0 or self.path_launches["lstsq"]["em_loop"] != 0:
             self.failures.append("lstsq_launches")
         o_state = oracle_init(self.rope.nodes(0.0, m), p)
@@ -2084,6 +2509,7 @@ class Smoke:
             tracker.init_from_nodes(self.rope.nodes(0.01 * b, m)) for b in range(n_streams)))))
         frames = [tuple(a[:n_streams] for a in f) for f in self.batch_frames_data[:n_frames]]
         befores, outs = [], []
+        fn(state, *frames[0])  # capture
 
         def run():
             nonlocal state
@@ -2099,6 +2525,7 @@ class Smoke:
             want[k] = n_frames
         want["estep_batch"] = want["gj_solve"] = sum(
             int(o.guide_iterations.max()) + int(o.iterations.max()) for o in outs)
+        want["loop_flag"] = want["estep_batch"] + 2 * n_frames
         log(f"  expected launches: {want}")
         self.bound("coarse_batched_launch_mismatch", sum(abs(got[k] - want[k]) for k in want))
 
@@ -2283,6 +2710,10 @@ class Smoke:
         self.bounds_ms["em_iteration"] = bound(
             20 + m * 12 * 2 + m * 4 * 2 + 3 * m * m * 4 + 2 * m * 12 + n_f * 16 + m * 12 + 8,
             (sweep_f + OPS_ESTEP_PAIR) * m * nv_f + onehot_mstep_ops(m))
+        # Kernel L: B done bytes and B int32 counts read, the flag written;
+        # a compare, an and and an or a stream.
+        nl = self.l_args[0].shape[0]
+        self.bounds_ms["loop_flag"] = bound(nl * 5 + 4, 3 * nl)
         yn, nmn, xn, xmn = self.n_args
         self.bounds_ms["nearest"] = bound(
             sum(t.numel() * t.element_size() for t in self.n_args) + yn.shape[0] * 4,
@@ -2295,18 +2726,22 @@ class Smoke:
         for m, calls in self.wide_calls.items():
             if m not in (100, 128):
                 continue
-            for name, (kfn, pfn) in calls.items():
+            for name, (kfn, pfn, *lib) in calls.items():
                 p1 = self.event_ms(pfn, 3)
                 k1 = self.event_ms(kfn, 20)
                 k2 = self.event_ms(kfn, 20)
                 p2 = self.event_ms(pfn, 3)
-                rec = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+                b_ms, b_by = self.wide_bounds[m][name]
+                rec = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms,
+                       "bound_by": b_by,
+                       "library_ms": self.event_ms(lib[0], 20) if lib else None}
                 rec["device_ms"], rec["device_ops_per_call"] = self.device_ms(kfn, 20)
                 self.times[f"{name}_m{m}"] = rec
                 dev = ("not measured" if rec["device_ms"] is None
                        else f"{rec['device_ms']:.4f} ms in {rec['device_ops_per_call']:g} ops")
+                libs = "" if not lib else f"   torch.linalg.solve {rec['library_ms']:.4f} ms"
                 log(f"  {name:12s} m={m}: kernel {rec['ms']:.4f} ms (device {dev})   plain "
-                    f"{rec['plain_ms']:.4f} ms")
+                    f"{rec['plain_ms']:.4f} ms{libs}   bound {b_ms:.6f} ms ({b_by})")
 
     def timing(self):
         np, torch = self.np, self.torch
@@ -2366,9 +2801,18 @@ class Smoke:
         log(f"  Tracker.step, parity_split=False, per frame: median {rec['median_ms']:.3f} ms "
             f"(p90 {rec['p90_ms']:.3f}, host wall median {rec['wall_median_ms']:.3f})")
 
+        # The batched step: each frame set one CUDA graph, and eagerly
+        # (build_batched_step_fn(jit=False)), in the same call.
+        from trackdlo_tpu_torch.parallel import build_batched_step_fn
+
         fn_c8, fn_lock = self.batch_fns
+        e_c8 = build_batched_step_fn(self.params, self.intr, cohort_size=COHORT, device=self.dev,
+                                     jit=False)
+        e_lock = build_batched_step_fn(self.params, self.intr, device=self.dev, jit=False)
         bframes = self.batch_frames_data
-        for key, fn, b in (("batched_b16_c8", fn_c8, N_STREAMS), ("batched_b8_lockstep", fn_lock, 8)):
+        for key, fn, b in (("batched_b16_c8", fn_c8, N_STREAMS), ("batched_b8_lockstep", fn_lock, 8),
+                           ("batched_b16_c8_eager", e_c8, N_STREAMS),
+                           ("batched_b8_lockstep_eager", e_lock, 8)):
             holder["b"] = type(self.batch_state)(*(v[:b] for v in self.batch_state))
             fr = [tuple(a[:b] for a in f) for f in bframes]
 
@@ -2378,12 +2822,51 @@ class Smoke:
             for f in fr[:3]:
                 batched(*f)
             torch.cuda.synchronize()
-            rec = self.step_times(key, batched, fr, 30)
+            rec = self.step_times(key, batched, fr, self.timing_frames)
             rec["streams"] = b
             rec["stream_frames_per_s"] = b / (rec["median_ms"] / 1e3)
             log(f"  {key}: per frame set median {rec['median_ms']:.3f} ms (p90 {rec['p90_ms']:.3f}, "
                 f"host wall median {rec['wall_median_ms']:.3f}), {rec['stream_frames_per_s']:.1f} "
                 f"stream-frames/s")
+
+        # The single step with solver "lstsq" and the points step, each one
+        # CUDA graph and eager.
+        lt, holder["l"] = self.lstsq_state
+        l_eager = build_step_fn(lt.params, self.intr, jit=False, device=self.dev)
+        holder["le"] = holder["l"]
+
+        def lstsq(rgb, depth, occ):
+            holder["l"], _ = lt.step(holder["l"], rgb, depth, occ)
+
+        def lstsq_eager(rgb, depth, occ):
+            holder["le"], _ = l_eager(holder["le"], rgb, depth, torch.from_numpy(occ != 0).to(self.dev))
+
+        from trackdlo_tpu_torch.models.trackdlo import build_points_step_fn
+
+        pt_eager = build_points_step_fn(self.params, self.intr, jit=False, device=self.dev)
+        cap = self.params.max_points
+        padded = []
+        for c in self.oracle_clouds:
+            pts, msk = np.zeros((cap, 3), np.float32), np.zeros(cap, bool)
+            pts[:len(c)], msk[:len(c)] = c[:cap], True
+            padded.append((pts, msk))
+        holder["p"] = holder["pe"] = self.state
+
+        def points(cloud):
+            holder["p"], _ = tracker.step_from_points(holder["p"], cloud)
+
+        def points_eager(pts, msk):
+            holder["pe"], _ = pt_eager(holder["pe"], pts, msk)
+
+        for key, fn, fr in (("step_lstsq", lstsq, frames), ("step_lstsq_eager", lstsq_eager, frames),
+                            ("step_from_points", points, [(c,) for c in self.oracle_clouds]),
+                            ("step_from_points_eager", points_eager, padded)):
+            for f in fr[:3]:
+                fn(*f)
+            torch.cuda.synchronize()
+            rec = self.step_times(key, fn, fr, self.timing_frames)
+            log(f"  {key}: per frame median {rec['median_ms']:.3f} ms (p90 {rec['p90_ms']:.3f}, "
+                f"host wall median {rec['wall_median_ms']:.3f})")
 
         p = self.params
         m = p.M
@@ -2473,6 +2956,11 @@ class Smoke:
         route["device_ms"], route["device_ops_per_call"] = self.device_ms(
             lambda: nearest_point_sq(*self.n_args_route), 50)
         self.times["nearest"]["float_masks"] = route
+        from trackdlo_tpu_torch.ops.graph_loop import loop_flag, loop_flag_plain
+
+        self.time_pair("loop_flag", lambda: loop_flag(*self.l_args),
+                       lambda: loop_flag_plain(*self.l_args))
+        self.times["loop_flag"]["note"] = f"{COHORT} streams (a cohort's lockstep loop), alone"
         log(f"  nearest, float32 masks (the route's): kernel {route['ms']:.4f} ms (device "
             f"{route['device_ms']:.4f} ms in {route['device_ops_per_call']:g} ops)")
 
@@ -2556,6 +3044,7 @@ def main() -> int:
         smoke.check_preprocess_single()
         smoke.check_fused()
         smoke.check_nearest()
+        smoke.check_loop_flag()
         torch.cuda.synchronize()
         phase_s["check"] = time.perf_counter() - t0
     if "loop" in phases:
@@ -2564,6 +3053,9 @@ def main() -> int:
         t0 = time.perf_counter()
         smoke.closed_loop()
         smoke.coarse_loops()
+        log("    the reference cells: 45 occluded frames (full, same_pts), the native library's "
+            "clouds, 40 frames' trips, the evaluation profile")
+        smoke.reference_cells()
         log("    node counts past the kernels' ranges (49, 64, 100), the TCP service, GLTP")
         smoke.node_counts()
         smoke.server()
@@ -2574,7 +3066,10 @@ def main() -> int:
             "then the lstsq route and the coarse batched step")
         t0 = time.perf_counter()
         smoke.batched_loop()
+        smoke.batched_graph()
         smoke.lstsq_loop()
+        smoke.fused_graph()
+        smoke.bound("batched_graph_host_reads", getattr(smoke, "host_reads", 0))
         smoke.coarse_batched()
         phase_s["batch"] = time.perf_counter() - t0
     if "shard" in phases and "loop" in phases:

@@ -1266,12 +1266,15 @@ def test_graph_step_streams_interleave(cuda):
 
 
 def test_step_with_another_solver_stays_eager(cuda):
-    """Solvers other than "lu" run the per-iteration loop, which reads a
-    flag an iteration on the host: their step is built eager."""
+    """Every solver's step is one CUDA graph (the per-iteration loop's trips
+    decided on the card) but "svd_lstsq": torch.linalg.svd reads its
+    convergence status on the host, so that step is built eager."""
     from trackdlo_tpu_torch.models.trackdlo import CompiledStep, Tracker
 
-    assert isinstance(Tracker(live_params(), QUARTER, device=cuda)._step, CompiledStep)
-    assert not isinstance(Tracker(live_params(solver="lstsq"), QUARTER, device=cuda)._step,
+    for solver in ("lu", "lstsq", "normal_cholesky", "xla_lu"):
+        assert isinstance(Tracker(live_params(solver=solver), QUARTER, device=cuda)._step,
+                          CompiledStep), solver
+    assert not isinstance(Tracker(live_params(solver="svd_lstsq"), QUARTER, device=cuda)._step,
                           CompiledStep)
 
 
@@ -1380,3 +1383,91 @@ def test_wide_batched_kernels_match_plain(cuda, m):
     nm = torch.arange(m, device=cuda) < 2 * m // 3
     c = (st.args[1][0], nm, st.args[9][0], st.args[10][0])
     assert torch.equal(nearest_point_sq(*c), nearest_point_sq_plain(*c))
+
+
+# ---------------------------------------------------------------------------
+# Kernel L and the EM loop as a conditional WHILE node of a CUDA graph.
+# ---------------------------------------------------------------------------
+
+
+def test_loop_flag_kernel_matches_plain(cuda):
+    from trackdlo_tpu_torch.ops.graph_loop import loop_flag, loop_flag_plain
+
+    rng = np.random.default_rng(0)
+    for _ in range(40):
+        b = int(rng.integers(1, 80))
+        done = torch.from_numpy(rng.random(b) < 0.8).to(cuda)
+        it = torch.from_numpy(rng.integers(0, 12, b).astype(np.int32)).to(cuda)
+        max_iter = int(rng.integers(0, 12))
+        assert int(loop_flag(done, it, max_iter)) == int(loop_flag_plain(done, it, max_iter))
+
+
+def _graph_loop_staging(cuda, bsz):
+    from trackdlo_tpu_torch.models.trackdlo import Tracker
+
+    tracker = Tracker(live_params(max_points=512, dlo_pixel_width=10), QUARTER, device=cuda)
+    state = tracker.init_from_nodes(SyntheticRope().nodes(0.0, M))
+    _, out = tracker.step(state, *_quarter_frames(1)[0])
+    p = live_params()
+    params = CpdParams(beta=p.beta, lam=p.lam, lle_weight=p.lle_weight, mu=p.mu,
+                       max_iter=p.max_iter, tol=p.tol, include_lle=False, k_vis=p.k_vis,
+                       visibility_threshold=p.visibility_threshold, prune_radius=p.prune_radius,
+                       use_visibility=True)
+    rep = lambda t: t.unsqueeze(0).expand(bsz, *t.shape).contiguous()
+    y = rep(state.y) + 0.002 * torch.arange(bsz, device=cuda)[:, None, None]
+    st = em_staging(rep(out.points), rep(out.points_mask), y,
+                    torch.ones(bsz, M, dtype=torch.bool, device=cuda),
+                    torch.full((bsz,), float(state.sigma2), device=cuda), params)
+    return st, params
+
+
+def test_conditional_node_loop_matches_eager_loop(cuda):
+    """The lockstep loop of 4 streams (kernels S and G a trip) captured as a
+    conditional WHILE node: every replay bit for bit the eager host loop, the
+    trips counted on the card."""
+    from trackdlo_tpu_torch.ops import graph_loop
+    from trackdlo_tpu_torch.ops.cpd_lle import em_loop_lockstep, iteration_route
+    from trackdlo_tpu_torch.ops.hopper_kernels import fused_estep_packed_batch
+
+    st, params = _graph_loop_staging(cuda, 4)
+    iteration = iteration_route(st, params, fused_estep_packed_batch)
+    want = em_loop_lockstep(st, params, iteration)
+    graph_loop.warm(cuda)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    loops = graph_loop.GraphLoops(cuda)
+    with graph_loop.recording(loops):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            got = em_loop_lockstep(st, params, iteration)
+    loops.captured()
+    _build.settle_counts()
+    _build.reset_launch_counts()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    trips = int(want[2].max())
+    counts = _build.settle_counts()
+    assert trips >= 2 and len(set(want[2].tolist())) >= 2
+    assert counts["estep_batch"] == counts["gj_solve"] == 3 * trips
+    assert counts["loop_flag"] == 3 * (trips + 1)
+
+
+def test_batched_graph_matches_eager_over_three_frame_sets(cuda):
+    from trackdlo_tpu_torch.models.trackdlo import Tracker, TrackerState
+    from trackdlo_tpu_torch.parallel import build_batched_step_fn
+
+    params, bsz = live_params(max_points=512, dlo_pixel_width=10), 4
+    graph = build_batched_step_fn(params, QUARTER, cohort_size=2, device=cuda)
+    eager = build_batched_step_fn(params, QUARTER, cohort_size=2, device=cuda, jit=False)
+    tracker = Tracker(params, QUARTER, device=cuda)
+    state = TrackerState(*(torch.stack(f) for f in zip(*(
+        tracker.init_from_nodes(SyntheticRope().nodes(0.01 * b, M)) for b in range(bsz)))))
+    sg = se = state
+    for rgb, depth, occ in _quarter_frames(3):
+        frames = [np.stack([a] * bsz) for a in (rgb, depth, occ)]
+        sg, og = graph(sg, *frames)
+        se, oe = eager(se, *frames)
+        for a, b in zip((*sg, *og), (*se, *oe)):
+            assert torch.equal(a, b)

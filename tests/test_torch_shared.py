@@ -1,7 +1,9 @@
 """The port's own copies of the JAX package's numpy-only modules (config,
 io.sequence, dlo_init, the float64 oracle, io.raw_sequence, utils.viz,
-evaluation.occlusion and evaluation.scenarios) against the originals, and an
-import scan: no file of the port, and not chip_smoke.py, imports jax or
+evaluation.occlusion, evaluation.scenarios, io.camera_preset,
+io.pseudo_depth, and the tools mask_preview, color_picker,
+simulate_occlusion and render_results) and of the native library's C++
+source against the originals, and an import scan: no file of the port, and not chip_smoke.py, imports jax or
 anything of trackdlo_tpu; nor does tests/torch_shard_workers.py, which the
 point-sharded tests' spawned ranks import."""
 
@@ -85,7 +87,9 @@ def test_initialize_nodes_equal():
 
 # Copies whose text is the original's but for the package name in imports.
 COPIES = ["io/raw_sequence.py", "utils/viz.py", "evaluation/occlusion.py",
-          "evaluation/scenarios.py"]
+          "evaluation/scenarios.py", "io/camera_preset.py", "io/pseudo_depth.py",
+          "tools/mask_preview.py", "tools/color_picker.py", "tools/simulate_occlusion.py",
+          "tools/render_results.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -93,6 +97,11 @@ def test_copied_module_is_the_original_but_for_imports(rel):
     original = (REPO / "trackdlo_tpu" / rel).read_text()
     copy = (REPO / "trackdlo_tpu_torch" / rel).read_text()
     assert copy == original.replace("trackdlo_tpu.", "trackdlo_tpu_torch.")
+
+
+def test_native_source_is_the_original_byte_for_byte():
+    rel = "native/preprocess.cpp"
+    assert (REPO / "trackdlo_tpu_torch" / rel).read_bytes() == (REPO / "trackdlo_tpu" / rel).read_bytes()
 
 
 def test_raw_sequences_cross_between_the_packages(tmp_path):
@@ -149,6 +158,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "trackdlo_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "torch_shard_workers.py"]
     assert len(files) > 20
+    scanned = {os.path.relpath(p, REPO / "trackdlo_tpu_torch") for p in files}
+    for rel in ("native/__init__.py", "utils/profiling.py", "io/ros_adapter.py",
+                "tools/live_view.py", "tools/record.py", "ops/graph_loop.py", *COPIES):
+        assert rel in scanned, rel
     bad = []
     for path in files:
         for name in _imports(path):

@@ -23,6 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent
@@ -37,6 +38,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_ulonglong
 
 # C entry points and their argument types (pointers and the stream last as
 # c_void_p, so ctypes never truncates a 64-bit address).
@@ -116,6 +118,18 @@ SIGNATURES = {
     "trackdlo_em_loop_cluster_info": [_I, _I, _P],
     "trackdlo_estep_cluster_info": [_I, _I, _P],
     "trackdlo_em_iter_cluster_info": [_I, _I, _P],
+    # Kernel L and the conditional WHILE node of the EM loop in a CUDA graph
+    # (csrc/loop_flag.cu).
+    "trackdlo_loop_flag": [
+        _P, _P,  # done, it
+        _I, _I,  # n_streams, max_iter
+        _U, _I,  # conditional handle, set it
+        _P, _P, _I,  # flag out, trips counter, opening launch
+        _P,
+    ],
+    "trackdlo_while_handle": [_P, _P],  # stream, handle out
+    "trackdlo_while_open": [_P, _U, _P],  # stream, handle, body stream
+    "trackdlo_while_close": [_P],  # body stream
 }
 
 _lock = threading.Lock()
@@ -127,14 +141,37 @@ launch_counts = {
     "cell_sums": 0, "compact": 0, "visibility": 0, "walks": 0, "em_loop": 0,
     "estep": 0, "estep_batch": 0, "gj_solve": 0,
     "cell_sums_votes": 0, "cell_sums_cells": 0, "em_iteration": 0, "nearest": 0,
+    "loop_flag": 0,
 }
+
+
+# Launches that only the card can count: the trips of an EM loop inside a
+# CUDA graph (ops/graph_loop.py). Each counter has a ``settle()`` that reads
+# its device tally (a host synchronisation), zeroes it and returns the
+# launches since its last call.
+_device_counters: weakref.WeakSet = weakref.WeakSet()
 
 
 def count_launch(name: str) -> None:
     launch_counts[name] += 1
 
 
+def register_device_counter(counter) -> None:
+    _device_counters.add(counter)
+
+
+def settle_counts() -> dict:
+    """Add the launches the card counted since the last call (the replayed
+    graphs' loop trips) to ``launch_counts`` and return ``launch_counts``.
+    Reads the card: call it outside timed or replayed work."""
+    for counter in list(_device_counters):
+        add_counts(counter.settle())
+    return launch_counts
+
+
 def reset_launch_counts() -> None:
+    for counter in list(_device_counters):
+        counter.settle()
     for k in launch_counts:
         launch_counts[k] = 0
 

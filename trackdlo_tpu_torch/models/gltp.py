@@ -23,6 +23,7 @@ from trackdlo_tpu_torch.models.trackdlo import (
     host_to_device,
     init_state,
     preprocess_for_step,
+    step_shapes,
 )
 from trackdlo_tpu_torch.ops.cpd_lle import CpdParams, cpd_lle
 from trackdlo_tpu_torch.ops.preprocess import default_cell_px
@@ -63,7 +64,7 @@ class GltpTracker:
         )
         fn = functools.partial(_gltp_step, params=params, intr=intrinsics, cell_px=cell_px,
                                device=self.device)
-        self._step = (CompiledStep(fn, self.device, params, intrinsics)
+        self._step = (CompiledStep(fn, self.device, step_shapes(params, intrinsics))
                       if self.device.type == "cuda" else fn)
         self._full_occ = None
 

@@ -24,6 +24,7 @@ import torch
 from trackdlo_tpu_torch import _build
 from trackdlo_tpu_torch.config import CameraIntrinsics, TrackerParams
 from trackdlo_tpu_torch.device import resolve_device, set_full_fp32
+from trackdlo_tpu_torch.ops import graph_loop
 from trackdlo_tpu_torch.ops.collectives import shard_slice
 from trackdlo_tpu_torch.ops.cpd_lle import CpdParams, cpd_lle, cpd_lle_batched
 from trackdlo_tpu_torch.ops.kernels import geodesic_coords
@@ -241,50 +242,86 @@ def _copy_into(dst: torch.Tensor, src, name: str) -> None:
     dst.copy_(src, non_blocking=True)
 
 
+# Solvers whose M-step no CUDA graph holds, so that their step stays eager:
+# the SVD reads its convergence status on the host; over a batch of streams
+# the Cholesky factorisation runs through MAGMA, which synchronises (and
+# aborts the process under capture), and the QR through cuBLAS' batched
+# geqrf, which a conditional loop body does not hold (PERF.md §6).
+EAGER_SOLVERS = ("svd_lstsq",)
+BATCH_EAGER_SOLVERS = ("svd_lstsq", "normal_cholesky", "lstsq")
+
+
+def step_shapes(params: TrackerParams, intr: CameraIntrinsics, batch: int | None = None) -> dict:
+    """The static buffers of a frame step, name → (shape, dtype): the
+    state's fields, then rgb (u8), depth (its int16 bits) and the occlusion
+    mask (bool); every one with a leading stream axis of ``batch`` when
+    given."""
+    lead = () if batch is None else (batch,)
+    h, w, m = intr.height, intr.width, params.num_of_nodes
+    return dict(y=(lead + (m, 3), torch.float32), sigma2=(lead, torch.float32),
+                geodesic_coord=(lead + (m,), torch.float32), rgb=(lead + (h, w, 3), torch.uint8),
+                depth=(lead + (h, w), torch.int16), occ=(lead + (h, w), torch.bool))
+
+
+def points_shapes(params: TrackerParams) -> dict:
+    """The static buffers of a points step: the state's fields, then the
+    (max_points, 3) cloud and its (max_points,) mask."""
+    m, cap = params.num_of_nodes, params.max_points
+    return dict(y=((m, 3), torch.float32), sigma2=((), torch.float32),
+                geodesic_coord=((m,), torch.float32), points=((cap, 3), torch.float32),
+                mask=((cap,), torch.bool))
+
+
 class CompiledStep:
-    """A step ``fn(state, rgb, depth, occ) -> outputs`` captured once as one
-    CUDA graph over static input buffers and replayed every call.
+    """A step ``fn(state, *inputs) -> outputs`` captured once as one CUDA
+    graph over static buffers (``shapes``, name → (shape, dtype): the
+    state's three fields, then one buffer per input, as
+    :func:`step_shapes` or :func:`points_shapes` give them) and replayed
+    every call.
 
-    The first call warms ``fn`` up eagerly on a side stream (the kernel
-    library loads, every launcher sets its attributes, every cache fills),
-    then captures it into one ``torch.cuda.CUDAGraph``. Each call copies the
-    frame into the static rgb, depth (its int16 bits) and occlusion buffers
-    (numpy through pinned memory) and the state into the static state,
-    replays the graph, and returns copies of the outputs taken out of the
-    graph's memory pool: what one call returns is never overwritten by the
-    next, so streams can interleave their states through one step. The
-    kernel wrappers count their launches in Python, so once while capturing:
-    that count is recorded and added to ``_build``'s counters at each
-    replay. Nothing falls back: a capture that fails raises. Calls must not
-    overlap (callers serialise them, as the TCP server's device lock does)."""
+    The first call warms ``fn`` up eagerly on a side stream, the one its EM
+    loops' bodies are later captured on (the kernel library loads, every
+    launcher sets its attributes, every cache and library workspace fills),
+    then captures it into one ``torch.cuda.CUDAGraph``; an EM loop inside
+    becomes a conditional WHILE node whose trips the card decides
+    (:mod:`~trackdlo_tpu_torch.ops.graph_loop`). Each call copies the
+    inputs into the static buffers (numpy arrays through pinned memory, u16
+    depth as its int16 bits) and the state into the static state, replays
+    the graph, and returns copies of the outputs taken out of the graph's
+    memory pool: what one call returns is never overwritten by the next, so
+    streams can interleave their states through one step. The kernel
+    wrappers count their launches in Python, so once while capturing: that
+    count is recorded and added to ``_build``'s counters at each replay;
+    the launches of the loops' trips are counted on the card and reach the
+    counters at ``_build.settle_counts()``. Nothing falls back: a capture
+    that fails raises. Calls must not overlap (callers serialise them, as
+    the TCP server's device lock does)."""
 
-    def __init__(self, fn: Callable, device: torch.device, params: TrackerParams,
-                 intr: CameraIntrinsics):
+    def __init__(self, fn: Callable, device: torch.device, shapes: dict):
         self.fn, self.device = fn, device
-        h, w, m = intr.height, intr.width, params.num_of_nodes
-        self._shapes = dict(y=((m, 3), torch.float32), sigma2=((), torch.float32),
-                            geodesic_coord=((m,), torch.float32), rgb=((h, w, 3), torch.uint8),
-                            depth=((h, w), torch.int16), occ=((h, w), torch.bool))
+        self._shapes = shapes
         self.graph = None
         self.counts = None
+        self.loops = None
         self._inputs = None
         self._outputs = None
 
-    def _load(self, state, rgb, depth, occ) -> None:
-        for name, src in zip(self._inputs, (*state, rgb, depth, occ)):
+    def _load(self, state, inputs) -> None:
+        for name, src in zip(self._inputs, (*state, *inputs)):
             _copy_into(self._inputs[name], src, name)
 
     def _args(self):
-        b = self._inputs
-        return (TrackerState(b["y"], b["sigma2"], b["geodesic_coord"]), b["rgb"], b["depth"],
-                b["occ"])
+        b = list(self._inputs.values())
+        return (TrackerState(*b[:3]), *b[3:])
 
-    def _capture(self, state, rgb, depth, occ) -> None:
+    def _capture(self, state, inputs) -> None:
         dev = self.device
         self._inputs = {k: torch.empty(shape, dtype=dt, device=dev)
                         for k, (shape, dt) in self._shapes.items()}
-        self._load(state, rgb, depth, occ)
-        side = torch.cuda.Stream(dev)
+        self._load(state, inputs)
+        graph_loop.warm(dev)
+        loops = graph_loop.GraphLoops(dev)
+        side = loops.body_stream  # the warm-up's stream is the loops' body stream
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self.fn(*self._args())
@@ -292,19 +329,21 @@ class CompiledStep:
         graph = torch.cuda.CUDAGraph()
         before = dict(_build.launch_counts)
         try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                outputs = self.fn(*self._args())
+            with graph_loop.recording(loops):
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    outputs = self.fn(*self._args())
         finally:
             after = dict(_build.launch_counts)
             counts = {k: after[k] - before[k] for k in after}
             _build.add_counts({k: -v for k, v in counts.items()})
-        self.graph, self.counts, self._outputs = graph, counts, outputs
+        loops.captured()
+        self.graph, self.counts, self.loops, self._outputs = graph, counts, loops, outputs
 
-    def __call__(self, state, rgb, depth, occ):
+    def __call__(self, state, *inputs):
         with torch.cuda.device(self.device):
             if self.graph is None:
-                self._capture(state, rgb, depth, occ)
-            self._load(state, rgb, depth, occ)
+                self._capture(state, inputs)
+            self._load(state, inputs)
             self.graph.replay()
             _build.add_counts(self.counts)
             return _copy_outputs(self._outputs)
@@ -318,19 +357,46 @@ def build_step_fn(params: TrackerParams, intr: CameraIntrinsics, jit: bool = Tru
 
     On a CUDA device with ``jit`` (the default, as the JAX package's
     ``jax.jit``): a :class:`CompiledStep`, the whole step captured at the
-    first call as one CUDA graph and replayed every frame. With
-    ``jit=False``, on the CPU, or with a solver other than ``"lu"``, the
-    eager step: those solvers run the per-iteration EM loop, which reads one
-    flag an iteration on the host (``ops.cpd_lle.em_loop_lockstep``), so
-    no graph can hold it. Either way the hyperparameters are fixed when the
-    step is built."""
+    first call as one CUDA graph and replayed every frame, with every
+    solver but ``"svd_lstsq"`` (the per-iteration EM loop's trips decided on
+    the card). ``torch.linalg.svd`` reads its convergence status on the host
+    and has no variant that does not, so the ``"svd_lstsq"`` step is the
+    eager one. With ``jit=False`` or on the CPU, the eager step. Either way
+    the hyperparameters are fixed when the step is built."""
     dev = resolve_device(device)
     set_full_fp32()
     cell_px = params.downsample_cell_px or default_cell_px(params.downsample_leaf_size, intr.fx)
     proj = torch.as_tensor(np.array(intr.proj_matrix(), np.float32), device=dev)
     fn = functools.partial(_step_impl, params=params, intr=intr, cell_px=cell_px, proj=proj)
-    if jit and dev.type == "cuda" and params.solver == "lu":
-        return CompiledStep(fn, dev, params, intr)
+    if jit and dev.type == "cuda" and params.solver not in EAGER_SOLVERS:
+        return CompiledStep(fn, dev, step_shapes(params, intr))
+    return fn
+
+
+def _points_step_impl(state: TrackerState, points, mask, *, params: TrackerParams,
+                      intr: CameraIntrinsics, proj: torch.Tensor):
+    """The step from a (max_points, 3) cloud and its (max_points,) mask on
+    ``proj``'s device: :func:`_track_from_points`, no preprocessing."""
+    dev = proj.device
+    pts, msk = host_to_device(points, dev), host_to_device(mask, dev)
+    pc = PointCloud(points=pts, mask=msk, count=msk.to(torch.int64).sum())
+    return _track_from_points(state, pc, proj, params=params, intr=intr)
+
+
+def build_points_step_fn(params: TrackerParams, intr: CameraIntrinsics, jit: bool = True,
+                         device=None):
+    """The step from a caller's cloud ``(state, points f32 (max_points, 3),
+    mask bool (max_points,)) -> (state, outputs)`` on ``device`` (the card
+    unless the caller names the CPU), the counterpart of the JAX package's
+    jitted ``Tracker.step_from_points``. On a CUDA device with ``jit``: a
+    :class:`CompiledStep` over a static cloud and mask (but for
+    :data:`EAGER_SOLVERS`); else eager."""
+    dev = resolve_device(device)
+    set_full_fp32()
+    proj = torch.as_tensor(np.array(intr.proj_matrix(), np.float32), device=dev)
+    fn = functools.partial(_points_step_impl, params=params, intr=intr, proj=proj)
+    if jit and dev.type == "cuda" and params.solver not in EAGER_SOLVERS:
+        return CompiledStep(fn, dev, points_shapes(params))
     return fn
 
 
@@ -347,9 +413,9 @@ class Tracker:
     ``device="cuda"`` without a GPU raises; it never falls back to the CPU.
     On a CUDA device every former TPU kernel of the step runs as a
     hand-written CUDA kernel (up to 128 nodes, ``hopper_kernels.NODE_MAX``;
-    more raise there), and ``step``
-    replays the step's CUDA graph (:func:`build_step_fn`; eager with a
-    solver other than ``"lu"``); on the CPU the plain versions run
+    more raise there), and ``step`` and ``step_from_points`` each replay
+    their CUDA graph (:func:`build_step_fn`, :func:`build_points_step_fn`;
+    every solver but ``"svd_lstsq"``); on the CPU the plain versions run
     eagerly."""
 
     def __init__(self, params: TrackerParams, intrinsics: CameraIntrinsics, device=None):
@@ -357,8 +423,7 @@ class Tracker:
         self.intrinsics = intrinsics
         self.device = resolve_device(device)
         self._step = build_step_fn(params, intrinsics, device=self.device)
-        fn = self._step.fn if isinstance(self._step, CompiledStep) else self._step
-        self._proj = fn.keywords["proj"]
+        self._step_points = None
         self._full_occ = None
 
     def init_from_nodes(self, nodes) -> TrackerState:
@@ -399,14 +464,16 @@ class Tracker:
 
     def step_from_points(self, state: TrackerState, points):
         """One update from a caller-supplied (N, 3) cloud, skipping the RGB-D
-        preprocessing; points beyond ``params.max_points`` are dropped."""
+        preprocessing; points beyond ``params.max_points`` are dropped. On
+        the card the step replays its own CUDA graph
+        (:func:`build_points_step_fn`), built at the first call."""
+        if self._step_points is None:
+            self._step_points = build_points_step_fn(self.params, self.intrinsics,
+                                                     device=self.device)
         cap = self.params.max_points
         pts = np.zeros((cap, 3), np.float32)
         msk = np.zeros((cap,), bool)
         arr = np.asarray(points, np.float32)[:cap]
         pts[: len(arr)] = arr
         msk[: len(arr)] = True
-        pts_t = torch.from_numpy(pts).to(self.device)
-        msk_t = torch.from_numpy(msk).to(self.device)
-        pc = PointCloud(points=pts_t, mask=msk_t, count=msk_t.to(torch.int64).sum())
-        return _track_from_points(state, pc, self._proj, params=self.params, intr=self.intrinsics)
+        return self._step_points(state, pts, msk)

@@ -34,9 +34,10 @@ visibility gate, then iterate. The routes, as in the JAX package:
   space stays replicated: every rank solves the same M-step.
 
 Data-dependent scalars (v_count, n_count, σ², the gate) stay on the device.
-The lockstep loop reads one flag per iteration to learn whether any stream
-is still active; under an axis every rank reads the same flag, since every
-rank holds the same all-reduced bits.
+Eagerly the lockstep loop reads one flag per iteration to learn whether any
+stream is still active; under an axis every rank reads the same flag, since
+every rank holds the same all-reduced bits. Inside a CUDA graph the card
+decides the trips (:mod:`~trackdlo_tpu_torch.ops.graph_loop`).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from trackdlo_tpu_torch.ops import graph_loop
 from trackdlo_tpu_torch.ops.collectives import pmin, psum
 from trackdlo_tpu_torch.ops.hopper_kernels import (
     fused_em_iteration_staged,
@@ -390,27 +392,38 @@ def em_loop_lockstep(st: EmStaging, params: CpdParams, iteration: Callable):
     converged and below max_iter); a stream that is not active is frozen by
     select, so its y, σ², iteration count and ``converged`` stay as they
     were. ``iteration(y, sigma2)`` computes one iteration of every stream,
-    returning (t, sigma2, delta). One flag per iteration crosses to the
-    host. Returns (y, sigma2, iterations int32, converged), each with the
-    leading stream axis."""
-    y = st.args[1]
-    s2 = st.args[0][:, 0]
+    returning (t, sigma2, delta). Each trip runs one body that writes the
+    loop's state (y, σ², it, done, converged) in place into the buffers it
+    reads. Eagerly a host ``while`` reads whether any stream is active
+    before each trip (one flag crosses to the host); while a CUDA graph is
+    being captured the body becomes a conditional WHILE node whose trips
+    the card decides (:func:`~trackdlo_tpu_torch.ops.graph_loop.device_while`,
+    kernel L), so a replay reads nothing on the host. Returns (y, sigma2,
+    iterations int32, converged), each with the leading stream axis."""
+    y = st.args[1].clone()
+    s2 = st.args[0][:, 0].clone()
     bsz = y.shape[0]
     dev = y.device
     it = torch.zeros(bsz, dtype=torch.int32, device=dev)
     done = torch.zeros(bsz, dtype=torch.bool, device=dev)
     converged = torch.ones(bsz, dtype=torch.bool, device=dev)
-    while True:
-        active = ~done & (it < params.max_iter)
-        if not bool(active.any()):
-            break
+    max_iter = params.max_iter
+
+    def trip():
+        active = ~done & (it < max_iter)
         t, s2_new, delta = iteration(y, s2)
         new_done = delta < params.tol
-        y = torch.where(active[:, None, None], t, y)
-        s2 = torch.where(active, s2_new, s2)
-        converged = torch.where(active, new_done | (it + 1 < params.max_iter), converged)
-        done = torch.where(active, new_done, done)
-        it = it + active.to(torch.int32)
+        torch.where(active[:, None, None], t, y, out=y)
+        torch.where(active, s2_new, s2, out=s2)
+        torch.where(active, new_done | (it + 1 < max_iter), converged, out=converged)
+        torch.where(active, new_done, done, out=done)
+        it.add_(active.to(torch.int32))
+
+    if graph_loop.capturing(dev):
+        graph_loop.device_while(done, it, max_iter, trip)
+    else:
+        while bool((~done & (it < max_iter)).any()):
+            trip()
     return y, s2, it, converged
 
 
@@ -428,7 +441,13 @@ def _solve_qr(a, b):
 def _solve_normal_cholesky(a, b):
     ata = a.mT @ a
     atb = a.mT @ b
-    return torch.cholesky_solve(atb, torch.linalg.cholesky(ata))
+    # cholesky_ex: the factor of linalg.cholesky without its status check,
+    # which reads the card; then cholesky_solve's two triangular solves,
+    # written out (cuSOLVER's potrs is not held by a CUDA graph's
+    # conditional loop body in every process, PERF.md §6).
+    low = torch.linalg.cholesky_ex(ata).L
+    y = torch.linalg.solve_triangular(low, atb, upper=False)
+    return torch.linalg.solve_triangular(low.mT, y, upper=True)
 
 
 def _solve_svd(a, b, rcond: float = 1e-12):

@@ -540,11 +540,26 @@ def fused_estep_packed(scal, y, coord, nm, pv, x, xm, *, two_phase: bool):
 # ---------------------------------------------------------------------------
 
 
+def lu_solve_plain(a, b):
+    """a w = b by LU with partial pivoting and two triangular solves, the
+    algorithm of ``linalg.solve`` (and of the JAX package's
+    ``jnp.linalg.solve``), built from the factorisation and the triangular
+    solves alone: no status read on the host, and none of cuSOLVER's
+    getrs, which a CUDA graph's conditional loop body cannot hold in a
+    process that captured other library calls before (PERF.md §6).
+    Applying the pivots as a product with the 0/1 permutation is exact."""
+    lu, piv, _ = torch.linalg.lu_factor_ex(a)
+    perm, lower, upper = torch.lu_unpack(lu, piv)
+    y = torch.linalg.solve_triangular(lower, perm.mT @ b, upper=False, unitriangular=True)
+    return torch.linalg.solve_triangular(upper, y, upper=True)
+
+
 def gauss_jordan_solve_batched_plain(a, b, g=None, y0=None):
     """Kernel G's plain version: a direct solve (the JAX package's route off
-    the TPU, ``jnp.linalg.solve``) and, with ``g`` and ``y0``, the node
-    update y0 + g w as the kernel takes its product (B1's ``_exact_dot``)."""
-    w = torch.linalg.solve(a, b)
+    the TPU, ``jnp.linalg.solve``; :func:`lu_solve_plain`) and, with ``g``
+    and ``y0``, the node update y0 + g w as the kernel takes its product
+    (B1's ``_exact_dot``)."""
+    w = lu_solve_plain(a, b)
     return w if g is None else (w, y0 + exact_split_matmul(g, w))
 
 

@@ -96,6 +96,30 @@ def voxel_parity_bits(us, vs, depth_f32, fx, fy, cx, cy, voxel_leaf):
     )
 
 
+def rgb_to_hsv_cv(rgb: torch.Tensor) -> torch.Tensor:
+    """OpenCV-convention HSV (H in [0, 180), S and V in [0, 255]) as float32
+    from u8 RGB (..., 3): the counterpart of the JAX package's
+    ``rgb_to_hsv_cv``, a float re-derivation of ``cv2.cvtColor(...,
+    COLOR_RGB2HSV)`` in its operation order. No step calls it: the mask is
+    the division-free :func:`hsv_in_range`."""
+    rgbf = rgb.to(torch.float32)
+    r, g, b = rgbf[..., 0], rgbf[..., 1], rgbf[..., 2]
+    v = torch.maximum(torch.maximum(r, g), b)
+    mn = torch.minimum(torch.minimum(r, g), b)
+    delta = v - mn
+    delta_safe = torch.where(delta == 0, 1.0, delta)
+    s = torch.where(v > 0, delta * 255.0 / torch.where(v == 0, 1.0, v), 0.0)
+    h = torch.where(
+        v == r,
+        60.0 * (g - b) / delta_safe,
+        torch.where(v == g, 120.0 + 60.0 * (b - r) / delta_safe,
+                    240.0 + 60.0 * (r - g) / delta_safe),
+    )
+    h = torch.where(delta == 0, 0.0, h)
+    h = torch.where(h < 0, h + 360.0, h) / 2.0
+    return torch.stack([h, s, v], dim=-1)
+
+
 def hsv_in_range(r, g, b, lower, upper):
     """Division-free HSV in-range test: products of u8-valued floats stay
     below 2^24, so every comparison is the exact rational predicate."""

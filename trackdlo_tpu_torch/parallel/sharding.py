@@ -13,7 +13,9 @@ another, each with its own lockstep loops: a lockstep loop runs every stream
 of it to its slowest stream's trip count, and the cohorts bound that tax.
 A converged stream is frozen by select, so grouping changes no stream's
 math. A cohort of one takes the single-stream step (kernel E's whole loop),
-as the JAX package's axis-size-1 rule does.
+as the JAX package's axis-size-1 rule does. On the card the whole frame
+set is one CUDA graph, as the JAX package jits every cohort into one
+program.
 
 The mesh: one process per rank, ranks laid out data-major as the JAX
 package's device grid (rank r is data index r // model_parallel, model
@@ -29,6 +31,7 @@ ranks.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -37,11 +40,14 @@ import torch.distributed as dist
 from trackdlo_tpu_torch.config import CameraIntrinsics, TrackerParams
 from trackdlo_tpu_torch.device import resolve_device, set_full_fp32
 from trackdlo_tpu_torch.models.trackdlo import (
+    BATCH_EAGER_SOLVERS,
+    CompiledStep,
     StepOutputs,
     TrackerState,
     _track_from_points,
     host_to_device,
     preprocess_for_step,
+    step_shapes,
 )
 from trackdlo_tpu_torch.ops.preprocess import default_cell_px
 
@@ -85,14 +91,26 @@ def make_tracking_mesh(n_devices: int | None = None, model_parallel: int = 1) ->
                         rank % model_parallel, model_group)
 
 
+def _host_occ(occ, dev):
+    """The occlusion masks as (B, H, W) bool (nonzero keeps a pixel; a
+    trailing channel axis is any-reduced), numpy or on ``dev``."""
+    if isinstance(occ, torch.Tensor):
+        occ = occ.to(dev) != 0
+        return occ.any(dim=-1) if occ.ndim == 4 else occ
+    occ = np.asarray(occ) != 0
+    return occ.any(axis=-1) if occ.ndim == 4 else occ
+
+
 def _make_step(params: TrackerParams, intr: CameraIntrinsics, cohort_size, mesh, model_axis,
-               device):
+               device, jit=False):
     dev = resolve_device(device)
     set_full_fp32()
     cell_px = params.downsample_cell_px or default_cell_px(params.downsample_leaf_size, intr.fx)
     proj = torch.as_tensor(np.array(intr.proj_matrix(), np.float32), device=dev)
     h, w = intr.height, intr.width
     kw = dict(params=params, intr=intr, model_axis=model_axis)
+    compiled: dict[int, CompiledStep] = {}
+    ones: dict[int, torch.Tensor] = {}
 
     def run(state: TrackerState, rgb, depth, occ):
         if state.y.shape[0] == 1:
@@ -103,6 +121,19 @@ def _make_step(params: TrackerParams, intr: CameraIntrinsics, cohort_size, mesh,
             return TrackerState(*(v[None] for v in new)), StepOutputs(*(v[None] for v in out))
         pc = preprocess_for_step(rgb, depth, occ, params=params, intr=intr, cell_px=cell_px)
         return _track_from_points(state, pc, proj, **kw)
+
+    def run_cohorts(state: TrackerState, rgb_t, depth_t, occ_t, cs: int):
+        """The frame set on the device, the cohorts one after another."""
+        outs = []
+        for i in range(0, rgb_t.shape[0], cs):
+            sl = slice(i, i + cs)
+            outs.append(run(TrackerState(*(v[sl] for v in state)), rgb_t[sl], depth_t[sl],
+                            occ_t[sl]))
+        if len(outs) == 1:
+            return outs[0]
+        states, results = zip(*outs)
+        cat = lambda parts: [torch.cat(f) for f in zip(*parts)]
+        return TrackerState(*cat(states)), StepOutputs(*cat(results))
 
     def step(state: TrackerState, rgb, depth, occ=None):
         b = int(np.shape(rgb)[0])
@@ -124,6 +155,16 @@ def _make_step(params: TrackerParams, intr: CameraIntrinsics, cohort_size, mesh,
         cs = b if cohort_size is None else cohort_size
         if b % cs:
             raise ValueError(f"batch {b} not divisible by cohort_size={cs}")
+        if (jit and dev.type == "cuda" and model_axis is None
+                and params.solver not in BATCH_EAGER_SOLVERS):
+            if occ is None:
+                if b not in ones:
+                    ones[b] = torch.ones((b, h, w), dtype=torch.bool, device=dev)
+                occ = ones[b]
+            if b not in compiled:
+                compiled[b] = CompiledStep(functools.partial(run_cohorts, cs=cs), dev,
+                                           step_shapes(params, intr, b))
+            return compiled[b](state, rgb, depth, _host_occ(occ, dev))
         rgb_t = host_to_device(rgb, dev)
         depth_t = host_to_device(depth, dev)
         if occ is None:
@@ -133,23 +174,14 @@ def _make_step(params: TrackerParams, intr: CameraIntrinsics, cohort_size, mesh,
             if occ_t.ndim == 4:
                 occ_t = occ_t.any(dim=-1)
             occ_t = occ_t.contiguous()
-        outs = []
-        for i in range(0, b, cs):
-            sl = slice(i, i + cs)
-            outs.append(run(TrackerState(*(v[sl] for v in state)), rgb_t[sl], depth_t[sl],
-                            occ_t[sl]))
-        if len(outs) == 1:
-            return outs[0]
-        states, results = zip(*outs)
-        cat = lambda parts: [torch.cat(f) for f in zip(*parts)]
-        return TrackerState(*cat(states)), StepOutputs(*cat(results))
+        return run_cohorts(state, rgb_t, depth_t, occ_t, cs)
 
     return step
 
 
 def build_batched_step_fn(params: TrackerParams, intr: CameraIntrinsics,
                           mesh: TrackingMesh | None = None, cohort_size: int | None = None,
-                          device=None):
+                          device=None, jit: bool = True):
     """The batched step ``step(state, rgb (B, H, W, 3) u8, depth (B, H, W)
     u16 mm, occ (B, H, W)) -> (state, outputs)``, a leading B axis on every
     field of both results. ``occ`` nonzero keeps a pixel; ``None`` keeps
@@ -159,8 +191,18 @@ def build_batched_step_fn(params: TrackerParams, intr: CameraIntrinsics,
     With a ``mesh`` (pure data parallelism): the frames are the global batch
     and this rank steps its data slice of it, B / data size streams, and
     returns their state and outputs; ``state`` is the global batch's or this
-    slice's. Ranks of one model group step the same streams."""
-    return _make_step(params, intr, cohort_size, mesh, None, device)
+    slice's. Ranks of one model group step the same streams.
+
+    On a CUDA device with ``jit`` (the default, as the JAX package's
+    ``jax.jit``): the whole frame set, every cohort one after another, is
+    captured at the first call for each batch size as one CUDA graph
+    (:class:`~trackdlo_tpu_torch.models.trackdlo.CompiledStep`, its EM loops
+    conditional WHILE nodes whose trips the card decides) over static
+    (B, H, W, 3), (B, H, W) and (B, …) state buffers, and replayed; the
+    results are copies out of the graph's pool. With a mesh the slice is
+    taken on the host before the copy in. ``jit=False``, the CPU or a
+    solver of ``models.trackdlo.BATCH_EAGER_SOLVERS``: the eager step."""
+    return _make_step(params, intr, cohort_size, mesh, None, device, jit)
 
 
 def build_parallel_step_fn(params: TrackerParams, intr: CameraIntrinsics, mesh: TrackingMesh,
@@ -170,5 +212,7 @@ def build_parallel_step_fn(params: TrackerParams, intr: CameraIntrinsics, mesh: 
     passes reduce with all-reduces. Every rank of the model group returns
     the same state and outputs. The cloud's length (``params.max_points``,
     or the candidate capacity below it) must be divisible by the model
-    size."""
+    size. It runs eagerly: its all-reduces go through gloo on the host
+    (:mod:`~trackdlo_tpu_torch.ops.collectives`), which no CUDA graph
+    holds."""
     return _make_step(params, intr, None, mesh, mesh.model_group, device)

@@ -2,7 +2,8 @@
 trace of a steady window of frames at the live profile (720p, M=45), for
 ``Tracker.step`` (its step one CUDA graph replayed a frame; ``--eager``: the
 eager step, ``build_step_fn(jit=False)``) or, with ``--batch``, the batched step of that many
-streams (in cohorts of ``--cohort``); ``--profile coarse`` (``parity_split=False``)
+streams (in cohorts of ``--cohort``; one CUDA graph a frame set, ``--eager``:
+``build_batched_step_fn(jit=False)``); ``--profile coarse`` (``parity_split=False``)
 or ``cells`` (``exact_voxels=False``) for the preprocessing options.
 
 Run on a machine with a CUDA GPU, from the repository root:
@@ -61,7 +62,7 @@ def main() -> int:
     ap.add_argument("--profile", choices=sorted(PROFILES), default="parity",
                     help="preprocessing: parity split (the default profile), coarse or cells")
     ap.add_argument("--eager", action="store_true",
-                    help="one stream: the eager step instead of Tracker.step's CUDA graph")
+                    help="the eager step instead of the step's CUDA graph")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: CUDA is not available")
@@ -89,7 +90,8 @@ def main() -> int:
         for i in range(1, 11):
             fr = [render_frame(rope, i / 15.0 + 0.01 * s, intr) for s in range(b)]
             frames.append(tuple(np.stack(f) for f in zip(*fr)))
-        step = build_batched_step_fn(params, intr, cohort_size=args.cohort, device="cuda")
+        step = build_batched_step_fn(params, intr, cohort_size=args.cohort, device="cuda",
+                                     jit=not args.eager)
     for rgb, depth in frames:  # warm-up: build, first launches, allocator
         state, _ = step(state, rgb, depth)
     torch.cuda.synchronize()
@@ -109,7 +111,7 @@ def main() -> int:
         "card": card,
         "profile": args.profile,
         "streams": b,
-        "step": "batched" if b > 1 else ("eager" if args.eager else "graph"),
+        "step": ("batched " if b > 1 else "") + ("eager" if args.eager else "graph"),
         "cohort": args.cohort,
         "frames": args.frames,
         "wall_ms_per_frame": wall_us / 1e3 / args.frames,
@@ -136,7 +138,7 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     name = "profile_step" + ("" if b == 1 else f"_b{b}")
     name += ("" if args.profile == "parity" else f"_{args.profile}")
-    name += ("_eager" if args.eager and b == 1 else "") + ".json"
+    name += ("_eager" if args.eager else "") + ".json"
     with open(os.path.join("chiprun_out", name), "w") as f:
         json.dump(rec, f, indent=1)
     if not np.isfinite(state.y.cpu().numpy()).all():

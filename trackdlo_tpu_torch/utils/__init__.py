@@ -1,5 +1,6 @@
-"""Tracking overlays and markers (:mod:`.viz`) and the health supervisor
-(:mod:`.health`)."""
+"""Tracking overlays and markers (:mod:`.viz`), the health supervisor
+(:mod:`.health`) and the phase timers and profiler trace
+(:mod:`.profiling`)."""
 
 from trackdlo_tpu_torch.utils.viz import draw_tracking_overlay, geometry_markers
 
