@@ -106,6 +106,21 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
+# Node counts whose Tracker.step phase 4 drives (frames each): the wide
+# builds' and the node-unbounded builds'.
+NODE_COUNTS = {49: 10, 64: 10, 100: 10, 129: 5, 192: 5, 256: 5, 512: 3, 1024: 3}
+# Phase 3's bounds for a kernel against its plain version, by field.
+WIDE_BOUNDS = (("em3_lle_max_m", 1e-6), ("em10_max_m", 2e-6),
+               ("visibility_idx_mismatch", 0), ("visibility_max_m", 1e-6),
+               ("walks_mask_mismatch", 0), ("walks_max_m", 5e-6),
+               ("estep_outside_tol", 0), ("estep_short_mismatch", 0),
+               ("gj_spd_vs_f64_max", 2e-8),
+               ("em3_fusedmstep_max_m", 1e-6), ("nearest_mismatch", 0))
+# (rows, nodes) of the clouds past 16,384 rows that E, S and F are held on.
+ROW_CELLS = ((16385, 45), (32768, 45), (65536, 45), (32768, 128), (65536, 256))
+# The wide_kernels runs that the timing phase times.
+WIDE_TIMED = ("nodes100", "nodes128", "nodes256", "nodes512", "rows65536_nodes45")
+
 BOUNDS = {
     "preprocess_parity_count_delta": 0,
     "preprocess_parity_p95_m": 1e-6,
@@ -238,22 +253,30 @@ BOUNDS = {
     "graph_vs_eager_mismatch": 0,
     "graph_launch_mismatch": 0,
     "graph_interleaved_vs_alone_mismatch": 0,
-    # ROADMAP §C fault 3: 49, 64 and 100 nodes (the kernels' wide builds), 10
-    # frames: the compiled step bit for bit the eager one; at 49 nodes the
-    # closed loop's bound against the oracle (at 64 and 100 the live profile
-    # loses the rope in the oracle itself). The wide builds against their
-    # plain versions at 49, 64, 100 and 128 nodes, at phase 3's bounds (E,
-    # after 3 iterations with LLE and after 10 with the gate on; V; W; S; G
-    # on SPD systems against float64 as gj_solve_vs_f64_max; F; N).
-    **{f"nodes{m}_graph_vs_eager_mismatch": 0 for m in (49, 64, 100)},
-    **{f"nodes{m}_{k}": v for m in (49, 64, 100, 128) for k, v in (
-        ("em3_lle_max_m", 1e-6), ("em10_max_m", 2e-6),
-        ("visibility_idx_mismatch", 0), ("visibility_max_m", 1e-6),
-        ("walks_mask_mismatch", 0), ("walks_max_m", 5e-6),
-        ("estep_outside_tol", 0), ("estep_short_mismatch", 0),
-        ("gj_spd_vs_f64_max", 2e-8),
-        ("em3_fusedmstep_max_m", 1e-6), ("nearest_mismatch", 0))},
+    # ROADMAP §C faults 3 and 4: 49, 64 and 100 nodes (the kernels' wide
+    # builds) and 129, 192, 256, 512 and 1,024 (their node-unbounded builds),
+    # a few frames each: the compiled step bit for bit the eager one; at 49
+    # nodes the closed loop's bound against the oracle (past it the live
+    # profile loses the rope in the oracle itself). The wide and unbounded
+    # builds against their plain versions at those counts and 128, at phase
+    # 3's bounds (E, after 3 iterations with LLE and after 10 with the gate
+    # on; V; W; S; G on SPD systems against float64 as gj_solve_vs_f64_max;
+    # F; N).
+    **{f"nodes{m}_graph_vs_eager_mismatch": 0 for m in NODE_COUNTS},
+    **{f"nodes{m}_{k}": v for m in (*NODE_COUNTS, 128) for k, v in WIDE_BOUNDS},
     "nodes49_closed_loop_mean_mm": 1.0,
+    # ROADMAP §C fault 5: E, S and F over clouds past 16,384 rows (a CTA
+    # taking its rows a tile at a time) against their plain versions at the
+    # same bounds: 45 nodes at 16,385, 32,768 and 65,536 rows, the wide build
+    # (128 nodes) at 32,768 and the unbounded build (256) at 65,536.
+    **{f"rows{n}_nodes{m}_{k}": v for n, m in ROW_CELLS for k, v in WIDE_BOUNDS
+       if k.startswith(("em", "estep"))},
+    # The long-cable cell: 256 nodes on a 1.6 m cable 1.2 m from the 720p
+    # camera, drawn 3 px thick with an 8 px painter, 10 frames: the closed
+    # loop against the float64 oracle at the closed loop's bound, the
+    # compiled step bit for bit its eager run.
+    "cable256_closed_loop_mean_mm": 1.0,
+    "cable256_graph_vs_eager_mismatch": 0,
     # The TCP service on the card: every reply of two concurrent clients bit
     # for bit a direct step; GLTP on the card against its CPU run, the
     # closed loop's bound.
@@ -370,6 +393,17 @@ def onehot_mstep_ops(m: int) -> int:
     return 2 * m ** 3 // 3 + 2 * m * m * 3 + 2 * m * m * 3
 
 
+def spd_systems(m: int):
+    """Eight (m, m) SPD systems A Aᵀ + m I with three right-hand sides,
+    numpy float32 from the seed m: kernel G's systems against float64."""
+    import numpy as np
+
+    rng = np.random.default_rng(m)
+    a = rng.standard_normal((8, m, m)).astype(np.float32)
+    a = a @ a.transpose(0, 2, 1) + m * np.eye(m, dtype=np.float32)
+    return a, rng.standard_normal((8, m, 3)).astype(np.float32)
+
+
 def quantile_ratio(got, ref) -> float:
     """The largest ratio of ``got`` to ``ref`` at the median, p90 and p99
     (0 over 0 reads 1)."""
@@ -389,6 +423,12 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def ms_or_not(v) -> str:
+    """A device time for the log; a profiler trace can hold none of the
+    spans it looked for (seen on the H100), which reads "not measured"."""
+    return "not measured" if v is None else f"{v:.4f} ms"
 
 
 def card_line() -> str:
@@ -521,8 +561,8 @@ class Smoke:
         self.bits: dict = {}  # outputs kept bit for bit (chiprun_out/exact_products_bits.npz)
         self.walk_bits: dict = {}  # kernel W's inputs and outputs (chiprun_out/walks_bits.npz)
         self.bounds_ms: dict = {}
-        self.wide_calls: dict = {}  # m -> kernel name -> (kernel call, plain call[, library call])
-        self.wide_bounds: dict = {}  # m -> kernel name -> (bound ms, what bounds it)
+        self.wide_calls: dict = {}  # run key -> kernel name -> (kernel, plain[, library] call)
+        self.wide_bounds: dict = {}  # run key -> kernel name -> (bound ms, what bounds it)
         self.failures: list[str] = []
 
     # -- helpers -----------------------------------------------------------
@@ -711,10 +751,16 @@ class Smoke:
 
         info = {f"{k}_n{n}": cluster_info(k, n)
                 for k, n in (("em_loop", 2048), ("estep", 2048), ("estep", 1024), ("em_iter", 2048))}
+        # Past 16,384 rows a CTA takes its rows a tile at a time; past 128
+        # nodes the unbounded builds run 8 CTAs.
+        info.update({f"{k}_n{n}_m{m}": cluster_info(k, n, m) for k, n, m in (
+            ("em_loop", 65536, 45), ("em_loop", 2048, 256), ("estep", 65536, 256),
+            ("em_iter", 2048, 1024))})
         self.metrics["cluster_launches"] = info
         for key, v in info.items():
             log(f"  {key}: {v['cluster_size']} CTAs of {v['rows_per_cta']} rows, at most "
-                f"{v['max_active_clusters']} clusters at once")
+                f"{v['max_active_clusters']} clusters at once, {v['smem_bytes']} B of shared "
+                "memory a CTA")
 
     def check_preprocess(self):
         np, torch = self.np, self.torch
@@ -1734,28 +1780,30 @@ class Smoke:
                 best = got
         return best
 
-    def node_counts(self, n_frames: int = 10):
-        """ROADMAP §C fault 3: ``num_of_nodes`` 49, 64 and 100, past the
-        48 nodes of the kernels' narrow builds (V's 64, W's 65), over the
-        first ``n_frames`` frames of phase 4: every kernel of the path
-        launched on every frame (the wide builds), the compiled step and the
-        eager step bit for bit with the same launches, and the wide builds
-        against their plain versions (:meth:`wide_kernels`, also at 128
-        nodes). The closed loop against the float64 oracle at 49 nodes. At
-        64 and 100 the live profile loses the rope in the oracle itself and
-        the oracle's LLE raises once fewer than 7 guide nodes are visible
-        (PERF.md, fault 3), so there the port is held to the JAX package on
-        the CPU (tests/test_torch_node_range.py) and its distance from the
-        rendered rope is recorded."""
+    def node_counts(self):
+        """ROADMAP §C faults 3 and 4: ``num_of_nodes`` 49, 64 and 100, past
+        the 48 nodes of the kernels' narrow builds (V's 64, W's 65), and 129,
+        192, 256, 512 and 1,024, past their wide builds (W's 129), over the
+        first :data:`NODE_COUNTS` frames of phase 4: every kernel of the path
+        launched on every frame (the wide and the node-unbounded builds, no
+        plain version), the compiled step and the eager step bit for bit with
+        the same launches, and the builds against their plain versions
+        (:meth:`wide_kernels`, also at 128 nodes). The closed loop against
+        the float64 oracle at 49 nodes. Past it the live profile loses the
+        rope in the oracle itself and the oracle's LLE raises once fewer than
+        7 guide nodes are visible (PERF.md, fault 3), so there the port is
+        held to the JAX package on the CPU (tests/test_torch_node_range.py),
+        and the long-cable cell (:meth:`cable_cell`) holds 256 nodes to the
+        oracle; the distance from the rendered rope is recorded."""
         np, torch = self.np, self.torch
         import dataclasses
 
         from trackdlo_tpu_torch.models.trackdlo import Tracker, build_step_fn
         from trackdlo_tpu_torch.oracle.pipeline import init_state as oracle_init, step_frame
 
-        frames = self.frames_data[:n_frames]
-        want = {k: v * n_frames // 30 for k, v in EXPECTED_LAUNCHES.items()}
-        for m in (49, 64, 100):
+        for m, n_frames in NODE_COUNTS.items():
+            frames = self.frames_data[:n_frames]
+            want = {k: v * n_frames // 30 for k, v in EXPECTED_LAUNCHES.items()}
             p = dataclasses.replace(self.params, num_of_nodes=m)
             tracker = Tracker(p, self.intr, device=self.dev)
             eager = build_step_fn(p, self.intr, jit=False, device=self.dev)
@@ -1816,47 +1864,146 @@ class Smoke:
                 log(f"  {key}: per-frame deviation from the oracle (mm) {[round(v, 4) for v in dev_mm]}")
                 self.bound(f"{key}_closed_loop_mean_mm", statistics.fmean(dev_mm))
 
-    def wide_kernels(self, m: int, out):
-        """The kernels' wide builds (m > 48; V past 64, W past 65) against
-        their plain versions on the same card inputs, on ``m`` nodes along
-        the rope and the cloud of ``out`` (a step's outputs), at phase 3's
-        bounds: E after 3 iterations with LLE and after 10 in the main-pass
-        configuration with the gate on (the same trips); V; W; S for 4
-        streams (two gated, both phase modes); G on the 4 streams' M-step
-        systems and on SPD systems against float64; F after 3 iterations; N
-        bit for bit."""
+    def row_kernels(self):
+        """ROADMAP §C fault 5: kernels E, S and F over the clouds of
+        :data:`ROW_CELLS`, past 16,384 rows (a CTA then takes its rows a tile
+        of 2048 at a time), against their plain versions at phase 3's bounds
+        (:meth:`wide_kernels`' E, S and F): half the rows valid, points along
+        the rope at t = 1/15 with 2 mm of noise, from a seed."""
+        from types import SimpleNamespace
+
         np, torch = self.np, self.torch
-        from trackdlo_tpu_torch.ops import priors as tp
+        for n, m in ROW_CELLS:
+            rng = np.random.default_rng(n + m)
+            curve = self.rope.curve(1 / 15.0)
+            x = curve[rng.integers(0, len(curve), n)] + rng.normal(0, 0.002, (n, 3))
+            cloud = SimpleNamespace(points=torch.from_numpy(x.astype(np.float32)).to(self.dev),
+                                    points_mask=torch.from_numpy(rng.random(n) < 0.5).to(self.dev))
+            self.wide_kernels(m, cloud, key=f"rows{n}_nodes{m}",
+                              only=("em_loop", "estep_batch", "em_iteration"))
+
+    def cable_cell(self, n_frames: int = 10):
+        """The long-cable cell: ``num_of_nodes`` 256 on a 1.6 m cable 1.2 m
+        from the 720p camera, drawn 3 px thick, the painter's width 8 px
+        (node spacing ~4.8 px, over half of it, so visibility keeps the
+        nodes; the float64 oracle tracks it within ~1.4 mm of the rendered
+        cable on the CPU, PERF.md §4). ``n_frames`` unoccluded frames through
+        the compiled step and the eager step (bit for bit, every kernel of
+        the path launched on every frame: the node-unbounded builds), the
+        closed loop against the oracle, and the compiled step's time."""
+        np, torch = self.np, self.torch
+        import dataclasses
+
+        from trackdlo_tpu_torch.io.sequence import SyntheticRope
+        from trackdlo_tpu_torch.models.trackdlo import Tracker, build_step_fn
+        from trackdlo_tpu_torch.oracle.pipeline import init_state as oracle_init, step_frame
+
+        m, key = 256, "cable256"
+        rope = SyntheticRope(length=1.6, depth=1.2)
+        p = dataclasses.replace(self.params, num_of_nodes=m, dlo_pixel_width=8)
+        occ = np.ones((self.intr.height, self.intr.width), np.uint8) * 255
+        frames = [(*self.render(rope, i / 15.0, self.intr, rope_pixel_radius=3), occ)
+                  for i in range(1, n_frames + 1)]
+        nodes = rope.nodes(0.0, m)
+        tracker = Tracker(p, self.intr, device=self.dev)
+        eager = build_step_fn(p, self.intr, jit=False, device=self.dev)
+        self.warm(tracker, tracker.init_from_nodes(nodes), frames[0])
+        want = {k: v * n_frames // 30 for k, v in EXPECTED_LAUNCHES.items()}
+        runs = {}
+        for name, step in (("graph", tracker.step),
+                           ("eager", lambda s, r, d, o: eager(
+                               s, r, d, torch.from_numpy(o != 0).to(self.dev)))):
+            outs = []
+
+            def run(state=tracker.init_from_nodes(nodes), outs=outs, step=step):
+                for f in frames:
+                    state, out = step(state, *f)
+                    outs.append(out)
+
+            self.count_path(f"{key}_{name}", run)
+            runs[name] = outs
+            if self.path_launches[f"{key}_{name}"] != want:
+                self.failures.append(f"{key}_{name}_launches")
+                log(f"  {key} {name}: launches {self.path_launches[f'{key}_{name}']} != {want}  FAIL")
+        self.bound(f"{key}_graph_vs_eager_mismatch", sum(
+            self.outputs_mismatch(a, b) for a, b in zip(runs["graph"], runs["eager"])))
+        ys = [out.y.cpu().numpy() for out in runs["graph"]]
+        if any(not np.isfinite(y).all() for y in ys):
+            self.failures.append(f"{key}_finite")
+        o_state = oracle_init(nodes, p)
+        dev_mm, gt_mm, oracle_gt_mm = [], [], []
+        for i, ((rgb, depth, o), y) in enumerate(zip(frames, ys), start=1):
+            o_state, _, _ = step_frame(o_state, rgb, depth, p, self.intr, o)
+            gt = rope.nodes(i / 15.0, m)
+            dev_mm.append(1000 * float(np.linalg.norm(y - o_state.y, axis=1).mean()))
+            gt_mm.append(1000 * float(np.linalg.norm(y - gt, axis=1).mean()))
+            oracle_gt_mm.append(1000 * float(np.linalg.norm(o_state.y - gt, axis=1).mean()))
+        self.metrics.update({f"{key}_per_frame_mm": dev_mm, f"{key}_gt_per_frame_mm": gt_mm,
+                             f"{key}_oracle_gt_per_frame_mm": oracle_gt_mm,
+                             f"{key}_visible_nodes": [int(o.visible_mask.sum())
+                                                      for o in runs["graph"]],
+                             f"{key}_iterations": [[int(o.guide_iterations), int(o.iterations)]
+                                                   for o in runs["graph"]]})
+        log(f"  {key}: visible nodes {self.metrics[f'{key}_visible_nodes']}; from the oracle (mm) "
+            f"{[round(v, 4) for v in dev_mm]}; the oracle from the cable (mm) "
+            f"{[round(v, 2) for v in oracle_gt_mm]}")
+        self.bound(f"{key}_closed_loop_mean_mm", statistics.fmean(dev_mm))
+        holder = {"s": tracker.init_from_nodes(nodes)}
+
+        def step(rgb, depth, o):
+            holder["s"], _ = tracker.step(holder["s"], rgb, depth, o)
+
+        rec = self.step_times(f"{key}_step", step, frames, 2 * n_frames)
+        log(f"  {key}: Tracker.step (one CUDA graph) median {rec['median_ms']:.3f} ms "
+            f"(p90 {rec['p90_ms']:.3f})")
+
+    def wide_kernels(self, m: int, out, key: str | None = None, only=None):
+        """The kernels' wide builds (m > 48; V past 64, W past 65) and
+        node-unbounded builds (past 128; W past 129) against their plain
+        versions on the same card inputs, on ``m`` nodes along the rope and
+        the cloud of ``out`` (a step's outputs, or anything with ``points``
+        and ``points_mask``), at phase 3's bounds: E after 3 iterations with
+        LLE and after 10 in the main-pass configuration with the gate on (the
+        same trips); V; W; S for 4 streams (two gated, both phase modes); G on
+        the 4 streams' M-step systems and on SPD systems against float64; F
+        after 3 iterations; N bit for bit. ``only`` names the launch counters
+        of the kernels to hold (all by default); the fields are named
+        ``{key}_...`` (``nodes{m}`` by default)."""
+        torch = self.torch
         from trackdlo_tpu_torch.ops.cpd_lle import (
             CpdParams, em_loop_lockstep, em_staging, estep_scalars, fused_iteration, mstep_system,
         )
         from trackdlo_tpu_torch.ops.hopper_kernels import (
             fused_em_iteration_plain, fused_em_loop, fused_em_loop_plain,
-            fused_estep_packed_batch, fused_estep_packed_batch_plain, gauss_jordan_solve_batched,
-            gauss_jordan_solve_batched_plain, nearest_point_sq, nearest_point_sq_plain,
-            pursuit_walks, pursuit_walks_plain,
         )
-        from trackdlo_tpu_torch.ops.kernels import geodesic_coords
-        from trackdlo_tpu_torch.ops.visibility import compute_visibility
-        from trackdlo_tpu_torch.ops.visibility_kernel import fused_visibility
 
-        p, key, dev = self.params, f"nodes{m}", self.dev
+        p, dev = self.params, self.dev
+        key = key or f"nodes{m}"
+        want = lambda name: only is None or name in only
         x, xm = out.points, out.points_mask
         nodes = torch.as_tensor(self.rope.nodes(0.0, m), dtype=torch.float32, device=dev)
         nm = torch.ones(m, dtype=torch.bool, device=dev)
         base = dict(beta=p.beta, lam=p.lam, lle_weight=p.lle_weight, mu=p.mu, max_iter=3,
                     tol=0.0, include_lle=False, k_vis=p.k_vis,
                     visibility_threshold=p.visibility_threshold, use_visibility=True)
-        calls = self.wide_calls.setdefault(m, {})  # (kernel, plain) pairs for the timing phase
+        calls = self.wide_calls.setdefault(key, {})  # (kernel, plain) pairs for the timing phase
         # Each wide call's least time on the card, by kernel_bounds' rules.
-        wb = self.wide_bounds.setdefault(m, {})
+        wb = self.wide_bounds.setdefault(key, {})
         # E
         for name, extra in (("em3_lle", {"include_lle": True}), ("em10", {"max_iter": 10})):
+            if not want("em_loop"):
+                break
             st = em_staging(x, xm, nodes, nm, torch.tensor(0.001, device=dev),
                             CpdParams(**{**base, **extra}),
                             visible_count=torch.tensor(2 * m // 3, device=dev))
             yk, sk = fused_em_loop(*st.args, **st.kwargs)
             yp, sp = fused_em_loop_plain(*st.args, **st.kwargs)
+            # The float64 witness: the plain version on the same inputs in
+            # float64, and both float32 runs' distances from it.
+            y64, _ = fused_em_loop_plain(*(a.double() for a in st.args), **st.kwargs)
+            self.metrics[f"{key}_{name}_vs_f64_m"] = {
+                "kernel": float((yk.double() - y64).abs().max()),
+                "plain": float((yp.double() - y64).abs().max())}
             if name == "em10":
                 calls["em_loop"] = (lambda st=st: fused_em_loop(*st.args, **st.kwargs),
                                     lambda st=st: fused_em_loop_plain(*st.args, **st.kwargs))
@@ -1867,7 +2014,62 @@ class Smoke:
             if int(sk[1]) != int(sp[1]):
                 self.failures.append(f"{key}_{name}_iterations")
             self.bound(f"{key}_{name}_max_m", float((yk - yp).abs().max()))
-        # V
+        # V and W
+        if want("visibility"):
+            self.wide_visibility_walks(m, nodes, x, xm, key, calls, wb)
+        # S, G and F on 4 streams of the cloud, nodes along the rope
+        bsz = 4
+        yb = torch.stack([torch.as_tensor(self.rope.nodes(0.01 * b, m), dtype=torch.float32)
+                          for b in range(bsz)]).to(dev)
+        nmb = torch.ones((bsz, m), dtype=torch.bool, device=dev)
+        nmb[3, m // 2:] = False
+        yb = torch.where(nmb[..., None], yb, 0.0)
+        vcb = torch.tensor([m // 2, m, m // 2, m], device=dev)
+        s2b = torch.linspace(5e-4, 2e-3, bsz, device=dev)
+        params = CpdParams(**base)
+        st = em_staging(x.expand(bsz, -1, -1), xm.expand(bsz, -1), yb, nmb, s2b, params,
+                        visible_count=vcb)
+        scal = estep_scalars(st.args[0], s2b, params)
+        coord, nmf, xs, xms = st.args[2], st.args[3], st.args[9], st.args[10]
+        if want("estep_batch"):
+            p1, px = self.wide_estep(m, st, scal, yb, coord, nmf, xs, xms, key, calls, wb)
+        if want("gj_solve"):
+            a_sys, b_sys = mstep_system(st, p1, px, s2b, params)
+            self.wide_gj(m, a_sys, b_sys, key, calls, wb)
+        if want("em_iteration"):
+            fparams = CpdParams(**{**base, "include_lle": True, "use_fused_mstep": True})
+            stf = em_staging(x[None], xm[None], nodes[None], nm[None],
+                             torch.tensor([0.001], device=dev), fparams,
+                             visible_count=torch.tensor([2 * m // 3], device=dev))
+            y1, s1 = stf.args[1], stf.args[0][:, 0]
+            n_f, nv_f = stf.args[9].shape[1], int(stf.n_count[0])
+            sweep_f = OPS_SWEEP_PAIR if bool(stf.args[0][0, 3] > 0) else 0
+            wb["em_iteration"] = bound(
+                20 + m * 12 * 2 + m * 4 * 2 + 3 * m * m * 4 + 2 * m * 12 + n_f * 16 + m * 12 + 8,
+                (sweep_f + OPS_ESTEP_PAIR) * m * nv_f + onehot_mstep_ops(m))
+            calls["em_iteration"] = (
+                lambda: fused_iteration(stf, y1, s1, fparams),
+                lambda: fused_iteration(stf, y1, s1, fparams, fused_em_iteration_plain))
+            yk, _, ik, _ = em_loop_lockstep(stf, fparams,
+                                            lambda y, s: fused_iteration(stf, y, s, fparams))
+            yp, _, ip, _ = em_loop_lockstep(
+                stf, fparams,
+                lambda y, s: fused_iteration(stf, y, s, fparams, fused_em_iteration_plain))
+            if not torch.equal(ik, ip):
+                self.failures.append(f"{key}_em3_fusedmstep_iterations")
+            self.bound(f"{key}_em3_fusedmstep_max_m", float((yk - yp).abs().max()))
+        if want("nearest"):
+            self.wide_nearest(m, nodes, nm, x, xm, yb, nmb, xs, xms, key, calls, wb)
+
+    def wide_visibility_walks(self, m, nodes, x, xm, key, calls, wb):
+        """:meth:`wide_kernels`' V and W."""
+        torch, np, p, dev = self.torch, self.np, self.params, self.dev
+        from trackdlo_tpu_torch.ops import priors as tp
+        from trackdlo_tpu_torch.ops.hopper_kernels import pursuit_walks, pursuit_walks_plain
+        from trackdlo_tpu_torch.ops.kernels import geodesic_coords
+        from trackdlo_tpu_torch.ops.visibility import compute_visibility
+        from trackdlo_tpu_torch.ops.visibility_kernel import fused_visibility
+
         intr = self.intr
         proj = torch.as_tensor(np.array(intr.proj_matrix(), np.float32), device=dev)
         v_args = (nodes, x, xm, proj, geodesic_coords(nodes), intr.height, intr.width,
@@ -1895,20 +2097,16 @@ class Smoke:
         pp, mp = pursuit_walks_plain(*w_args)
         self.bound(f"{key}_walks_mask_mismatch", int((mk != mp).sum()))
         self.bound(f"{key}_walks_max_m", float(torch.where(mp[..., None], (pk - pp).abs(), 0.0).max()))
-        # S, G and F on 4 streams of the cloud, nodes along the rope
-        bsz = 4
-        yb = torch.stack([torch.as_tensor(self.rope.nodes(0.01 * b, m), dtype=torch.float32)
-                          for b in range(bsz)]).to(dev)
-        nmb = torch.ones((bsz, m), dtype=torch.bool, device=dev)
-        nmb[3, m // 2:] = False
-        yb = torch.where(nmb[..., None], yb, 0.0)
-        vcb = torch.tensor([m // 2, m, m // 2, m], device=dev)
-        s2b = torch.linspace(5e-4, 2e-3, bsz, device=dev)
-        params = CpdParams(**base)
-        st = em_staging(x.expand(bsz, -1, -1), xm.expand(bsz, -1), yb, nmb, s2b, params,
-                        visible_count=vcb)
-        scal = estep_scalars(st.args[0], s2b, params)
-        coord, nmf, xs, xms = st.args[2], st.args[3], st.args[9], st.args[10]
+
+    def wide_estep(self, m, st, scal, yb, coord, nmf, xs, xms, key, calls, wb):
+        """:meth:`wide_kernels`' S: both phase modes on 4 streams; returns
+        the plain two-phase P1 and PX (G's systems)."""
+        torch, dev = self.torch, self.dev
+        from trackdlo_tpu_torch.ops.hopper_kernels import (
+            fused_estep_packed_batch, fused_estep_packed_batch_plain,
+        )
+
+        bsz = yb.shape[0]
         pv = torch.rand(nmf.shape, generator=torch.Generator().manual_seed(0)).to(dev) * nmf
         pv = pv / pv.sum(dim=1, keepdim=True)
         outside, short_mis = 0, 0
@@ -1919,9 +2117,8 @@ class Smoke:
         wb["estep_batch"] = bound(bsz * (32 + xs.shape[1] * 16 + m * 12 * 2 + m * 4 * 5 + 8),
                                   sum((sweep + OPS_ESTEP_PAIR) * m * int(v) for v in st.n_count))
         for two_phase in (True, False):
-            args = s_args
-            got = fused_estep_packed_batch(*args, two_phase=two_phase)
-            ref = fused_estep_packed_batch_plain(*args, two_phase=two_phase)
+            got = fused_estep_packed_batch(*s_args, two_phase=two_phase)
+            ref = fused_estep_packed_batch_plain(*s_args, two_phase=two_phase)
             for g, r in zip(got[:3], ref[:3]):
                 outside += int((~((g - r).abs() <= 1e-6 + 2e-4 * r.abs())).sum())
             short_mis += int((got[3] != ref[3]).sum())
@@ -1929,7 +2126,17 @@ class Smoke:
                 p1, px = ref[0], ref[1]
         self.bound(f"{key}_estep_outside_tol", outside)
         self.bound(f"{key}_estep_short_mismatch", short_mis)
-        a_sys, b_sys = mstep_system(st, p1, px, s2b, params)
+        return p1, px
+
+    def wide_gj(self, m, a_sys, b_sys, key, calls, wb):
+        """:meth:`wide_kernels`' G: on the M-step systems against its plain
+        version (recorded) and on 8 SPD systems against float64."""
+        np, torch, dev = self.np, self.torch, self.dev
+        from trackdlo_tpu_torch.ops.hopper_kernels import (
+            gauss_jordan_solve_batched, gauss_jordan_solve_batched_plain,
+        )
+
+        bsz = a_sys.shape[0]
         calls["gj_solve"] = (lambda: gauss_jordan_solve_batched(a_sys, b_sys),
                              lambda: gauss_jordan_solve_batched_plain(a_sys, b_sys),
                              lambda: torch.linalg.solve(a_sys, b_sys))
@@ -1939,33 +2146,20 @@ class Smoke:
         self.metrics[f"{key}_gj_mstep_vs_plain_rel"] = rel = (
             float((wk - wp).abs().max()) / float(wp.abs().max()))
         log(f"  {key}: G on the M-step systems, kernel vs plain relative {rel:.3g}")
-        rng = np.random.default_rng(m)
-        a_np = rng.standard_normal((8, m, m)).astype(np.float32)
-        a_np = a_np @ a_np.transpose(0, 2, 1) + m * np.eye(m, dtype=np.float32)
-        b_np = rng.standard_normal((8, m, 3)).astype(np.float32)
+        a_np, b_np = spd_systems(m)
         w64 = np.linalg.solve(a_np.astype(np.float64), b_np.astype(np.float64))
         wk = gauss_jordan_solve_batched(torch.from_numpy(a_np).to(dev), torch.from_numpy(b_np).to(dev))
+        wp = gauss_jordan_solve_batched_plain(torch.from_numpy(a_np).to(dev),
+                                              torch.from_numpy(b_np).to(dev))
+        self.metrics[f"{key}_gj_spd_plain_vs_f64_max"] = float(np.abs(wp.cpu().numpy() - w64).max())
         self.bound(f"{key}_gj_spd_vs_f64_max", float(np.abs(wk.cpu().numpy() - w64).max()))
-        fparams = CpdParams(**{**base, "include_lle": True, "use_fused_mstep": True})
-        stf = em_staging(x[None], xm[None], nodes[None], nm[None],
-                         torch.tensor([0.001], device=dev), fparams,
-                         visible_count=torch.tensor([2 * m // 3], device=dev))
-        y1, s1 = stf.args[1], stf.args[0][:, 0]
-        n_f, nv_f = stf.args[9].shape[1], int(stf.n_count[0])
-        sweep_f = OPS_SWEEP_PAIR if bool(stf.args[0][0, 3] > 0) else 0
-        wb["em_iteration"] = bound(
-            20 + m * 12 * 2 + m * 4 * 2 + 3 * m * m * 4 + 2 * m * 12 + n_f * 16 + m * 12 + 8,
-            (sweep_f + OPS_ESTEP_PAIR) * m * nv_f + onehot_mstep_ops(m))
-        calls["em_iteration"] = (
-            lambda: fused_iteration(stf, y1, s1, fparams),
-            lambda: fused_iteration(stf, y1, s1, fparams, fused_em_iteration_plain))
-        yk, _, ik, _ = em_loop_lockstep(stf, fparams, lambda y, s: fused_iteration(stf, y, s, fparams))
-        yp, _, ip, _ = em_loop_lockstep(
-            stf, fparams, lambda y, s: fused_iteration(stf, y, s, fparams, fused_em_iteration_plain))
-        if not torch.equal(ik, ip):
-            self.failures.append(f"{key}_em3_fusedmstep_iterations")
-        self.bound(f"{key}_em3_fusedmstep_max_m", float((yk - yp).abs().max()))
-        # N
+
+    def wide_nearest(self, m, nodes, nm, x, xm, yb, nmb, xs, xms, key, calls, wb):
+        """:meth:`wide_kernels`' N: one shard, the other half with a part of
+        the nodes masked, and 4 streams, bit for bit."""
+        torch, dev = self.torch, self.dev
+        from trackdlo_tpu_torch.ops.hopper_kernels import nearest_point_sq, nearest_point_sq_plain
+
         half = x.shape[0] // 2
         nm_part = torch.arange(m, device=dev) < 2 * m // 3
         mismatch = 0
@@ -2720,27 +2914,30 @@ class Smoke:
             OPS_SWEEP_PAIR * int(nmn.sum()) * int(xmn.sum()))
 
     def wide_timing(self):
-        """The wide builds at 100 and 128 nodes on :meth:`wide_kernels`'
-        inputs: ms per call by CUDA events (kernel, then plain, in turns),
-        and the kernel's device time from the profiler."""
-        for m, calls in self.wide_calls.items():
-            if m not in (100, 128):
+        """The wide builds at 100 and 128 nodes, the node-unbounded builds at
+        256 and 512 and E, S and F at 65,536 rows (:data:`WIDE_TIMED`) on
+        :meth:`wide_kernels`' inputs: ms per call by CUDA events (plain,
+        kernel, kernel, plain), and the kernel's device time from the
+        profiler."""
+        for key, calls in self.wide_calls.items():
+            if key not in WIDE_TIMED:
                 continue
+            m = int(key.rsplit("nodes", 1)[1])
             for name, (kfn, pfn, *lib) in calls.items():
                 p1 = self.event_ms(pfn, 3)
                 k1 = self.event_ms(kfn, 20)
                 k2 = self.event_ms(kfn, 20)
                 p2 = self.event_ms(pfn, 3)
-                b_ms, b_by = self.wide_bounds[m][name]
+                b_ms, b_by = self.wide_bounds[key][name]
                 rec = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms,
                        "bound_by": b_by,
                        "library_ms": self.event_ms(lib[0], 20) if lib else None}
                 rec["device_ms"], rec["device_ops_per_call"] = self.device_ms(kfn, 20)
-                self.times[f"{name}_m{m}"] = rec
+                self.times[f"{name}_m{m}" if key == f"nodes{m}" else f"{name}_{key}"] = rec
                 dev = ("not measured" if rec["device_ms"] is None
                        else f"{rec['device_ms']:.4f} ms in {rec['device_ops_per_call']:g} ops")
                 libs = "" if not lib else f"   torch.linalg.solve {rec['library_ms']:.4f} ms"
-                log(f"  {name:12s} m={m}: kernel {rec['ms']:.4f} ms (device {dev})   plain "
+                log(f"  {name:12s} {key}: kernel {rec['ms']:.4f} ms (device {dev})   plain "
                     f"{rec['plain_ms']:.4f} ms{libs}   bound {b_ms:.6f} ms ({b_by})")
 
     def timing(self):
@@ -2890,7 +3087,7 @@ class Smoke:
         self.time_pair("cell_sums", lambda: cell_sums(*self.p_args), lambda: cell_sums_plain(*self.p_args))
         self.times["cell_sums"]["cold_l2"] = self.cold_l2(lambda: cell_sums(*self.p_args), "cell_sums")
         log(f"  cell_sums with the L2 flushed before each launch: device "
-            f"{self.times['cell_sums']['cold_l2']['device_ms']:.4f} ms")
+            f"{ms_or_not(self.times['cell_sums']['cold_l2']['device_ms'])}")
         self.time_pair("compact", lambda: compact_occupied_channels(*self.c_args),
                        lambda: compact_occupied_channels_plain(*self.c_args))
         self.times["compact"]["note"] = "the derived mode: thinning, pack and centroid division"
@@ -2962,7 +3159,7 @@ class Smoke:
                        lambda: loop_flag_plain(*self.l_args))
         self.times["loop_flag"]["note"] = f"{COHORT} streams (a cohort's lockstep loop), alone"
         log(f"  nearest, float32 masks (the route's): kernel {route['ms']:.4f} ms (device "
-            f"{route['device_ms']:.4f} ms in {route['device_ops_per_call']:g} ops)")
+            f"{ms_or_not(route['device_ms'])} in {route['device_ops_per_call']:g} ops)")
 
 
 def main() -> int:
@@ -3045,6 +3242,7 @@ def main() -> int:
         smoke.check_fused()
         smoke.check_nearest()
         smoke.check_loop_flag()
+        smoke.row_kernels()
         torch.cuda.synchronize()
         phase_s["check"] = time.perf_counter() - t0
     if "loop" in phases:
@@ -3056,8 +3254,10 @@ def main() -> int:
         log("    the reference cells: 45 occluded frames (full, same_pts), the native library's "
             "clouds, 40 frames' trips, the evaluation profile")
         smoke.reference_cells()
-        log("    node counts past the kernels' ranges (49, 64, 100), the TCP service, GLTP")
+        log("    node counts past the narrow builds (49, 64, 100) and the wide builds (129, 192, "
+            "256, 512, 1024), the long-cable cell, the TCP service, GLTP")
         smoke.node_counts()
+        smoke.cable_cell()
         smoke.server()
         smoke.gltp()
         phase_s["loop"] = time.perf_counter() - t0

@@ -353,16 +353,17 @@ def test_em_loop_cluster_layouts(cuda, layout):
 
 
 def test_cluster_shape_is_the_launch(cuda):
-    """The cluster size and rows per CTA that kernels E and S launch with
-    are cluster_shape's, a function of n alone; the card holds the 16
-    clusters of a lockstep batch of 16 live streams at once."""
+    """The cluster size and rows per CTA that kernels E, S and F launch with
+    are cluster_shape's, a function of n alone (and past 128 nodes, of the
+    unbounded builds' 8 CTAs); the card holds the 16 clusters of a lockstep
+    batch of 16 live streams at once."""
     from trackdlo_tpu_torch.ops.hopper_kernels import cluster_info, cluster_shape
 
     for kernel in ("em_loop", "estep", "em_iter"):
-        for m in (45, 128):
-            for n in (0, 1, 700, 1024, 2000, 2048, 4096, 16384):
+        for m in (45, 128, 129, 256, 1024):
+            for n in (0, 1, 700, 1024, 2000, 2048, 4096, 16384, 16385, 65536):
                 got = cluster_info(kernel, n, m)
-                assert (got["cluster_size"], got["rows_per_cta"]) == cluster_shape(n)
+                assert (got["cluster_size"], got["rows_per_cta"]) == cluster_shape(n, m)
                 assert got["max_active_clusters"] >= 1
                 assert got["smem_bytes"] <= 227 * 1024
     assert cluster_info("estep", 2048)["max_active_clusters"] >= 16
@@ -1316,7 +1317,66 @@ def test_wide_em_loop_matches_plain(cuda, m):
     assert float((yk - yp).abs().max()) <= 2e-6
 
 
-@pytest.mark.parametrize("m", [65, 100, 128])
+@pytest.mark.parametrize("m", [129, 256, 512])
+def test_unbounded_em_loop_matches_plain(cuda, m):
+    """Kernel E's node-unbounded build ([A | I | B] in a global workspace,
+    the solve spread over the cluster) against its plain version after 3
+    iterations with LLE, at phase 3's em3 bound, with the same trips."""
+    st, _, _ = _wide_staging(m, cuda, max_iter=3, include_lle=True)
+    yk, sk = fused_em_loop(*st.args, **st.kwargs)
+    yp, sp = fused_em_loop_plain(*st.args, **st.kwargs)
+    assert int(sk[1]) == int(sp[1]) == 3
+    assert float((yk - yp).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("n", [16385, 65536])
+def test_rows_past_16384_match_plain(cuda, n):
+    """Kernels E, S and F over a dense cloud of n rows, half of them valid
+    (a CTA's rows past 2,048 taken a tile at a time, the sums compensated):
+    E and F after 3 iterations with LLE within 1e-6 m of their plain
+    versions with the same trips, S within the E-step bound."""
+    from trackdlo_tpu_torch.ops.cpd_lle import em_loop_lockstep, estep_scalars, fused_iteration
+    from trackdlo_tpu_torch.ops.hopper_kernels import (
+        fused_em_iteration_plain, fused_estep_packed_batch, fused_estep_packed_batch_plain,
+    )
+
+    rng = np.random.default_rng(n)
+    rope = SyntheticRope()
+    curve = rope.curve(1 / 15.0)
+    x = torch.from_numpy((curve[rng.integers(0, len(curve), n)]
+                          + rng.normal(0, 0.002, (n, 3))).astype(np.float32)).to(cuda)
+    xm = torch.from_numpy(rng.random(n) < 0.5).to(cuda)
+    y = torch.as_tensor(rope.nodes(0.0, M), dtype=torch.float32, device=cuda)
+    nm = torch.ones(M, dtype=torch.bool, device=cuda)
+    p = live_params()
+    base = dict(beta=p.beta, lam=p.lam, lle_weight=p.lle_weight, mu=p.mu, max_iter=3, tol=0.0,
+                include_lle=True, k_vis=p.k_vis, visibility_threshold=p.visibility_threshold,
+                use_visibility=True)
+    st = em_staging(x, xm, y, nm, torch.tensor(0.001, device=cuda), CpdParams(**base),
+                    visible_count=torch.tensor(30, device=cuda))
+    yk, sk = fused_em_loop(*st.args, **st.kwargs)
+    yp, sp = fused_em_loop_plain(*st.args, **st.kwargs)
+    assert int(sk[1]) == int(sp[1]) == 3
+    assert float((yk - yp).abs().max()) <= 1e-6
+    fparams = CpdParams(**base, use_fused_mstep=True)
+    fst = em_staging(x[None], xm[None], y[None], nm[None], torch.tensor([0.001], device=cuda),
+                     fparams, visible_count=torch.tensor([30], device=cuda))
+    yk, _, ik, _ = em_loop_lockstep(fst, fparams, lambda y, s: fused_iteration(fst, y, s, fparams))
+    yp, _, ip, _ = em_loop_lockstep(
+        fst, fparams, lambda y, s: fused_iteration(fst, y, s, fparams, fused_em_iteration_plain))
+    assert torch.equal(ik, ip) and float((yk - yp).abs().max()) <= 1e-6
+    scal = estep_scalars(fst.args[0], fst.args[0][:, 0], fparams)
+    args = (scal, fst.args[1], fst.args[2], fst.args[3],
+            fst.args[3] / fst.args[3].sum(1, keepdim=True), fst.args[9], fst.args[10])
+    for two_phase in (True, False):
+        got = fused_estep_packed_batch(*args, two_phase=two_phase)
+        ref = fused_estep_packed_batch_plain(*args, two_phase=two_phase)
+        for g, r in zip(got[:3], ref[:3]):
+            assert bool(((g - r).abs() <= 1e-6 + 2e-4 * r.abs()).all())
+        assert torch.equal(got[3], ref[3])
+
+
+@pytest.mark.parametrize("m", [65, 100, 128, 130, 256, 512])
 def test_wide_visibility_and_walks_match_plain(cuda, m):
     """Kernel V's two-word node masks and kernel W's four segments a lane
     against their plain versions: indices and masks equal, distances and
@@ -1345,7 +1405,7 @@ def test_wide_visibility_and_walks_match_plain(cuda, m):
     assert float(torch.where(mp[..., None], (pk - pp).abs(), 0.0).max()) <= 5e-6
 
 
-@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("m", [64, 128, 129, 256])
 def test_wide_batched_kernels_match_plain(cuda, m):
     """Kernels S, G, F and N's wide builds against their plain versions on
     4 streams: S within the E-step bound, G against float64 on SPD systems

@@ -112,6 +112,51 @@ SIGNATURES = {
         _P,  # out
         _P,
     ],
+    # The unbounded builds (past 128 nodes; W and N dispatch inside their
+    # entry points): the bounded entry points' arguments and a global
+    # workspace before the stream; each kernel's workspace in bytes for B
+    # streams of m nodes and n rows (0 where m takes a bounded build).
+    "trackdlo_em_loop_ub": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I,
+        _F, _F, _F, _F, _F, _F, _F, _I,
+        _P, _P,
+        _P,  # workspace
+        _P,
+    ],
+    "trackdlo_estep_ub": [
+        _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I,
+        _P, _P, _P, _P,
+        _P,  # workspace
+        _P,
+    ],
+    "trackdlo_gj_solve_ub": [
+        _P, _P, _P, _P,  # a, b, g, y0 (g, y0 null: the solve alone)
+        _I, _I,
+        _P, _P,  # w, t (null with g)
+        _P,  # workspace
+        _P,
+    ],
+    "trackdlo_em_iter_ub": [
+        _P, _I, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I,
+        _F, _F, _F, _F, _F, _F,
+        _P, _P,
+        _P,  # workspace
+        _P,
+    ],
+    "trackdlo_visibility_ub": [
+        _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I,
+        _F, _F, _F,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P,  # workspace
+        _P,
+    ],
+    **{f"trackdlo_{k}_workspace": [_I, _I, _I, _P]
+       for k in ("em_loop", "estep", "gj_solve", "em_iter", "visibility")},
     # Kernels E, S and F launch as thread-block clusters: for n rows and m
     # nodes, the cluster size, the rows per CTA, how many clusters the card
     # holds and a CTA's shared memory.

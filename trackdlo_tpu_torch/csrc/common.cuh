@@ -24,6 +24,15 @@ __device__ __forceinline__ float td_warp_min(float v) {
   return v;
 }
 
+// sum += v with the compensation c (Kahan): no operation is contracted or
+// reordered (-fmad=false, no fast math), so it is the same run to run.
+__device__ __forceinline__ void td_kahan_add(float& sum, float& c, float v) {
+  const float y = v - c;
+  const float t = sum + y;
+  c = (t - sum) - y;
+  sum = t;
+}
+
 // Every lane gets the lowest index among lanes holding `hit`, or 1e9f.
 __device__ __forceinline__ float td_warp_first(bool hit, float idx) {
   float v = hit ? idx : 1e9f;

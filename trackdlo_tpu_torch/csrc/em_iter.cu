@@ -60,9 +60,13 @@
 // Node bound: compiled for at most 48 nodes (the layout above) and for at
 // most 128, where G, HG and JG stay in global memory (L2) and are read
 // where the system and T are formed (the same operations on the same
-// operands), and the search warp holds four rows a lane.
-#include "estep_cluster.cuh"
-#include "gj.cuh"
+// operands), and the search warp holds four rows a lane. Past 128 nodes the
+// unbounded build runs (unbounded.cuh): the node arrays, the cluster
+// exchange and [A | B] in a global workspace, the one-hot elimination
+// spread over the cluster (each CTA eliminating its own rows), T and sigma^2
+// in CTA 0. A CTA holding more than EC_PMAX rows (more than 16,384 in all)
+// takes them a tile at a time, in row order.
+#include "unbounded.cuh"
 
 namespace {
 
@@ -201,19 +205,25 @@ __global__ void __launch_bounds__(THREADS, 1) em_iter_kernel(FArgs A) {
     E.gmin[k] = td::EC_BIG;
   }
   const int rows = td::ec_rows_per_cta(n);
-  const int r0 = min(n, rank * rows);
-  const int npts = td::ec_compact(A.x + (size_t)s * n * 3, A.xm + (size_t)s * n, r0,
-                                  min(n, r0 + rows), E);  // ends in a barrier
+  const int r0 = min(n, rank * rows), r1 = min(n, r0 + rows);
+  const float* xs = A.x + (size_t)s * n * 3;
+  const float* xms = A.xm + (size_t)s * n;
+  const bool resident = rows <= td::EC_PMAX;
+  int npts = 0;
+  if (resident) npts = td::ec_compact(xs, xms, r0, r1, E);  // ends in a barrier
+  else __syncthreads();
 
   // The visibility prior: each node's nearest valid point, only where the
   // gate is on (with it off the blend multiplies by exactly 1).
   if (gate > 0.0f) {
-    td::ec_cluster_minima(m, npts, 0, E, cluster);
+    if (resident) td::ec_cluster_minima(m, npts, 0, E, cluster);
+    else td::ec_cluster_minima_tiled(xs, xms, r0, r1, m, 0, E, cluster);
     td::ec_visibility_weights(m, A.k_vis, A.tau_vis, E);
   }
   const td::EcScalars sc{s2, 0.0f, c_plain, c_plain + gate * (c_vis - c_plain), gate,
                          (int)v_count_f, m_pad, m};
-  td::ec_estep_partials<false, true>(sc, npts, 1, E);
+  if (resident) td::ec_estep_partials<false, true>(sc, npts, 1, E);
+  else td::ec_estep_partials_tiled<false, true>(sc, xs, xms, r0, r1, 1, E);
   if (!(gate > 0.0f)) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   for (int i = tid; i < 4 * m + 2; i += THREADS)
     cluster.map_shared_rank(&S.part[rank][0], 0)[i] = E.part[1][i];
@@ -423,6 +433,175 @@ int launch(const FArgs& a, int n_streams, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The unbounded build (m > 128).
+// ---------------------------------------------------------------------------
+
+// Its global workspace in floats, per stream: the CTAs' float64 slots of
+// partial sums, their minima and [A | B] (shared), then each CTA's own (the
+// float64 totals and their float32 rounding, the visibility weights and
+// minima, the solve's record, W and T). Every part is an even number of
+// floats, so the float64 arrays stay 8-byte aligned.
+__host__ __device__ inline size_t ub_shared_floats(int m) {
+  const size_t c = td::EC_MAX_CLUSTER;
+  const size_t n = 2 * c * (4 * (size_t)m + 2) + c * m + (size_t)m * ((size_t)m + 3);
+  return n + (n & 1);
+}
+__host__ __device__ inline size_t ub_private_floats(int m) {
+  const size_t n = 3 * (4 * (size_t)m + 2) + 5 * (size_t)m + 6 * (size_t)m;
+  return n + (n & 1);
+}
+__host__ __device__ inline size_t ub_stream_floats(int m) {
+  return ub_shared_floats(m) + td::EC_MAX_CLUSTER * ub_private_floats(m);
+}
+
+struct UbSmem {
+  td::EcuSmem<THREADS> es;
+  td::GjcSmem<THREADS, float> gj;
+};
+
+__global__ void __launch_bounds__(THREADS, 1) em_iter_ub_kernel(FArgs A, float* ws) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  UbSmem& S = *reinterpret_cast<UbSmem*>(smem_raw);
+  unsigned char* tail = smem_raw + sizeof(UbSmem);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int s = blockIdx.x / c;
+  const int m = A.m, n = A.n;
+  const int m_pad = (m + 7) / 8 * 8;
+  const size_t mm = (size_t)s * m * m, m3 = (size_t)s * m * 3, m1 = (size_t)s * m;
+  const size_t w4 = 4 * (size_t)m + 2, width = (size_t)m + 3;
+  float* base = ws + (size_t)s * ub_stream_floats(m);
+  double* part_all = reinterpret_cast<double*>(base);
+  float* cmin_all = base + 2 * c * w4;
+  float* aug = cmin_all + (size_t)c * m;
+  double* tot = reinterpret_cast<double*>(base + ub_shared_floats(m) +
+                                          (size_t)rank * ub_private_floats(m));
+  float* tot32 = reinterpret_cast<float*>(tot + w4);
+  float* pv = tot32 + w4;
+  float* gmin = pv + m;
+  float* diag = gmin + m;
+  int* perm = reinterpret_cast<int*>(diag + m);
+  int* pos = perm + m;
+  float* w = reinterpret_cast<float*>(pos + m);
+  float* t = w + 3 * m;
+  const td::GjcRecord<float> rec{perm, pos, diag};
+
+  const float s2 = A.s2[(size_t)s * A.s2_stride];
+  const float* dyn = A.dyn + (size_t)s * 4;
+  const float v_count_f = dyn[1], n_safe = dyn[2], gate = dyn[3];
+  float c_plain, c_vis;
+  if (A.cc != nullptr) {
+    c_plain = A.cc[(size_t)s * 2];
+    c_vis = A.cc[(size_t)s * 2 + 1];
+  } else {
+    const float tps = TWO_PI * s2;
+    const float c_core = tps * sqrtf(tps);
+    c_plain = (A.muf * v_count_f / n_safe) * c_core;
+    c_vis = (A.muf / n_safe) * c_core;
+  }
+  const float* ys = A.y + m3;
+  const float* nm = A.nm + m1;
+  for (int k = tid; k < m; k += THREADS) pv[k] = 0.0f;
+  __syncthreads();
+  const td::EcuNodes nodes{ys, A.coord + m1, nm, pv, m};
+  const int rows = td::ub_rows_per_cta(n);
+  const int r0 = min(n, rank * rows), r1 = min(n, r0 + rows);
+  const float* xs = A.x + (size_t)s * n * 3;
+  const float* xms = A.xm + (size_t)s * n;
+  if (gate > 0.0f) {
+    td::ecu_minima<THREADS>(nodes, xs, xms, r0, r1, S.es, cmin_all + (size_t)rank * m);
+    td::ub_cluster_publish(cluster);
+    td::ecu_cluster_minima<THREADS>(m, c, cmin_all, gmin);
+    td::ecu_visibility_weights(m, A.k_vis, A.tau_vis, gmin, nm, pv);
+  }
+  const td::EcScalars sc{s2, 0.0f, c_plain, c_plain + gate * (c_vis - c_plain), gate,
+                         (int)v_count_f, m_pad, m};
+  td::ecu_partials<THREADS, false, true>(sc, nodes, xs, xms, r0, r1, S.es, part_all + rank * w4);
+  td::ub_cluster_publish(cluster);
+  td::ecu_cluster_totals<THREADS>(m, c, part_all, tot, tot32);
+  const float* p1 = tot32;
+  const float* px = tot32 + m;
+
+  // This CTA's rows of [A | B] (inactive nodes: identity rows, zero
+  // right-hand sides), in the TPU kernel's operation order.
+  const float lam_s2 = A.lam * s2;
+  const float lle_s2 = s2 * A.coef_lle;
+  const float* gm = A.g + mm;
+  const float* hgm = A.hg + mm;
+  const float* jgm = A.jg + mm;
+  const float* y0 = A.y0 + m3;
+  const float* hy0 = A.hy0 + m3;
+  const float* pd = A.pd + m3;
+  const int nown = td::ub_own_rows(m, c, rank);
+  for (int k = tid; k < nown * (m + 3); k += THREADS) {
+    const int i = k / (m + 3), col = k - i * (m + 3);
+    const int r = rank + i * c;
+    float v;
+    if (col < m) {
+      if (nm[r] > 0.0f && nm[col] > 0.0f) {
+        const size_t e = (size_t)r * m + col;
+        v = p1[r] * gm[e] + (r == col ? lam_s2 : 0.0f);
+        v = v + lle_s2 * hgm[e];
+        v = v + A.alpha * jgm[e];
+      } else {
+        v = r == col ? 1.0f : 0.0f;
+      }
+    } else {
+      const int d = col - m, e = r * 3 + d;
+      v = px[d * m + r] - p1[r] * y0[e];
+      v = v - lle_s2 * hy0[e];
+      v = v + A.alpha * pd[e];
+      v = v * nm[r];
+    }
+    __stcg(aug + r * width + col, v);
+  }
+  __syncthreads();
+  td::gjc_solve<THREADS, false>(m, cluster, aug, width, rec, S.gj, tail);
+  // Past the solve's last barrier no CTA reads another's memory.
+  if (rank != 0) return;
+  td::gjc_extract<THREADS>(m, aug, width, m, rec, w);
+  // T = Y0 + G W (inactive rows keep Y0).
+  for (int q = tid; q < m * 3; q += THREADS) {
+    const int r = q / 3, d = q - r * 3;
+    float acc = 0.0f;
+    for (int j = 0; j < m; ++j) acc = acc + gm[(size_t)r * m + j] * w[j * 3 + d];
+    const float tv = nm[r] > 0.0f ? y0[q] + acc : y0[q];
+    t[q] = tv;
+    A.t[m3 + q] = tv;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float s2n, move;
+    td::ecu_sigma2(m, tot, t, ys, nm, s2n, move);
+    if (lane == 0) {
+      A.stats[(size_t)s * 2] = s2n;
+      A.stats[(size_t)s * 2 + 1] = move / fmaxf(v_count_f, 1.0f);
+    }
+  }
+}
+
+cudaError_t em_iter_ub_config(int n_streams, int m, cudaLaunchConfig_t* cfg,
+                              cudaLaunchAttribute* attr, cudaStream_t stream) {
+  const int smem = (int)(sizeof(UbSmem) + td::ub_solve_tail_bytes<float>(m, td::EC_MAX_CLUSTER));
+  cudaError_t err = cudaFuncSetAttribute(em_iter_ub_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(n_streams * td::EC_MAX_CLUSTER);
+  cfg->blockDim = dim3(THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = td::EC_MAX_CLUSTER;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int trackdlo_em_iter(const float* s2, int s2_stride, const float* dyn, const float* cc,
@@ -433,7 +612,6 @@ extern "C" int trackdlo_em_iter(const float* s2, int s2_stride, const float* dyn
                                 float muf, float k_vis, float tau_vis, float lam, float coef_lle,
                                 float alpha, float* t, float* stats, void* stream) {
   if (m < 1 || m > td::EC_MMAX_WIDE || n < 0 || n_streams < 0 ||
-      td::ec_rows_per_cta(n) > td::EC_PMAX ||
       (long long)n_streams * td::ec_cluster_size(n) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (n_streams == 0) return 0;
@@ -446,10 +624,52 @@ extern "C" int trackdlo_em_iter(const float* s2, int s2_stride, const float* dyn
 // For n rows and m nodes: out[0] the cluster size, out[1] the rows per CTA,
 // out[2] how many such clusters the card can hold at once, out[3] the
 // shared memory of one CTA in bytes.
-extern "C" int trackdlo_em_iter_cluster_info(int n, int m, int* out) {
-  if (n < 0 || m < 1 || m > td::EC_MMAX_WIDE) return (int)cudaErrorInvalidValue;
+// The unbounded build (m > 128): ``ws`` a workspace of
+// trackdlo_em_iter_workspace bytes.
+extern "C" int trackdlo_em_iter_ub(const float* s2, int s2_stride, const float* dyn,
+                                   const float* cc, const float* y, const float* y0,
+                                   const float* coord, const float* nm, const float* g,
+                                   const float* hg, const float* hy0, const float* jg,
+                                   const float* pd, const float* x, const float* xm,
+                                   int n_streams, int m, int n, float muf, float k_vis,
+                                   float tau_vis, float lam, float coef_lle, float alpha,
+                                   float* t, float* stats, void* ws, void* stream) {
+  if (m < td::UB_MMIN || n < 0 || n_streams < 0 ||
+      (long long)n_streams * td::EC_MAX_CLUSTER > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (n_streams == 0) return 0;
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  const FArgs a{s2, dyn, cc, y, y0, coord, nm, g, hg, hy0, jg, pd, x, xm, s2_stride, m, n,
+                muf, k_vis, tau_vis, lam, coef_lle, alpha, t, stats};
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
+  cudaError_t err = em_iter_ub_config(n_streams, m, &cfg, &attr, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, em_iter_ub_kernel, a, static_cast<float*>(ws));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The unbounded build's workspace in bytes for B streams of m nodes (0
+// where m takes a bounded build).
+extern "C" int trackdlo_em_iter_workspace(int n_streams, int m, int n, long long* out) {
+  if (m < 1 || n < 0 || n_streams < 0) return (int)cudaErrorInvalidValue;
+  *out = m < td::UB_MMIN ? 0 : (long long)n_streams * 4 * (long long)ub_stream_floats(m);
+  return 0;
+}
+
+extern "C" int trackdlo_em_iter_cluster_info(int n, int m, int* out) {
+  if (n < 0 || m < 1) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (m >= td::UB_MMIN) {
+    cudaError_t err = em_iter_ub_config(1, m, &cfg, &attr, nullptr);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = td::EC_MAX_CLUSTER;
+    out[1] = td::ub_rows_per_cta(n);
+    out[3] = (int)cfg.dynamicSmemBytes;
+    return (int)cudaOccupancyMaxActiveClusters(&out[2], em_iter_ub_kernel, &cfg);
+  }
   const bool narrow = m <= td::EC_MMAX;
   cudaError_t err = narrow ? em_iter_config<td::EC_MMAX>(1, n, &cfg, &attr, nullptr)
                            : em_iter_config<td::EC_MMAX_WIDE>(1, n, &cfg, &attr, nullptr);

@@ -40,9 +40,15 @@
 // memory (L2), A's entries are formed from them where the solve reads them
 // and cut into pieces there (the same operations, so the same values), and
 // [A | I | B] lives in the E-step's scratch, which is free during the
-// M-step.
-#include "estep_cluster.cuh"
-#include "gj.cuh"
+// M-step. Past 128 nodes the unbounded build runs (unbounded.cuh): the
+// system and every node-indexed array in a global workspace, the solve
+// spread over the cluster, each CTA eliminating its own rows.
+//
+// Rows: a CTA holds EC_PMAX compacted rows; a CTA whose range is longer
+// (more than 16,384 rows in all) compacts and processes it a tile of
+// EC_PMAX rows at a time, in row order, every pass (the sums' order, and so
+// their bits, are those of one long tile).
+#include "unbounded.cuh"
 
 namespace {
 
@@ -165,7 +171,13 @@ __global__ void __launch_bounds__(THREADS, 1) em_loop_kernel(EmArgs A) {
   }
   const int rows = td::ec_rows_per_cta(n);
   const int r0 = min(n, (int)cluster.block_rank() * rows);
-  const int npts = td::ec_compact(A.x, A.xm, r0, min(n, r0 + rows), E);  // ends in a barrier
+  const int r1 = min(n, r0 + rows);
+  // The CTA's points stay compacted in shared memory for the whole loop
+  // where they fit; else every pass takes them a tile at a time.
+  const bool resident = rows <= td::EC_PMAX;
+  int npts = 0;
+  if (resident) npts = td::ec_compact(A.x, A.xm, r0, r1, E);  // ends in a barrier
+  else __syncthreads();
 
   while (!S.done && S.it < A.max_iter) {
     const int buf = S.it & 1;
@@ -180,10 +192,12 @@ __global__ void __launch_bounds__(THREADS, 1) em_loop_kernel(EmArgs A) {
     // Visibility prior: each node's nearest valid point (only read when the
     // gate is on; with the gate off the prior multiplies nothing).
     if (gate > 0.0f) {
-      td::ec_cluster_minima(m, npts, buf, E, cluster);
+      if (resident) td::ec_cluster_minima(m, npts, buf, E, cluster);
+      else td::ec_cluster_minima_tiled(A.x, A.xm, r0, r1, m, buf, E, cluster);
       td::ec_visibility_weights(m, A.k_vis, A.tau_vis, E);
     }
-    td::ec_estep_partials<false, false>(sc, npts, buf, E);
+    if (resident) td::ec_estep_partials<false, false>(sc, npts, buf, E);
+    else td::ec_estep_partials_tiled<false, false>(sc, A.x, A.xm, r0, r1, buf, E);
     cluster.sync();
     td::ec_cluster_totals(m, buf, E, cluster);
     const float* p1 = E.tot;               // P1[r]
@@ -317,6 +331,178 @@ int launch(const EmArgs& a, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The unbounded build (m > 128): unbounded.cuh's E-step and cluster solve.
+// ---------------------------------------------------------------------------
+
+// Its global workspace in floats: the cluster's shared part (the CTAs'
+// float64 slots of partial sums, [A | I | B] in float64, the CTAs' minima,
+// the row scales), then each CTA's own (the float64 totals and pivots, the
+// iterate y, the totals rounded to float32, the visibility weights and
+// minima, B, w, T, the residual, w's pieces and the rest of the solve's
+// record). Every part starts with its float64 arrays and is an even number
+// of floats, so every float64 array is 8-byte aligned.
+__host__ __device__ inline size_t ub_shared_floats(int m) {
+  const size_t c = td::EC_MAX_CLUSTER, w4 = 4 * (size_t)m + 2;
+  const size_t n = 2 * c * w4 + 2 * (size_t)m * (2 * (size_t)m + 3) + c * m + m;
+  return n + (n & 1);
+}
+__host__ __device__ inline size_t ub_private_floats(int m) {
+  const size_t n = 3 * (4 * (size_t)m + 2) + 30 * (size_t)m;
+  return n + (n & 1);
+}
+
+struct UbSmem {
+  td::EcuSmem<THREADS> es;
+  td::GjcSmem<THREADS, double> gj;
+  float s2, delta;
+  int it, done, converged;
+};
+
+__global__ void __launch_bounds__(THREADS, 1) em_loop_ub_kernel(EmArgs A, float* ws) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  UbSmem& S = *reinterpret_cast<UbSmem*>(smem_raw);
+  unsigned char* tail = smem_raw + sizeof(UbSmem);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m = A.m, n = A.n;
+  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const size_t w4 = 4 * (size_t)m + 2, width = 2 * (size_t)m + 3;
+  double* part_all = reinterpret_cast<double*>(ws);
+  double* aug = part_all + c * w4;
+  float* cmin_all = reinterpret_cast<float*>(aug + (size_t)m * width);
+  float* e = cmin_all + (size_t)c * m;
+  double* tot = reinterpret_cast<double*>(ws + ub_shared_floats(m) +
+                                          (size_t)rank * ub_private_floats(m));
+  double* diag = tot + w4;
+  float* y = reinterpret_cast<float*>(diag + m);
+  float* tot32 = y + 3 * m;
+  float* pv = tot32 + w4;
+  float* gmin = pv + m;
+  float* b = gmin + m;
+  float* w = b + 3 * m;
+  float* t = w + 3 * m;
+  float* res = t + 3 * m;
+  float* wsp = res + 3 * m;
+  int* perm = reinterpret_cast<int*>(wsp + 9 * m);
+  int* pos = perm + m;
+  const td::GjcRecord<double> rec{perm, pos, diag};
+
+  for (int k = tid; k < m * 3; k += THREADS) y[k] = A.y0[k];
+  for (int k = tid; k < m; k += THREADS) pv[k] = 0.0f;
+  const float v_count_f = A.dyn[1];
+  const float n_safe = A.dyn[2];
+  const float gate = A.dyn[3];
+  const int v_count = (int)v_count_f;
+  const float kc_v = A.muf * v_count_f / n_safe;
+  const float kc_n = A.muf / n_safe;
+  const float vcf = fmaxf(v_count_f, 1.0f);
+  if (tid == 0) {
+    S.s2 = A.dyn[0];
+    S.it = 0;
+    S.done = 0;
+    S.converged = 1;
+    S.delta = 0.0f;
+  }
+  const int rows = td::ub_rows_per_cta(n);
+  const int r0 = min(n, rank * rows), r1 = min(n, r0 + rows);
+  const td::EcuNodes nodes{y, A.coord, A.nm, pv, m};
+  __syncthreads();
+
+  while (!S.done && S.it < A.max_iter) {
+    const float s2 = S.s2;
+    const float tps = TWO_PI * s2;
+    const float c_core = tps * sqrtf(tps);
+    const float c_plain = kc_v * c_core;
+    const float c_vis = kc_n * c_core;
+    const td::EcScalars sc{s2, 0.0f, c_plain, gate > 0.0f ? c_vis : c_plain, gate,
+                           v_count, m, m};
+    if (gate > 0.0f) {
+      td::ecu_minima<THREADS>(nodes, A.x, A.xm, r0, r1, S.es, cmin_all + (size_t)rank * m);
+      td::ub_cluster_publish(cluster);
+      td::ecu_cluster_minima<THREADS>(m, c, cmin_all, gmin);
+      td::ecu_visibility_weights(m, A.k_vis, A.tau_vis, gmin, A.nm, pv);
+    }
+    td::ecu_partials<THREADS, false, false>(sc, nodes, A.x, A.xm, r0, r1, S.es,
+                                            part_all + rank * w4);
+    td::ub_cluster_publish(cluster);
+    td::ecu_cluster_totals<THREADS>(m, c, part_all, tot, tot32);
+    const float* p1 = tot32;
+    const float* px = tot32 + m;
+    const float lam_s2 = A.lam * s2;
+    const float lle_s2 = s2 * A.coef_lle;
+    for (int k = tid; k < m * 3; k += THREADS) {
+      const int r = k / 3, d = k - r * 3;
+      float v = px[d * m + r] - p1[r] * A.y0[k];
+      v = v - lle_s2 * A.hy0[k];
+      v = v + A.alpha * A.pd[k];
+      b[k] = v * A.nm[r];
+    }
+    __syncthreads();
+    const EmMatrix am{A.g, A.hg, A.jg, p1, A.nm, m, lam_s2, lle_s2, A.alpha};
+    td::gjc_build_scaled<THREADS, td::GjScale::kExponentBits>(m, c, rank, am, b, aug, width, e);
+    td::gjc_solve<THREADS, true>(m, cluster, aug, width, rec, S.gj, tail);
+    td::gjc_extract<THREADS>(m, aug, width, 2 * m, rec, w);
+    td::gjc_refine<THREADS>(m, am, b, w, e, aug, width, rec, wsp, res);
+    // T = Y0 + G W (inactive rows stay at Y0), as the wide build.
+    td::split3_all<THREADS>(m * 3, w, wsp);
+    __syncthreads();
+    for (int q = tid; q < m * 3; q += THREADS) {
+      const int r = q / 3, d = q - r * 3;
+      const float acc = td::exact_split_dot<true>(m, td::SplitOnRead{A.g, m}, r, wsp, m * 3, d);
+      t[q] = A.nm[r] > 0.0f ? A.y0[q] + acc : A.y0[q];
+    }
+    __syncthreads();
+    // The sigma^2 update (its traces in float64) and the mean move.
+    if (warp == 0) {
+      float s2n, move;
+      td::ecu_sigma2(m, tot, t, y, A.nm, s2n, move);
+      if (lane == 0) {
+        S.s2 = s2n;
+        const float delta = move / vcf;
+        S.delta = delta;
+        S.done = delta < A.tol;
+        S.converged = S.done || (S.it + 1 < A.max_iter);
+        S.it = S.it + 1;
+      }
+    }
+    __syncthreads();
+    for (int q = tid; q < m * 3; q += THREADS) y[q] = t[q];
+    __syncthreads();
+  }
+  // No CTA leaves while another may still read its shared memory.
+  cluster.sync();
+  if (rank == 0) {
+    for (int q = tid; q < m * 3; q += THREADS) A.y_out[q] = y[q];
+    if (tid == 0) {
+      A.stats[0] = S.s2;
+      A.stats[1] = (float)S.it;
+      A.stats[2] = S.converged ? 1.0f : 0.0f;
+      A.stats[3] = S.delta;
+    }
+  }
+}
+
+cudaError_t em_loop_ub_config(int m, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                              cudaStream_t stream) {
+  const int smem = (int)(sizeof(UbSmem) + td::ub_solve_tail_bytes<double>(m, td::EC_MAX_CLUSTER));
+  cudaError_t err = cudaFuncSetAttribute(em_loop_ub_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(td::EC_MAX_CLUSTER);
+  cfg->blockDim = dim3(THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = td::EC_MAX_CLUSTER;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int trackdlo_em_loop(
@@ -325,8 +511,7 @@ extern "C" int trackdlo_em_loop(
     const float* pd, const float* x, const float* xm, int m, int n, float muf,
     float k_vis, float tau_vis, float lam, float coef_lle, float alpha,
     float tol, int max_iter, float* y_out, float* stats, void* stream) {
-  if (m < 1 || m > td::EC_MMAX_WIDE || n < 0 || td::ec_rows_per_cta(n) > td::EC_PMAX)
-    return (int)cudaErrorInvalidValue;
+  if (m < 1 || m > td::EC_MMAX_WIDE || n < 0) return (int)cudaErrorInvalidValue;
   const EmArgs a{dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm, m, n,
                  muf, k_vis, tau_vis, lam, coef_lle, alpha, tol, max_iter, y_out, stats};
   return m <= td::EC_MMAX ? launch<td::EC_MMAX>(a, stream) : launch<td::EC_MMAX_WIDE>(a, stream);
@@ -335,10 +520,49 @@ extern "C" int trackdlo_em_loop(
 // For n rows and m nodes: out[0] the cluster size, out[1] the rows per CTA,
 // out[2] how many such clusters the card can hold at once, out[3] the
 // shared memory of one CTA in bytes.
-extern "C" int trackdlo_em_loop_cluster_info(int n, int m, int* out) {
-  if (n < 0 || m < 1 || m > td::EC_MMAX_WIDE) return (int)cudaErrorInvalidValue;
+// The unbounded build (m > 128): ``ws`` a workspace of
+// trackdlo_em_loop_workspace bytes.
+extern "C" int trackdlo_em_loop_ub(
+    const float* dyn, const float* y0, const float* coord, const float* nm,
+    const float* g, const float* hg, const float* hy0, const float* jg,
+    const float* pd, const float* x, const float* xm, int m, int n, float muf,
+    float k_vis, float tau_vis, float lam, float coef_lle, float alpha,
+    float tol, int max_iter, float* y_out, float* stats, void* ws, void* stream) {
+  if (m < td::UB_MMIN || n < 0 || ws == nullptr) return (int)cudaErrorInvalidValue;
+  const EmArgs a{dyn, y0, coord, nm, g, hg, hy0, jg, pd, x, xm, m, n,
+                 muf, k_vis, tau_vis, lam, coef_lle, alpha, tol, max_iter, y_out, stats};
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
+  cudaError_t err = em_loop_ub_config(m, &cfg, &attr, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, em_loop_ub_kernel, a, static_cast<float*>(ws));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The unbounded build's workspace in bytes for m nodes (0 where m takes a
+// bounded build).
+extern "C" int trackdlo_em_loop_workspace(int n_streams, int m, int n, long long* out) {
+  if (m < 1 || n < 0 || n_streams < 0) return (int)cudaErrorInvalidValue;
+  *out = m < td::UB_MMIN ? 0
+                         : (long long)n_streams * 4 *
+                               (long long)(ub_shared_floats(m) +
+                                           td::EC_MAX_CLUSTER * ub_private_floats(m));
+  return 0;
+}
+
+extern "C" int trackdlo_em_loop_cluster_info(int n, int m, int* out) {
+  if (n < 0 || m < 1) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (m >= td::UB_MMIN) {
+    cudaError_t err = em_loop_ub_config(m, &cfg, &attr, nullptr);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = td::EC_MAX_CLUSTER;
+    out[1] = td::ub_rows_per_cta(n);
+    out[3] = (int)cfg.dynamicSmemBytes;
+    return (int)cudaOccupancyMaxActiveClusters(&out[2], em_loop_ub_kernel, &cfg);
+  }
   const bool narrow = m <= td::EC_MMAX;
   cudaError_t err = narrow ? em_loop_config<td::EC_MMAX>(n, &cfg, &attr, nullptr)
                            : em_loop_config<td::EC_MMAX_WIDE>(n, &cfg, &attr, nullptr);

@@ -15,7 +15,9 @@
 //   batch or the card, so a stream's bits depend on neither. At n = 2048,
 //   C = 8 and each CTA owns one channel block.
 // - Once per launch each CTA compacts the valid rows of its range into shared
-//   memory (warp ballot and block prefix, in row order).
+//   memory (warp ballot and block prefix, in row order); a range longer than
+//   EC_PMAX rows (more than 16,384 in all) is compacted a tile at a time on
+//   every pass (the ec_*_tiled functions).
 // - Each point gets kLanes lanes of kNpl nodes each (EcShape): the chain
 //   per thread is 12 nodes, not 48 (16 of 128 in the wide layout). Sums
 //   over a point's nodes are per-lane sums in node order and then a shuffle
@@ -51,7 +53,7 @@ constexpr int EC_MMAX = 48;
 constexpr int EC_MMAX_WIDE = 128;
 constexpr int EC_ROWS = 256;                     // rows per CTA aimed at
 constexpr int EC_MAX_CLUSTER = 8;                // portable cluster size
-constexpr int EC_PMAX = 2048;                    // rows a CTA can hold
+constexpr int EC_PMAX = 2048;                    // rows a CTA holds compacted at a time
 constexpr float EC_BIG = 1e5f;
 
 // Lanes per point and nodes per lane for the node bound MM: 4 x 12 at 48,
@@ -163,16 +165,21 @@ __device__ int ec_compact(const float* x, const float* xm, int r0, int r1, ES& E
 }
 
 // The cluster's minimum over the valid points of each valid node's squared
-// distance, into E.gmin (1e5 where the node is masked or no point is valid).
+// distance, into E.gmin (1e5 where the node is masked or no point is valid),
+// in two parts: each thread's minima over compacted points (ec_minima_acc,
+// over one or more tiles), then the warp, block and cluster reduction
+// (ec_minima_reduce).
 template <class ES>
-__device__ void ec_cluster_minima(int m, int npts, int buf, ES& E, cg::cluster_group& cluster) {
-  constexpr int LANES = ES::kLanes, NPL = ES::kNpl, MM = ES::kMM;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int l = tid % LANES, pi = tid / LANES;
-  float* wmin = E.wmin();
-  float mn[NPL];
+__device__ __forceinline__ void ec_minima_init(float (&mn)[ES::kNpl]) {
 #pragma unroll
-  for (int k = 0; k < NPL; ++k) mn[k] = EC_BIG;
+  for (int k = 0; k < ES::kNpl; ++k) mn[k] = EC_BIG;
+}
+
+template <class ES>
+__device__ __forceinline__ void ec_minima_acc(int m, int npts, ES& E, float (&mn)[ES::kNpl]) {
+  constexpr int LANES = ES::kLanes, NPL = ES::kNpl;
+  const int tid = threadIdx.x;
+  const int l = tid % LANES, pi = tid / LANES;
   for (int i = pi; i < npts; i += ES::kPass) {
     const float x0 = E.xs[i * 3], x1 = E.xs[i * 3 + 1], x2 = E.xs[i * 3 + 2];
 #pragma unroll
@@ -181,6 +188,14 @@ __device__ void ec_cluster_minima(int m, int npts, int buf, ES& E, cg::cluster_g
       if (j < m && E.nm[j] > 0.0f) mn[k] = fminf(mn[k], ec_sq_dist(E.y, j, x0, x1, x2));
     }
   }
+}
+
+template <class ES>
+__device__ void ec_minima_reduce(int m, int buf, ES& E, cg::cluster_group& cluster,
+                                 float (&mn)[ES::kNpl]) {
+  constexpr int LANES = ES::kLanes, NPL = ES::kNpl, MM = ES::kMM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* wmin = E.wmin();
   // Across the warp's points: the lanes that hold the same nodes.
 #pragma unroll
   for (int k = 0; k < NPL; ++k)
@@ -204,6 +219,27 @@ __device__ void ec_cluster_minima(int m, int npts, int buf, ES& E, cg::cluster_g
     E.gmin[tid] = v;
   }
   __syncthreads();
+}
+
+template <class ES>
+__device__ void ec_cluster_minima(int m, int npts, int buf, ES& E, cg::cluster_group& cluster) {
+  float mn[ES::kNpl];
+  ec_minima_init<ES>(mn);
+  ec_minima_acc(m, npts, E, mn);
+  ec_minima_reduce(m, buf, E, cluster, mn);
+}
+
+// The same over rows [r0, r1) of x taken a tile of at most EC_PMAX rows at a
+// time, each compacted into E.xs in row order (a CTA holding more rows than
+// E.xs). A minimum is exact in any order: the values of one long tile.
+template <class ES>
+__device__ void ec_cluster_minima_tiled(const float* x, const float* xm, int r0, int r1, int m,
+                                        int buf, ES& E, cg::cluster_group& cluster) {
+  float mn[ES::kNpl];
+  ec_minima_init<ES>(mn);
+  for (int t0 = r0; t0 < r1; t0 += EC_PMAX)
+    ec_minima_acc(m, ec_compact(x, xm, t0, min(r1, t0 + EC_PMAX), E), E, mn);
+  ec_minima_reduce(m, buf, E, cluster, mn);
 }
 
 // Visibility weights from the cluster minima, in warp 0: exp(-k_vis d) with
@@ -247,8 +283,39 @@ __device__ void ec_visibility_weights(int m, float k_vis, float tau_vis, ES& E) 
 //   c_plain + g (c_vis - c_plain), masked nodes 0 in the second
 //   normalisation (kernels S's and F's), else the prior multiplied in where
 //   the gate is on (kernel E's).
-template <bool MUL_EXPONENT, bool GATE_BLEND, class ES>
-__device__ void ec_estep_partials(const EcScalars& sc, int npts, int buf, ES& E) {
+// Each thread's sums (EcPartials) are running sums in point order; with
+// COMPENSATED (a CTA holding more than EC_PMAX rows, its points fed a tile
+// at a time) they are compensated (Kahan) sums, whose error does not grow
+// with the point count: the sigma^2 update cancels the traces to ~1e-4 of
+// their size, and a plain float32 running sum over thousands of points
+// leaves an error of that order.
+template <class ES>
+struct EcPartials {
+  float acc[ES::kSums];  // partial sum t = tid + s THREADS: quantity qty[s], node jt[s]
+  float cmp[ES::kSums];  // its compensation (COMPENSATED only)
+  int qty[ES::kSums], jt[ES::kSums];
+  __device__ __forceinline__ void init(int m) {
+    constexpr int THREADS = ES::kWarps * 32;
+#pragma unroll
+    for (int s = 0; s < ES::kSums; ++s) {
+      acc[s] = 0.0f;
+      cmp[s] = 0.0f;
+      qty[s] = (threadIdx.x + s * THREADS) / m;
+      jt[s] = threadIdx.x + s * THREADS - qty[s] * m;
+    }
+  }
+  __device__ __forceinline__ void store(int m, int buf, ES& E) const {
+    constexpr int THREADS = ES::kWarps * 32;
+#pragma unroll
+    for (int s = 0; s < ES::kSums; ++s) {
+      const int t = threadIdx.x + s * THREADS;
+      if (t < 4 * m + 2) E.part[buf][t] = acc[s];
+    }
+  }
+};
+
+template <bool MUL_EXPONENT, bool GATE_BLEND, bool COMPENSATED = false, class ES>
+__device__ void ec_estep_accumulate(const EcScalars& sc, int npts, ES& E, EcPartials<ES>& P) {
   constexpr int PASS = ES::kPass, LANES = ES::kLanes, NPL = ES::kNpl, MM = ES::kMM;
   constexpr int THREADS = ES::kWarps * 32, SUMS = ES::kSums;
   const int tid = threadIdx.x, warp = tid >> 5;
@@ -258,15 +325,6 @@ __device__ void ec_estep_partials(const EcScalars& sc, int npts, int buf, ES& E)
   float* const pt1v = E.pt1();
   float* const ptxv = E.ptx();
   auto expo = [&](float d) { return MUL_EXPONENT ? d * sc.neg_half_inv_s2 : -0.5f * d / sc.s2; };
-  // This thread's partial sums t = tid + s THREADS: quantity qty[s], node jt[s].
-  float acc[SUMS];
-  int qty[SUMS], jt[SUMS];
-#pragma unroll
-  for (int s = 0; s < SUMS; ++s) {
-    acc[s] = 0.0f;
-    qty[s] = (tid + s * THREADS) / m;
-    jt[s] = tid + s * THREADS - qty[s] * m;
-  }
   for (int base = 0; base < npts; base += PASS) {
     // Warps with no point in this pass skip it whole (shuffles stay in warp).
     if (base + warp * (32 / LANES) < npts) {
@@ -373,24 +431,43 @@ __device__ void ec_estep_partials(const EcScalars& sc, int npts, int buf, ES& E)
 #pragma unroll
     for (int s = 0; s < SUMS; ++s) {
       const int t = tid + s * THREADS;
-      if (qty[s] == 0) {
-        for (int p = 0; p < cnt; ++p) acc[s] += qv[p * MM + jt[s]];
-      } else if (qty[s] < 4) {
-        for (int p = 0; p < cnt; ++p)
-          acc[s] += qv[p * MM + jt[s]] * E.xs[(base + p) * 3 + qty[s] - 1];
+      auto add = [&](float v) {
+        if (COMPENSATED) td_kahan_add(P.acc[s], P.cmp[s], v);
+        else P.acc[s] += v;
+      };
+      if (P.qty[s] == 0) {
+        for (int p = 0; p < cnt; ++p) add(qv[p * MM + P.jt[s]]);
+      } else if (P.qty[s] < 4) {
+        for (int p = 0; p < cnt; ++p) add(qv[p * MM + P.jt[s]] * E.xs[(base + p) * 3 + P.qty[s] - 1]);
       } else if (t == 4 * m) {
-        for (int p = 0; p < cnt; ++p) acc[s] += pt1v[p];
+        for (int p = 0; p < cnt; ++p) add(pt1v[p]);
       } else if (t == 4 * m + 1) {
-        for (int p = 0; p < cnt; ++p) acc[s] += ptxv[p];
+        for (int p = 0; p < cnt; ++p) add(ptxv[p]);
       }
     }
     __syncthreads();
   }
-#pragma unroll
-  for (int s = 0; s < SUMS; ++s) {
-    const int t = tid + s * THREADS;
-    if (t < 4 * m + 2) E.part[buf][t] = acc[s];
-  }
+}
+
+template <bool MUL_EXPONENT, bool GATE_BLEND, class ES>
+__device__ void ec_estep_partials(const EcScalars& sc, int npts, int buf, ES& E) {
+  EcPartials<ES> P;
+  P.init(sc.m);
+  ec_estep_accumulate<MUL_EXPONENT, GATE_BLEND>(sc, npts, E, P);
+  P.store(sc.m, buf, E);
+}
+
+// The same over rows [r0, r1) of x a tile of at most EC_PMAX rows at a time,
+// each compacted into E.xs in row order, the sums compensated.
+template <bool MUL_EXPONENT, bool GATE_BLEND, class ES>
+__device__ void ec_estep_partials_tiled(const EcScalars& sc, const float* x, const float* xm,
+                                        int r0, int r1, int buf, ES& E) {
+  EcPartials<ES> P;
+  P.init(sc.m);
+  for (int t0 = r0; t0 < r1; t0 += EC_PMAX)
+    ec_estep_accumulate<MUL_EXPONENT, GATE_BLEND, true>(
+        sc, ec_compact(x, xm, t0, min(r1, t0 + EC_PMAX), E), E, P);
+  P.store(sc.m, buf, E);
 }
 
 // The cluster's totals into E.tot: the CTAs' partials added in rank order.

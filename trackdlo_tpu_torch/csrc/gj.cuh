@@ -191,11 +191,15 @@ struct SplitOnRead {
 // their pieces (A's from ``pa_src``, W's by split3_all of n_w floats): for
 // each piece pair in the order (hi, hi), (hi, mid), .., (lo, lo) the sum
 // over j in order of the exact products, then the nine sums added in that
-// order.
-template <class PA>
+// order. With COMPENSATED the nine sums over j are compensated (Kahan)
+// sums: a float32 running sum of k exact products of size ~|A||W| leaves
+// an error growing with k, which past 128 nodes sets the floor of the
+// refinement and of T (the unbounded build, unbounded.cuh).
+template <bool COMPENSATED = false, class PA>
 __device__ __forceinline__ float exact_split_dot(int k, const PA& pa_src, int r, const float* wsp,
                                                  int n_w, int d) {
   float acc[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float cmp[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int j = 0; j < k; ++j) {
     float pa[3], pw[3];
     pa_src.get(r, j, pa);
@@ -204,7 +208,10 @@ __device__ __forceinline__ float exact_split_dot(int k, const PA& pa_src, int r,
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
-      for (int l = 0; l < 3; ++l) acc[i * 3 + l] = fmaf(pa[i], pw[l], acc[i * 3 + l]);
+      for (int l = 0; l < 3; ++l) {
+        if (COMPENSATED) td_kahan_add(acc[i * 3 + l], cmp[i * 3 + l], pa[i] * pw[l]);
+        else acc[i * 3 + l] = fmaf(pa[i], pw[l], acc[i * 3 + l]);
+      }
   }
   float out = acc[0];
 #pragma unroll

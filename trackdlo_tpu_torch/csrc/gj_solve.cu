@@ -32,7 +32,13 @@
 // Node bound: compiled for at most 48 nodes (the layout above) and for at
 // most 128, where A, G and their pieces stay in global memory (L2), cut
 // into pieces where they are read, and [A | I | B] takes the shared memory.
-#include "gj.cuh"
+// Past 128 nodes the unbounded build runs: one thread-block cluster of 8
+// CTAs per system, [A | I | B] in a global workspace and the elimination
+// spread over the cluster (unbounded.cuh's gjc_solve, the one kernel E's
+// unbounded build runs), so a system's chain of m pivot steps has 8 SMs'
+// load and store rate behind each step, where one CTA over the same global
+// [A | I | B] would have one; CTA 0 then extracts w, refines it and forms T.
+#include "unbounded.cuh"
 
 namespace {
 
@@ -117,6 +123,92 @@ int launch_mm(const float* a, const float* b, const float* g, const float* y0, i
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The unbounded build (m > 128).
+// ---------------------------------------------------------------------------
+
+// Its global workspace in floats, per system: [A | I | B] in float64 and the
+// row scales (shared), then each CTA's solve record (its pivots in float64
+// first), w, w's pieces and the residual; every part an even number of
+// floats, so the float64 arrays stay 8-byte aligned.
+__host__ __device__ inline size_t ub_shared_floats(int m) {
+  return 2 * (size_t)m * (2 * (size_t)m + 3) + m + (m & 1);
+}
+__host__ __device__ inline size_t ub_private_floats(int m) {
+  const size_t n = 4 * (size_t)m + 15 * (size_t)m;
+  return n + (n & 1);
+}
+__host__ __device__ inline size_t ub_system_floats(int m) {
+  return ub_shared_floats(m) + td::EC_MAX_CLUSTER * ub_private_floats(m);
+}
+
+namespace cg = cooperative_groups;
+
+__global__ void __launch_bounds__(THREADS, 1)
+    gj_solve_ub_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                       const float* __restrict__ g, const float* __restrict__ y0, int m,
+                       float* __restrict__ w_out, float* __restrict__ t_out, float* ws) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& S = *reinterpret_cast<td::GjcSmem<THREADS, double>*>(smem_raw);
+  unsigned char* tail = smem_raw + sizeof(td::GjcSmem<THREADS, double>);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const size_t sys = blockIdx.x / c;
+  const size_t mm = (size_t)m * m, width = 2 * (size_t)m + 3;
+  float* base = ws + sys * ub_system_floats(m);
+  double* aug = reinterpret_cast<double*>(base);
+  float* e = reinterpret_cast<float*>(aug + (size_t)m * width);
+  double* diag = reinterpret_cast<double*>(base + ub_shared_floats(m) +
+                                           (size_t)rank * ub_private_floats(m));
+  int* perm = reinterpret_cast<int*>(diag + m);
+  int* pos = perm + m;
+  float* w = reinterpret_cast<float*>(pos + m);
+  float* wsp = w + 3 * m;
+  float* res = wsp + 9 * m;
+  const td::GjcRecord<double> rec{perm, pos, diag};
+  const GlobalA am{a + sys * mm, m};
+  const float* bs = b + sys * m * 3;
+  td::gjc_build_scaled<THREADS, td::GjScale::kCeilLog2>(m, c, rank, am, bs, aug, width, e);
+  td::gjc_solve<THREADS, true>(m, cluster, aug, width, rec, S, tail);
+  if (rank != 0) return;
+  td::gjc_extract<THREADS>(m, aug, width, 2 * m, rec, w);
+  td::gjc_refine<THREADS>(m, am, bs, w, e, aug, width, rec, wsp, res);
+  for (int k = tid; k < m * 3; k += THREADS) w_out[sys * m * 3 + k] = w[k];
+  if (g == nullptr) return;
+  td::split3_all<THREADS>(m * 3, w, wsp);
+  __syncthreads();
+  for (int q = tid; q < m * 3; q += THREADS) {
+    const float gw = td::exact_split_dot<true>(m, td::SplitOnRead{g + sys * mm, m}, q / 3, wsp,
+                                               m * 3, q % 3);
+    t_out[sys * m * 3 + q] = y0[sys * m * 3 + q] + gw;
+  }
+}
+
+int launch_ub(const float* a, const float* b, const float* g, const float* y0, int n_sys, int m,
+              float* w, float* t, float* ws, cudaStream_t stream) {
+  const int smem = (int)(sizeof(td::GjcSmem<THREADS, double>) +
+                         td::ub_solve_tail_bytes<double>(m, td::EC_MAX_CLUSTER));
+  cudaError_t err = cudaFuncSetAttribute(gj_solve_ub_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3(n_sys * td::EC_MAX_CLUSTER);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = td::EC_MAX_CLUSTER;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, gj_solve_ub_kernel, a, b, g, y0, m, w, t, ws);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 int launch(const float* a, const float* b, const float* g, const float* y0, int n_sys, int m,
            float* w, float* t, void* stream) {
   if (m < 1 || m > td::GJ_MMAX_WIDE || n_sys < 0) return (int)cudaErrorInvalidValue;
@@ -140,4 +232,26 @@ extern "C" int trackdlo_gj_solve_update(const float* a, const float* b, const fl
                                         void* stream) {
   if (g == nullptr || y0 == nullptr || t == nullptr) return (int)cudaErrorInvalidValue;
   return launch(a, b, g, y0, n_sys, m, w, t, stream);
+}
+
+// The unbounded build (m > 128) of both entry points: g, y0 and t null for
+// the solve alone; ``ws`` a workspace of trackdlo_gj_solve_workspace bytes.
+extern "C" int trackdlo_gj_solve_ub(const float* a, const float* b, const float* g,
+                                    const float* y0, int n_sys, int m, float* w, float* t,
+                                    void* ws, void* stream) {
+  if (m < td::UB_MMIN || n_sys < 0 || (g == nullptr) != (t == nullptr) ||
+      (g != nullptr && y0 == nullptr) || (long long)n_sys * td::EC_MAX_CLUSTER > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (n_sys == 0) return 0;
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_ub(a, b, g, y0, n_sys, m, w, t, static_cast<float*>(ws), (cudaStream_t)stream);
+}
+
+// The unbounded build's workspace in bytes for n_sys systems of m nodes (0
+// where m takes a bounded build).
+extern "C" int trackdlo_gj_solve_workspace(int n_sys, int m, int n, long long* out) {
+  (void)n;
+  if (m < 1 || n_sys < 0) return (int)cudaErrorInvalidValue;
+  *out = m < td::UB_MMIN ? 0 : (long long)n_sys * 4 * (long long)ub_system_floats(m);
+  return 0;
 }

@@ -39,6 +39,13 @@
 //
 // Node bound: compiled for at most 64 nodes (one 64-bit word a node mask,
 // four nodes a warp in sweep 1) and for at most 128 (two words, eight).
+// Past 128 nodes the unbounded build runs: the node arrays in a global
+// workspace, sweep 1 a thread per node, the painter's O(m^2) pairs strided
+// over the block, and the gap fill and both packs scanned by one warp 32
+// nodes at a time (ballots, bit scans and popcounts carried from chunk to
+// chunk): the same values, a minimum being exact in any order.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -346,6 +353,196 @@ int launch(const float* y, const float* x, const uint8_t* xm, const float* proj,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The unbounded build (m > 128).
+// ---------------------------------------------------------------------------
+
+// Its global workspace in 4-byte words per stream: edge distances, the
+// projections (u, v and their clamps), edge ranks, coverage flags and each
+// node's nearest visible neighbours below and above.
+constexpr int UB_WORDS_PER_NODE = 9;
+
+struct SmemUb {
+  float px[SEG], py[SEG], pz[SEG];
+  int pidx[SEG];
+  int wcount[NWARPS];
+};
+
+__global__ void __launch_bounds__(THREADS, 1) visibility_ub_kernel(
+    const float* __restrict__ y, const float* __restrict__ x,
+    const uint8_t* __restrict__ xm, const float* __restrict__ proj,
+    const float* __restrict__ coord, int m, int n, int img_rows, int img_cols,
+    float tau_vis, float w_half, float d_vis, uint8_t* visible_out,
+    uint8_t* extended_out, uint8_t* not_occ_out, float* shortest_out,
+    long long* vis_idx, long long* ext_idx, long long* counts, float* pmin_all,
+    float* pmin_ext, float* ws) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SmemUb& S = *reinterpret_cast<SmemUb*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t sm = (size_t)blockIdx.x * m, sn = (size_t)blockIdx.x * n;
+  y += sm * 3;
+  coord += sm;
+  x += sn * 3;
+  xm += sn;
+  visible_out += sm;
+  extended_out += sm;
+  not_occ_out += sm;
+  shortest_out += sm;
+  vis_idx += sm;
+  ext_idx += sm;
+  counts += (size_t)blockIdx.x * 2;
+  pmin_all += sn;
+  pmin_ext += sn;
+  float* edge_d2 = ws + sm * UB_WORDS_PER_NODE;
+  float* pu = edge_d2 + m;
+  float* pv = pu + m;
+  float* ru = pv + m;
+  float* rv = ru + m;
+  int* rank = reinterpret_cast<int*>(rv + m);
+  int* covered = rank + m;
+  int* prev_vis = covered + m;
+  int* next_vis = prev_vis + m;
+
+  // Sweep 1: each node's nearest valid point, a thread per node, the
+  // running minimum of the squared distance kept in shortest_out.
+  for (int j = tid; j < m; j += THREADS) {
+    covered[j] = 0;
+    shortest_out[j] = SENTINEL;
+  }
+  int count = 0;
+  for (int r0 = 0; r0 < max(n, 1); r0 += SEG) {
+    count = compact_segment(x, xm, n, r0, S, pmin_all, pmin_ext);
+    for (int j = tid; j < m; j += THREADS) {
+      const float y0 = y[j * 3], y1 = y[j * 3 + 1], y2 = y[j * 3 + 2];
+      float mn = shortest_out[j];
+      for (int q = 0; q < count; ++q) {
+        const float d0 = y0 - S.px[q], d1 = y1 - S.py[q], d2 = y2 - S.pz[q];
+        mn = fminf(mn, d0 * d0 + d1 * d1 + d2 * d2);
+      }
+      shortest_out[j] = mn;
+    }
+  }
+  for (int j = tid; j < m; j += THREADS) {
+    shortest_out[j] = sqrtf(shortest_out[j]);
+    // Edge j joins nodes j and j+1; draw order by midpoint distance.
+    if (j < m - 1) {
+      const float mx = (y[j * 3 + 0] + y[j * 3 + 3]) / 2.0f;
+      const float my = (y[j * 3 + 1] + y[j * 3 + 4]) / 2.0f;
+      const float mz = (y[j * 3 + 2] + y[j * 3 + 5]) / 2.0f;
+      edge_d2[j] = mx * mx + my * my + mz * mz;
+    }
+    const float y0 = y[j * 3], y1 = y[j * 3 + 1], y2 = y[j * 3 + 2];
+    const float px = y0 * proj[0] + y1 * proj[1] + y2 * proj[2] + proj[3];
+    const float py = y0 * proj[4] + y1 * proj[5] + y2 * proj[6] + proj[7];
+    const float pz = y0 * proj[8] + y1 * proj[9] + y2 * proj[10] + proj[11];
+    const float pz_s = pz == 0.0f ? 1.0f : pz;
+    const float u = (float)(int)(px / pz_s);
+    const float v = (float)(int)(py / pz_s);
+    pu[j] = u;
+    pv[j] = v;
+    ru[j] = fminf(fmaxf(u, 0.0f), (float)(img_cols - 1));
+    rv[j] = fminf(fmaxf(v, 0.0f), (float)(img_rows - 1));
+  }
+  __syncthreads();
+
+  // Stable ascending edge ranks (ties broken by index).
+  for (int e0 = tid; e0 < m - 1; e0 += THREADS) {
+    const float d = edge_d2[e0];
+    int r = 0;
+    for (int e = 0; e < m - 1; ++e) r += (edge_d2[e] < d || (edge_d2[e] == d && e < e0)) ? 1 : 0;
+    rank[e0] = r;
+  }
+  __syncthreads();
+
+  // Painter's self-occlusion over every (node, edge) pair; every covering
+  // pair stores the same 1.
+  const long long pairs = (long long)m * (m - 1);
+  for (long long q = tid; q < pairs; q += THREADS) {
+    const int i = (int)(q / (m - 1)), e = (int)(q - (long long)i * (m - 1));
+    const int r_next = i < m - 1 ? rank[i] : BIG_RANK;
+    const int r_prev = i > 0 ? rank[i - 1] : BIG_RANK;
+    if (rank[e] >= min(r_next, r_prev)) continue;
+    const float ax = pu[e], ay = pv[e];
+    const float abx = pu[e + 1] - ax, aby = pv[e + 1] - ay;
+    const float apx = ru[i] - ax, apy = rv[i] - ay;
+    const float denom = fmaxf(abx * abx + aby * aby, 1e-12f);
+    const float t = fminf(fmaxf((apx * abx + apy * aby) / denom, 0.0f), 1.0f);
+    const float dx = ru[i] - (ax + t * abx);
+    const float dy = rv[i] - (ay + t * aby);
+    if (sqrtf(dx * dx + dy * dy) <= w_half) covered[i] = 1;
+  }
+  __syncthreads();
+
+  // Warp 0, 32 nodes at a time: the nearest visible node at or below (a
+  // forward scan) and at or above (a backward scan), then the flags, the gap
+  // fill and both packs (empty slots hold m - 1).
+  if (warp == 0) {
+    auto visible = [&](int j) { return j < m && !covered[j] && shortest_out[j] <= tau_vis; };
+    int carry = -1;
+    for (int b = 0; b < m; b += 32) {
+      const unsigned bal = __ballot_sync(TD_FULL_MASK, visible(b + lane));
+      const unsigned upto = bal & (lane == 31 ? ~0u : ((2u << lane) - 1u));
+      if (b + lane < m) prev_vis[b + lane] = upto ? b + 31 - __clz(upto) : carry;
+      if (bal) carry = b + 31 - __clz(bal);
+    }
+    carry = -1;
+    for (int b = (m - 1) / 32 * 32; b >= 0; b -= 32) {
+      const unsigned bal = __ballot_sync(TD_FULL_MASK, visible(b + lane));
+      const unsigned from = bal & ~((1u << lane) - 1u);
+      if (b + lane < m) next_vis[b + lane] = from ? b + __ffs(from) - 1 : carry;
+      if (bal) carry = b + __ffs(bal) - 1;
+    }
+    __syncwarp();
+    int cv = 0, ce = 0;
+    for (int b = 0; b < m; b += 32) {
+      const int j = b + lane;
+      const bool vis = visible(j);
+      bool ext = vis;
+      if (j < m && !ext) {
+        const int prev = prev_vis[j], next = next_vis[j];
+        if (prev >= 0 && next >= 0) ext = fabsf(coord[next] - coord[prev]) <= d_vis;
+      }
+      const unsigned below = (1u << lane) - 1u;
+      const unsigned vb = __ballot_sync(TD_FULL_MASK, vis);
+      const unsigned eb = __ballot_sync(TD_FULL_MASK, ext);
+      if (j < m) {
+        not_occ_out[j] = covered[j] ? 0 : 1;
+        visible_out[j] = vis ? 1 : 0;
+        extended_out[j] = ext ? 1 : 0;
+        if (vis) vis_idx[cv + __popc(vb & below)] = j;
+        if (ext) ext_idx[ce + __popc(eb & below)] = j;
+      }
+      cv += __popc(vb);
+      ce += __popc(eb);
+    }
+    for (int j = cv + lane; j < m; j += 32) vis_idx[j] = m - 1;
+    for (int j = ce + lane; j < m; j += 32) ext_idx[j] = m - 1;
+    if (lane == 0) {
+      counts[0] = cv;
+      counts[1] = ce;
+    }
+  }
+  __syncthreads();
+
+  // Sweep 2: each valid point's minimum over all nodes and over the
+  // extended nodes, one thread per compacted point.
+  const int nseg = (n + SEG - 1) / SEG;
+  for (int s = 0; s < nseg; ++s) {
+    if (nseg > 1) count = compact_segment(x, xm, n, s * SEG, S, pmin_all, pmin_ext);
+    for (int q = tid; q < count; q += THREADS) {
+      const float x0 = S.px[q], x1 = S.py[q], x2 = S.pz[q];
+      float ma = SENTINEL, me = SENTINEL;
+      for (int j = 0; j < m; ++j) {
+        const float d = sqd(y, j, x0, x1, x2);
+        ma = fminf(ma, d);
+        if (extended_out[j]) me = fminf(me, d);
+      }
+      pmin_all[S.pidx[q]] = ma;
+      pmin_ext[S.pidx[q]] = me;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int trackdlo_visibility(
@@ -354,7 +551,7 @@ extern "C" int trackdlo_visibility(
     float tau_vis, float w_half, float d_vis, uint8_t* visible,
     uint8_t* extended, uint8_t* not_occ, float* shortest, long long* vis_idx,
     long long* ext_idx, long long* counts, float* pmin_all, float* pmin_ext, void* stream) {
-  if (m < 2 || m > 128 || n < 0 || n_streams < 0) return (int)cudaErrorInvalidValue;
+  if (m < 2 || m > 128 || n < 0 || n_streams < 0) return (int)cudaErrorInvalidValue;  // bounded builds
   if (n_streams == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   return m <= 64 ? launch<64>(y, x, xm, proj, coord, n_streams, m, n, img_rows, img_cols,
@@ -363,4 +560,35 @@ extern "C" int trackdlo_visibility(
                  : launch<128>(y, x, xm, proj, coord, n_streams, m, n, img_rows, img_cols,
                                tau_vis, w_half, d_vis, visible, extended, not_occ, shortest,
                                vis_idx, ext_idx, counts, pmin_all, pmin_ext, st);
+}
+
+// The unbounded build (m > 128): ``ws`` a workspace of
+// trackdlo_visibility_workspace bytes.
+extern "C" int trackdlo_visibility_ub(
+    const float* y, const float* x, const uint8_t* xm, const float* proj,
+    const float* coord, int n_streams, int m, int n, int img_rows, int img_cols,
+    float tau_vis, float w_half, float d_vis, uint8_t* visible,
+    uint8_t* extended, uint8_t* not_occ, float* shortest, long long* vis_idx,
+    long long* ext_idx, long long* counts, float* pmin_all, float* pmin_ext, void* ws,
+    void* stream) {
+  if (m <= 128 || n < 0 || n_streams < 0) return (int)cudaErrorInvalidValue;
+  if (n_streams == 0) return 0;
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(SmemUb);
+  cudaError_t err = cudaFuncSetAttribute(visibility_ub_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  visibility_ub_kernel<<<n_streams, THREADS, smem, (cudaStream_t)stream>>>(
+      y, x, xm, proj, coord, m, n, img_rows, img_cols, tau_vis, w_half, d_vis, visible, extended,
+      not_occ, shortest, vis_idx, ext_idx, counts, pmin_all, pmin_ext, static_cast<float*>(ws));
+  return (int)cudaGetLastError();
+}
+
+// The unbounded build's workspace in bytes for B streams of m nodes (0
+// where m takes a bounded build).
+extern "C" int trackdlo_visibility_workspace(int n_streams, int m, int n, long long* out) {
+  (void)n;
+  if (m < 2 || n_streams < 0) return (int)cudaErrorInvalidValue;
+  *out = m <= 128 ? 0 : (long long)n_streams * m * UB_WORDS_PER_NODE * 4;
+  return 0;
 }

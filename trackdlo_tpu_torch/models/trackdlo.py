@@ -412,8 +412,9 @@ class Tracker:
 
     ``device="cuda"`` without a GPU raises; it never falls back to the CPU.
     On a CUDA device every former TPU kernel of the step runs as a
-    hand-written CUDA kernel (up to 128 nodes, ``hopper_kernels.NODE_MAX``;
-    more raise there), and ``step`` and ``step_from_points`` each replay
+    hand-written CUDA kernel at any node count and cloud size (its narrow,
+    wide or node-unbounded build, ``hopper_kernels.NODE_BUILDS``), and
+    ``step`` and ``step_from_points`` each replay
     their CUDA graph (:func:`build_step_fn`, :func:`build_points_step_fn`;
     every solver but ``"svd_lstsq"``); on the CPU the plain versions run
     eagerly."""

@@ -9,11 +9,15 @@ for one), ``gauss_jordan_solve_batched`` (kernel G, csrc/gj_solve.cu),
 (kernel N, csrc/nearest.cu).
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel (or raises, as for more nodes than
-:data:`NODE_MAX` gives).
+tensors it launches the kernel, at any node count from :data:`NODE_MIN` up
+(:data:`NODE_BUILDS`: a narrow and a wide build with a node bound fixed at
+compile time, then the node-unbounded build) and any row count, or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -24,41 +28,77 @@ _BIG = 1e5
 _TWO_PI = 6.283185307179586
 _F32 = torch.float32
 
+# Each kernel's builds on the card, by the most nodes each takes (None: any
+# number); a launch takes the first build that takes m. E, S, G and F are
+# compiled for at most 48 and at most 128 nodes (EC_MMAX and EC_MMAX_WIDE,
+# csrc/estep_cluster.cuh; GJ_MMAX and GJ_MMAX_WIDE, csrc/gj.cuh); N keeps one
+# node a thread up to 128 (csrc/nearest.cu); V is compiled for 64 and 128
+# nodes (one or two 64-bit words a node mask, csrc/visibility.cu); W for 65
+# and 129 guides (two or four segments a lane, csrc/walks.cu). Past those,
+# each runs its node-unbounded build (csrc/unbounded.cuh for E, S, G and F:
+# the node arrays and the M-step system in a global workspace).
+NODE_BUILDS = {"em_loop": (48, 128, None), "estep": (48, 128, None),
+               "estep_batch": (48, 128, None), "gj_solve": (48, 128, None),
+               "em_iteration": (48, 128, None), "nearest": (128, None),
+               "visibility": (64, 128, None), "walks": (65, 129, None)}
+# The fewest nodes each kernel takes (V and W need an edge).
+NODE_MIN = {**dict.fromkeys(NODE_BUILDS, 1), "visibility": 2, "walks": 2}
+
+
+def node_build(name: str, m: int) -> int:
+    """The index in ``NODE_BUILDS[name]`` of the build that a launch of
+    kernel ``name`` (a launch counter's name) takes for ``m`` nodes."""
+    return next(i for i, top in enumerate(NODE_BUILDS[name]) if top is None or m <= top)
+
+
+def unbounded(name: str, m: int) -> bool:
+    """Whether ``m`` nodes take kernel ``name``'s node-unbounded build."""
+    return NODE_BUILDS[name][node_build(name, m)] is None
+
+
+def check_nodes(fn: str, name: str, m: int) -> None:
+    """Raise unless kernel ``name`` (a launch counter's name) takes ``m``
+    nodes on the card; ``fn`` names the wrapper in the message."""
+    if m < NODE_MIN[name]:
+        raise ValueError(f"{fn}: m={m} below {NODE_MIN[name]}")
+
+
 # Kernels E, S and F run one E-step over a thread-block cluster
 # (csrc/estep_cluster.cuh): one CTA per 256 rows, 1 to 8 CTAs, each holding
-# at most 2048 rows.
-_CLUSTER_ROWS, _CLUSTER_MAX, _CTA_MAX_ROWS = 256, 8, 2048
+# 2048 compacted rows at a time (a CTA with more takes them a tile at a
+# time). Their unbounded builds always run 8 CTAs.
+_CLUSTER_ROWS, _CLUSTER_MAX = 256, 8
 
 
-def cluster_shape(n: int) -> tuple[int, int]:
-    """(CTAs per cluster, rows per CTA) of kernels E, S and F for ``n`` rows: a
-    function of ``n`` alone, so a stream's result depends neither on the
-    batch it is launched in nor on the card (csrc/estep_cluster.cuh)."""
+def cluster_shape(n: int, m: int = 45) -> tuple[int, int]:
+    """(CTAs per cluster, rows per CTA) of kernels E, S and F for ``n`` rows
+    and ``m`` nodes: a function of ``n`` (and of whether ``m`` takes the
+    unbounded build) alone, so a stream's result depends neither on the
+    batch it is launched in nor on the card (csrc/estep_cluster.cuh,
+    csrc/unbounded.cuh)."""
+    if unbounded("em_loop", m):
+        return _CLUSTER_MAX, -(-n // _CLUSTER_MAX)
     c = min(max(-(-n // _CLUSTER_ROWS), 1), _CLUSTER_MAX)
     return c, -(-n // c)
 
 
-# The most nodes each kernel takes on the card. E, S, G and F are compiled
-# for at most 48 and for at most 128 nodes (EC_MMAX and EC_MMAX_WIDE,
-# csrc/estep_cluster.cuh; GJ_MMAX and GJ_MMAX_WIDE, csrc/gj.cuh) and launch
-# the 48-node build where it takes m; N keeps one node a thread (128,
-# csrc/nearest.cu); V is compiled for 64 and 128 nodes (one or two 64-bit
-# words a node mask, csrc/visibility.cu); W for 65 and 129 guides (two or
-# four segments a lane, csrc/walks.cu).
-NODE_MAX = {"em_loop": 128, "estep": 128, "estep_batch": 128, "gj_solve": 128,
-            "em_iteration": 128, "nearest": 128, "visibility": 128, "walks": 129}
+@functools.lru_cache(maxsize=None)
+def _workspace_bytes(kernel: str, n_streams: int, m: int, n: int) -> int:
+    out = ctypes.c_longlong()
+    fn = getattr(_build.lib(), f"trackdlo_{kernel}_workspace")
+    _build.check(fn(int(n_streams), int(m), int(n), ctypes.addressof(out)),
+                 f"trackdlo_{kernel}_workspace")
+    return out.value
 
 
-def check_nodes(fn: str, name: str, m: int, lo: int = 1) -> None:
-    """Raise unless kernel ``name`` (a launch counter's name) takes ``m``
-    nodes on the card; ``fn`` names the wrapper in the message."""
-    if not lo <= m <= NODE_MAX[name]:
-        raise ValueError(f"{fn}: m={m} outside [{lo}, {NODE_MAX[name]}]")
-
-
-def _check_cluster_rows(name: str, n: int) -> None:
-    if cluster_shape(n)[1] > _CTA_MAX_ROWS:
-        raise ValueError(f"{name}: n={n} rows exceed {_CLUSTER_MAX * _CTA_MAX_ROWS}")
+def workspace(kernel: str, n_streams: int, m: int, n: int, device) -> torch.Tensor:
+    """The global workspace of an unbounded launch of kernel ``kernel``
+    (``"em_loop"``, ``"estep"``, ``"gj_solve"``, ``"em_iter"`` or
+    ``"visibility"``; its node-indexed arrays and, for E, G and F, the
+    M-step system): one allocation on ``device``, in a CUDA graph's pool
+    when captured."""
+    return torch.empty(_workspace_bytes(kernel, n_streams, m, n), dtype=torch.uint8,
+                       device=device)
 
 
 def cluster_info(kernel: str, n: int, m: int = 45) -> dict:
@@ -66,8 +106,6 @@ def cluster_info(kernel: str, n: int, m: int = 45) -> dict:
     cluster launch for ``n`` rows and ``m`` nodes on the current card: the
     cluster size, the rows per CTA, how many such clusters the card can hold
     at once and a CTA's shared memory in bytes (of the build for ``m``)."""
-    import ctypes
-
     out = (ctypes.c_int * 4)()
     fn = getattr(_build.lib(), f"trackdlo_{kernel}_cluster_info")
     _build.check(fn(int(n), int(m), ctypes.addressof(out)), f"trackdlo_{kernel}_cluster_info")
@@ -255,14 +293,16 @@ def fused_em_loop(
     dev = _build.require_cuda("fused_em_loop", args)
     m, n = y0.shape[0], x.shape[0]
     check_nodes("fused_em_loop", "em_loop", m)
-    _check_cluster_rows("fused_em_loop", n)
     y_out = torch.empty((m, 3), dtype=_F32, device=dev)
     stats = torch.empty((4,), dtype=_F32, device=dev)
-    code = _build.lib().trackdlo_em_loop(
-        *(t.data_ptr() for t in args.values()), m, n,
-        muf, k_vis, tau_vis, lam, coef_lle, alpha, tol, int(max_iter),
-        y_out.data_ptr(), stats.data_ptr(), _build.stream_ptr(dev),
-    )
+    call = (*(t.data_ptr() for t in args.values()), m, n,
+            muf, k_vis, tau_vis, lam, coef_lle, alpha, tol, int(max_iter),
+            y_out.data_ptr(), stats.data_ptr())
+    if unbounded("em_loop", m):
+        ws = workspace("em_loop", 1, m, n, dev)
+        code = _build.lib().trackdlo_em_loop_ub(*call, ws.data_ptr(), _build.stream_ptr(dev))
+    else:
+        code = _build.lib().trackdlo_em_loop(*call, _build.stream_ptr(dev))
     _build.check(code, "trackdlo_em_loop")
     _build.count_launch("em_loop")
     return y_out, stats
@@ -370,7 +410,7 @@ def pursuit_walks(guides, seglens, ints, eps: float = 1e-4):
         dict(ints=torch.int32),
     )
     n_w, m, _ = guides.shape
-    check_nodes("pursuit_walks", "walks", m, lo=2)
+    check_nodes("pursuit_walks", "walks", m)
     pos, valid = alloc_walks_out(n_w, m, dev)
     code = _build.lib().trackdlo_walks(
         guides.data_ptr(), seglens.data_ptr(), ints.data_ptr(), n_w, m, float(eps),
@@ -477,7 +517,6 @@ def _estep_launch(name, scal, y, coord, nm, pv, x, xm, two_phase):
     bsz, m, _ = y.shape
     n = x.shape[1]
     check_nodes(name, "estep", m)
-    _check_cluster_rows(name, n)
     if tuple(scal.shape) != (bsz, 8) or tuple(x.shape) != (bsz, n, 3) or tuple(xm.shape) != (bsz, n):
         raise ValueError(f"{name}: scal/x/xm shapes do not match y")
     if any(tuple(a.shape) != (bsz, m) for a in (coord, nm, pv)):
@@ -486,11 +525,14 @@ def _estep_launch(name, scal, y, coord, nm, pv, x, xm, two_phase):
     px = torch.empty((bsz, m, 3), dtype=_F32, device=dev)
     stats = torch.empty((bsz, 2), dtype=_F32, device=dev)
     short = torch.empty((bsz, m), dtype=_F32, device=dev)
-    code = _build.lib().trackdlo_estep(
-        scal.data_ptr(), y.data_ptr(), coord.data_ptr(), nm.data_ptr(), pv.data_ptr(),
-        x.data_ptr(), xm.data_ptr(), bsz, m, n, int(bool(two_phase)),
-        p1.data_ptr(), px.data_ptr(), stats.data_ptr(), short.data_ptr(), _build.stream_ptr(dev),
-    )
+    call = (scal.data_ptr(), y.data_ptr(), coord.data_ptr(), nm.data_ptr(), pv.data_ptr(),
+            x.data_ptr(), xm.data_ptr(), bsz, m, n, int(bool(two_phase)),
+            p1.data_ptr(), px.data_ptr(), stats.data_ptr(), short.data_ptr())
+    if unbounded("estep", m):
+        ws = workspace("estep", bsz, m, n, dev)
+        code = _build.lib().trackdlo_estep_ub(*call, ws.data_ptr(), _build.stream_ptr(dev))
+    else:
+        code = _build.lib().trackdlo_estep(*call, _build.stream_ptr(dev))
     _build.check(code, "trackdlo_estep")
     return p1, px, stats, short
 
@@ -579,13 +621,19 @@ def gauss_jordan_solve_batched(a, b, g=None, y0=None):
     if tuple(a.shape) != (n_sys, m, m) or tuple(b.shape) != (n_sys, m, 3):
         raise ValueError("gauss_jordan_solve_batched: a must be (B, m, m) and b (B, m, 3)")
     w = torch.empty((n_sys, m, 3), dtype=_F32, device=dev)
-    if g is None:
+    if g is not None and (tuple(g.shape) != (n_sys, m, m) or tuple(y0.shape) != (n_sys, m, 3)):
+        raise ValueError("gauss_jordan_solve_batched: g must be (B, m, m) and y0 (B, m, 3)")
+    t = None if g is None else torch.empty((n_sys, m, 3), dtype=_F32, device=dev)
+    if unbounded("gj_solve", m):
+        ws = workspace("gj_solve", n_sys, m, 0, dev)
+        ptr = lambda v: None if v is None else v.data_ptr()
+        code = _build.lib().trackdlo_gj_solve_ub(
+            a.data_ptr(), b.data_ptr(), ptr(g), ptr(y0), n_sys, m, w.data_ptr(), ptr(t),
+            ws.data_ptr(), _build.stream_ptr(dev))
+    elif g is None:
         code = _build.lib().trackdlo_gj_solve(
             a.data_ptr(), b.data_ptr(), n_sys, m, w.data_ptr(), _build.stream_ptr(dev))
     else:
-        if tuple(g.shape) != (n_sys, m, m) or tuple(y0.shape) != (n_sys, m, 3):
-            raise ValueError("gauss_jordan_solve_batched: g must be (B, m, m) and y0 (B, m, 3)")
-        t = torch.empty((n_sys, m, 3), dtype=_F32, device=dev)
         code = _build.lib().trackdlo_gj_solve_update(
             a.data_ptr(), b.data_ptr(), g.data_ptr(), y0.data_ptr(), n_sys, m, w.data_ptr(),
             t.data_ptr(), _build.stream_ptr(dev))
@@ -742,7 +790,6 @@ def _em_iteration_launch(name, s2, dyn, cc, y, y0, nm, coord, g, hg, hy0, jg, pd
     bsz, m, _ = y.shape
     n = x.shape[1]
     check_nodes(name, "em_iteration", m)
-    _check_cluster_rows(name, n)
     shapes = dict(dyn=(bsz, 4), y0=(bsz, m, 3), coord=(bsz, m), nm=(bsz, m), g=(bsz, m, m),
                   hg=(bsz, m, m), hy0=(bsz, m, 3), jg=(bsz, m, m), pd=(bsz, m, 3), x=(bsz, n, 3),
                   xm=(bsz, n), cc=(bsz, 2))
@@ -754,13 +801,15 @@ def _em_iteration_launch(name, s2, dyn, cc, y, y0, nm, coord, g, hg, hy0, jg, pd
     t = torch.empty((bsz, m, 3), dtype=_F32, device=dev)
     stats = torch.empty((bsz, 2), dtype=_F32, device=dev)
     cc_ptr = args["cc"].data_ptr() if cc is not None else None  # null: the c's from dyn
-    code = _build.lib().trackdlo_em_iter(
-        s2.data_ptr(), s2.stride(0), args["dyn"].data_ptr(), cc_ptr,
-        *(args[k].data_ptr() for k in ("y", "y0", "coord", "nm", "g", "hg", "hy0", "jg", "pd",
-                                       "x", "xm")),
-        bsz, m, n, muf, k_vis, tau_vis, lam, coef_lle, alpha, t.data_ptr(), stats.data_ptr(),
-        _build.stream_ptr(dev),
-    )
+    call = (s2.data_ptr(), s2.stride(0), args["dyn"].data_ptr(), cc_ptr,
+            *(args[k].data_ptr() for k in ("y", "y0", "coord", "nm", "g", "hg", "hy0", "jg", "pd",
+                                           "x", "xm")),
+            bsz, m, n, muf, k_vis, tau_vis, lam, coef_lle, alpha, t.data_ptr(), stats.data_ptr())
+    if unbounded("em_iteration", m):
+        ws = workspace("em_iter", bsz, m, n, dev)
+        code = _build.lib().trackdlo_em_iter_ub(*call, ws.data_ptr(), _build.stream_ptr(dev))
+    else:
+        code = _build.lib().trackdlo_em_iter(*call, _build.stream_ptr(dev))
     _build.check(code, "trackdlo_em_iter")
     _build.count_launch("em_iteration")
     return t, stats[:, 0], stats[:, 1]

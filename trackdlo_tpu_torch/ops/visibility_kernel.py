@@ -12,7 +12,7 @@ import math
 import torch
 
 from trackdlo_tpu_torch import _build
-from trackdlo_tpu_torch.ops.hopper_kernels import check_nodes
+from trackdlo_tpu_torch.ops.hopper_kernels import check_nodes, unbounded, workspace
 from trackdlo_tpu_torch.ops.visibility import VisibilityOut, compute_visibility
 
 fused_visibility_plain = compute_visibility
@@ -76,21 +76,26 @@ def fused_visibility(
     )
     lead = y.shape[:-2]
     m, n = y.shape[-2], x.shape[-2]
-    check_nodes("fused_visibility", "visibility", m, lo=2)
+    check_nodes("fused_visibility", "visibility", m)
     if (len(lead) > 1 or tuple(x.shape) != (*lead, n, 3) or tuple(x_mask.shape) != (*lead, n)
             or tuple(geodesic_coord.shape) != (*lead, m)):
         raise ValueError("fused_visibility: y/x/x_mask/geodesic_coord shapes do not match")
     out, v = alloc_visibility_out(lead, m, n, dev)
-    code = _build.lib().trackdlo_visibility(
+    n_streams = lead[0] if lead else 1
+    call = (
         y.data_ptr(), x.data_ptr(), x_mask.data_ptr(), proj.data_ptr(),
-        geodesic_coord.data_ptr(), lead[0] if lead else 1, m, n, int(img_rows), int(img_cols),
+        geodesic_coord.data_ptr(), n_streams, m, n, int(img_rows), int(img_cols),
         float(visibility_threshold), float(dlo_pixel_width) / 2.0, float(d_vis),
         v["visible_mask"].data_ptr(), v["extended_mask"].data_ptr(),
         v["not_self_occluded"].data_ptr(), v["shortest_node_pt_dists"].data_ptr(),
         v["vis_idx"].data_ptr(), v["vis_ext_idx"].data_ptr(), v["counts"].data_ptr(),
         v["point_min_sq_all"].data_ptr(), v["point_min_sq_ext"].data_ptr(),
-        _build.stream_ptr(dev),
     )
+    if unbounded("visibility", m):
+        ws = workspace("visibility", n_streams, m, n, dev)
+        code = _build.lib().trackdlo_visibility_ub(*call, ws.data_ptr(), _build.stream_ptr(dev))
+    else:
+        code = _build.lib().trackdlo_visibility(*call, _build.stream_ptr(dev))
     _build.check(code, "trackdlo_visibility")
     _build.count_launch("visibility")
     return out
