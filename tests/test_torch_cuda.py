@@ -7,6 +7,8 @@ The file imports no JAX, so it runs on a GPU machine without it:
 
 (``--noconftest``: the repository's conftest pins JAX to the CPU.)"""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -1531,3 +1533,191 @@ def test_batched_graph_matches_eager_over_three_frame_sets(cuda):
         se, oe = eager(se, *frames)
         for a, b in zip((*sg, *og), (*se, *oe)):
             assert torch.equal(a, b)
+
+
+# -- the span recorder's device stamps (utils/profiling.py, csrc/stamp.cu) --
+
+
+@pytest.fixture
+def recorder():
+    """The span recorder, off and empty before and after the test."""
+    from trackdlo_tpu_torch.utils import profiling
+
+    profiling.disable()
+    profiling.drain()
+    yield profiling
+    profiling.disable()
+    profiling.drain()
+
+
+LAYERS = ("preprocess", "visibility", "em.pre", "priors", "em.main")
+
+
+def _stamped_trackers(recorder, cuda, frames):
+    """Two trackers of the quarter camera, the first captured with the
+    recorder off, the second with it on; each stepped through ``frames``
+    from one start, the launch counts of its replays (after the capture)
+    and its states and outputs kept."""
+    from trackdlo_tpu_torch.models.trackdlo import Tracker
+
+    params = live_params(max_points=512, dlo_pixel_width=10)
+    start = SyntheticRope().nodes(0.0, M)
+    runs = []
+    for on in (False, True):
+        (recorder.enable if on else recorder.disable)()
+        tracker = Tracker(params, QUARTER, device=cuda)
+        state = tracker.init_from_nodes(start)
+        tracker.step(state, *frames[0])  # capture
+        recorder.enable()
+        recorder.drain()
+        _build.reset_launch_counts()
+        got = []
+        for f in frames:
+            state, out = tracker.step(state, *f)
+            got.append((state, out))
+        counts = dict(_build.settle_counts())
+        counts["stamps"] = sum(int(r.header[0]) for r in recorder._recorder.rings.values())
+        runs.append((tracker, got, counts, recorder.drain()))
+    return runs
+
+
+def test_graph_captured_with_tracing_off_has_no_stamp_node(cuda, recorder):
+    """Replays of a graph captured while the recorder was off take no stamp
+    (the device buffer's cursor stays 0 with the recorder on) and launch
+    what a stamped graph launches, the eager step's kernels a frame."""
+    frames = _quarter_frames(4)
+    (off, _, counts_off, drained_off), (on, _, counts_on, drained_on) = \
+        _stamped_trackers(recorder, cuda, frames)
+    assert not off._step.stamped and on._step.stamped
+    assert counts_off.pop("stamps") == 0 and drained_off.device == []
+    assert counts_on.pop("stamps") == 12 * len(frames)  # the replay's and 5 layers' pairs
+    assert len({s.call for s in drained_on.device}) == len(frames)
+    assert counts_off == counts_on
+    assert counts_off["em_loop"] == 2 * len(frames) and counts_off["cell_sums"] == len(frames)
+
+
+def test_stamped_graph_is_bit_equal_to_the_unstamped_one(cuda, recorder):
+    frames = _quarter_frames(5)
+    (_, got_off, _, _), (_, got_on, _, _) = _stamped_trackers(recorder, cuda, frames)
+    for (s_off, o_off), (s_on, o_on) in zip(got_off, got_on):
+        for a, b in zip((*s_off, *o_off), (*s_on, *o_on)):
+            assert torch.equal(a, b)
+
+
+def _batched_runs(recorder, cuda, n_sets=2, bsz=16, cohort=8):
+    """The b16/c8 batched step at the quarter camera, captured with the
+    recorder off and with it on: each one's states and outputs over
+    ``n_sets`` frame sets, the loops' trips (kernel L's tally) and what the
+    recorder drained."""
+    from trackdlo_tpu_torch.models.trackdlo import Tracker, TrackerState
+    from trackdlo_tpu_torch.parallel import build_batched_step_fn
+
+    params = live_params(max_points=512, dlo_pixel_width=10)
+    tracker = Tracker(params, QUARTER, device=cuda)
+    start = TrackerState(*(torch.stack(f) for f in zip(*(
+        tracker.init_from_nodes(SyntheticRope().nodes(0.01 * b, M)) for b in range(bsz)))))
+    sets = [[np.stack([a] * bsz) for a in f] for f in _quarter_frames(n_sets + 1)]
+    runs = []
+    for on in (False, True):
+        (recorder.enable if on else recorder.disable)()
+        step = build_batched_step_fn(params, QUARTER, cohort_size=cohort, device=cuda)
+        state, _ = step(start, *sets[0])  # capture
+        recorder.enable()
+        recorder.drain()
+        _build.reset_launch_counts()
+        got = []
+        for s in sets[1:]:
+            state, out = step(state, *s)
+            got.append((state, out))
+        counts = dict(_build.settle_counts())
+        runs.append((got, counts, recorder.drain()))
+    return runs
+
+
+def test_stamped_batched_graph_is_bit_equal_and_times_its_loops(cuda, recorder):
+    """b16/c8: the stamped graph's outputs are the unstamped one's bit for
+    bit, with the same launches; each cohort's EM spans (em.pre + em.main)
+    take device time, so em.device_ms over kernel L's trips is positive."""
+    (got_off, counts_off, _), (got_on, counts_on, drained) = _batched_runs(recorder, cuda)
+    for (s_off, o_off), (s_on, o_on) in zip(got_off, got_on):
+        for a, b in zip((*s_off, *o_off), (*s_on, *o_on)):
+            assert torch.equal(a, b)
+    assert counts_off == counts_on
+    assert drained.lost == 0
+    calls = sorted({s.call for s in drained.device})
+    assert len(calls) == len(got_on)
+    for call in calls:
+        spans = [s for s in drained.device if s.call == call]
+        assert sorted((s.name, s.cohort) for s in spans) == sorted(
+            [("replay", None)] + [(n, c) for n in LAYERS for c in (0, 1)])
+    em_ms = sum(s.end_ns - s.start_ns for s in drained.device if s.name.startswith("em.")) / 1e6
+    trips = counts_on["loop_flag"] - 2 * 2 * len(got_on)  # less one opening launch a loop
+    assert trips > 0 and em_ms / len(calls) / trips > 0
+
+
+def test_stamps_are_ordered_and_the_layers_cover_the_replay(cuda, recorder):
+    """Within each replay the layers follow one another in the step's order,
+    inside the replay's span; together they cover 80-100% of it."""
+    frames = _quarter_frames(5)
+    (_, _, _, _), (_, _, _, drained) = _stamped_trackers(recorder, cuda, frames)
+    calib = next(iter(drained.calibration.values()))
+    assert calib["error_ns"] > 0 and calib["timer_step_ns"] > 0
+    for call in sorted({s.call for s in drained.device}):
+        spans = {s.name: s for s in drained.device if s.call == call}
+        assert sorted(spans) == sorted(("replay",) + LAYERS)
+        replay, layers = spans["replay"], [spans[n] for n in LAYERS]
+        assert replay.start_ns <= layers[0].start_ns
+        for a, b in zip(layers, layers[1:]):
+            assert a.start_ns <= a.end_ns <= b.start_ns
+        assert layers[-1].end_ns <= replay.end_ns
+        covered = sum(s.end_ns - s.start_ns for s in layers)
+        assert 0.8 * (replay.end_ns - replay.start_ns) <= covered <= replay.end_ns - replay.start_ns
+
+
+def test_preprocess_span_brackets_kernels_p_and_c_under_the_profiler(cuda, recorder):
+    """The preprocess device span, placed on the host clock, starts no
+    later than kernel P's trace event and ends no earlier than kernel C's,
+    within the calibration's error and the timer's step. The recorder's
+    host clock is moved onto the trace's by each call's replay: the offset
+    between the replay span's start and the trace's own event of the same
+    stamp (the replay's first stamp kernel). The profiler's alignment of its
+    device events with its host events drifts (by up to 40 µs a call in a
+    process's first profiles), so one offset for the whole trace, taken
+    from the host annotations, would measure that drift and not the
+    recorder."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from trackdlo_tpu_torch.models.trackdlo import Tracker
+
+    params = live_params(max_points=512, dlo_pixel_width=10)
+    frames = _quarter_frames(6)
+    recorder.enable()
+    tracker = Tracker(params, QUARTER, device=cuda)
+    state = tracker.init_from_nodes(SyntheticRope().nodes(0.0, M))
+    state, _ = tracker.step(state, *frames[0])
+    torch.cuda.synchronize()
+    recorder.drain()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for f in frames[1:]:
+            state, out = tracker.step(state, *f)
+        out.y.cpu()
+    drained = recorder.drain()
+    calls = len(frames) - 1
+    gpu = torch.autograd.DeviceType.CUDA
+    kernel = lambda name: sorted((e.time_range.start, e.time_range.end)  # noqa: E731
+                                 for e in prof.events() if e.device_type == gpu
+                                 and re.search(rf"\b{name}\b", e.name))
+    p_events, c_events, stamps = (kernel(k) for k in ("cell_sums_kernel", "compact_kernel",
+                                                      "stamp_kernel"))
+    spans = lambda name: sorted((s.start_ns / 1e3, s.end_ns / 1e3)  # noqa: E731
+                                for s in drained.device if s.name == name)
+    replays, pre = spans("replay"), spans("preprocess")
+    per_call = 2 * len(drained.device) // calls  # two stamps a device span
+    assert len(stamps) == per_call * calls
+    assert len(p_events) == len(c_events) == len(pre) == len(replays) == calls
+    calib = next(iter(drained.calibration.values()))
+    tol = (calib["error_ns"] + calib["timer_step_ns"]) / 1e3
+    for i, ((s, e), p, c) in enumerate(zip(pre, p_events, c_events)):
+        shift = replays[i][0] - stamps[per_call * i][0]
+        assert s - shift <= p[0] + tol and e - shift >= c[1] - tol, (s - shift - p[0],
+                                                                     c[1] - e + shift, tol)

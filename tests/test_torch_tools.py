@@ -4,8 +4,7 @@ against the JAX package's on the same seeded inputs:
 - tools.record, tools.render_results, tools.mask_preview,
   tools.color_picker, tools.simulate_occlusion and tools.live_view (OpenCV
   only where the JAX tool needs it);
-- utils.profiling (PhaseTimers, log_step_outputs, trace_step writing a
-  torch.profiler trace on the CPU);
+- utils.profiling (the recorder's report, log_step_outputs);
 - ops.preprocess.rgb_to_hsv_cv against the JAX package's;
 - io.camera_preset and io.pseudo_depth: the port's step on a decimated,
   sensor-quantised frame and on a pseudo-real depth frame, each against the
@@ -128,29 +127,26 @@ def test_live_view_renders_what_the_jax_view_renders(tmp_path, small_step):
 
 
 def test_phase_timers_and_step_log(caplog, small_step):
-    from trackdlo_tpu_torch.utils.profiling import PhaseTimers, log_step_outputs
+    """The recorder's report is the reference's "Avg ..." block (each span's
+    mean ms a call, then the calls' total); the per-frame log line."""
+    from trackdlo_tpu_torch.utils import profiling
+    from trackdlo_tpu_torch.utils.profiling import log_step_outputs
 
-    timers = PhaseTimers()
-    for _ in range(3):
-        with timers.phase("tracking"):
-            pass
-    assert timers.counts["tracking"] == 3
-    assert timers.report().splitlines()[-1].startswith("Avg total:")
+    profiling.enable()
+    try:
+        for _ in range(3):
+            with profiling.span("tracking"):
+                with profiling.span("tracking.em"):
+                    pass
+        drained = profiling.drain()
+    finally:
+        profiling.disable()
+    assert [s.name for s in drained.spans].count("tracking") == 3
+    lines = profiling.report(drained.spans).splitlines()
+    assert [ln.split(":")[0] for ln in lines] == ["Avg tracking.em", "Avg tracking", "Avg total"]
     with caplog.at_level(logging.INFO, logger="trackdlo_tpu_torch"):
         log_step_outputs(small_step[2], frame_idx=7)
     assert "[frame 7]" in caplog.text and "EM iterations=" in caplog.text
-
-
-def test_trace_step_writes_a_profiler_trace_on_the_cpu(tmp_path, small_step):
-    from trackdlo_tpu_torch.utils.profiling import trace_step
-
-    tracker, state, _, frames = small_step
-    with trace_step(str(tmp_path / "trace")) as log_dir:
-        tracker.step(state, *frames[0])
-    traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
-    assert log_dir == str(tmp_path / "trace") and len(traces) == 1
-    events = json.loads(traces[0].read_text())["traceEvents"]
-    assert any("aten::" in str(e.get("name", "")) for e in events)
 
 
 def test_rgb_to_hsv_cv_equals_jax():

@@ -175,6 +175,10 @@ SIGNATURES = {
     "trackdlo_while_handle": [_P, _P],  # stream, handle out
     "trackdlo_while_open": [_P, _U, _P],  # stream, handle, body stream
     "trackdlo_while_close": [_P],  # body stream
+    # The span recorder's device stamps (csrc/stamp.cu; utils/profiling.py):
+    # not counted in launch_counts.
+    "trackdlo_stamp": [_P, _P, _P, _I, _I, _P],  # header, times, tags, capacity, tag, stream
+    "trackdlo_timer_step": [_P, _I, _P],  # out, changes, stream
 }
 
 _lock = threading.Lock()

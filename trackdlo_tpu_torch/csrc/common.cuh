@@ -7,7 +7,7 @@
 #define TD_FULL_MASK 0xffffffffu
 
 // Fixed-order warp tree reductions: the result in lane 0 is the same on
-// every run (no atomics anywhere in this library).
+// every run (no atomics in any of this library's arithmetic).
 __device__ __forceinline__ float td_warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(TD_FULL_MASK, v, off);
   return v;

@@ -32,6 +32,7 @@ from trackdlo_tpu_torch.ops.preprocess import PointCloud, compact_sums, default_
 from trackdlo_tpu_torch.ops.preprocess_kernel import cell_sums
 from trackdlo_tpu_torch.ops.priors import correspondence_priors
 from trackdlo_tpu_torch.ops.visibility_kernel import fused_visibility
+from trackdlo_tpu_torch.utils import profiling
 
 
 class TrackerState(NamedTuple):
@@ -73,18 +74,22 @@ def init_state(init_nodes, params: TrackerParams, device=None) -> TrackerState:
 def _host_tensor(a, device: torch.device) -> torch.Tensor:
     """A numpy frame as a tensor to copy to ``device``: u16 depth as its
     bits in int16 (the kernels read them as u16), in pinned memory for a
-    CUDA device."""
-    arr = np.ascontiguousarray(a)
-    t = torch.from_numpy(arr.view(np.int16) if arr.dtype == np.uint16 else arr)
-    return t.pin_memory() if device.type == "cuda" else t
+    CUDA device. Its bytes count as ``pinned_bytes`` (span ``step.pin``)."""
+    with profiling.span("step.prepare"):
+        arr = np.ascontiguousarray(a)
+        t = torch.from_numpy(arr.view(np.int16) if arr.dtype == np.uint16 else arr)
+    with profiling.span("step.pin"):
+        profiling.count("pinned_bytes", arr.nbytes)
+        return t.pin_memory() if device.type == "cuda" else t
 
 
 def host_to_device(a, device: torch.device) -> torch.Tensor:
     """A frame (numpy or tensor) on ``device``, through pinned memory to a
     CUDA device."""
-    if isinstance(a, torch.Tensor):
+    if not isinstance(a, torch.Tensor):
+        a = _host_tensor(a, device)
+    with profiling.span("step.copy_in"):
         return a.to(device, non_blocking=True)
-    return _host_tensor(a, device).to(device, non_blocking=True)
 
 
 def preprocess_for_step(rgb, depth, occlusion_mask, *, params: TrackerParams,
@@ -103,12 +108,13 @@ def preprocess_for_step(rgb, depth, occlusion_mask, *, params: TrackerParams,
     once for the B frames, and every later step is row-local."""
     voxel_leaf = params.downsample_leaf_size if params.exact_voxels else None
     parity = params.parity_split and voxel_leaf is not None
-    sums = cell_sums(
-        rgb, depth, occlusion_mask, intr.fx, intr.fy, intr.cx, intr.cy,
-        params.hsv_lower, params.hsv_upper, params.multi_color_dlo, cell_px, voxel_leaf,
-        parity_split=parity, with_votes=not parity and voxel_leaf is not None,
-    )
-    return compact_sums(sums, params.max_points, voxel_leaf, params.candidate_cap(), parity)
+    with profiling.device_span("preprocess", rgb.device):
+        sums = cell_sums(
+            rgb, depth, occlusion_mask, intr.fx, intr.fy, intr.cx, intr.cy,
+            params.hsv_lower, params.hsv_upper, params.multi_color_dlo, cell_px, voxel_leaf,
+            parity_split=parity, with_votes=not parity and voxel_leaf is not None,
+        )
+        return compact_sums(sums, params.max_points, voxel_leaf, params.candidate_cap(), parity)
 
 
 def _track_from_points(state: TrackerState, pc: PointCloud, proj: torch.Tensor, *,
@@ -127,50 +133,54 @@ def _track_from_points(state: TrackerState, pc: PointCloud, proj: torch.Tensor, 
     dev = state.y.device
     lead = state.y.shape[:-2]
     em = cpd_lle_batched if lead else cpd_lle
-    vis = fused_visibility(
-        state.y, pc.points, pc.mask, proj, state.geodesic_coord,
-        intr.height, intr.width, params.visibility_threshold,
-        params.dlo_pixel_width, params.d_vis,
-    )
+    with profiling.device_span("visibility", dev):
+        vis = fused_visibility(
+            state.y, pc.points, pc.mask, proj, state.geodesic_coord,
+            intr.height, intr.width, params.visibility_threshold,
+            params.dlo_pixel_width, params.d_vis,
+        )
     shard = shard_slice(pc.points.shape[-2], model_axis)
     em_points, em_mask = pc.points[..., shard, :], pc.mask[..., shard]
-    iota = torch.arange(m, device=dev)
-    guide_node_mask = iota < vis.vis_ext_count[..., None]
-    picked = state.y.gather(-2, vis.vis_ext_idx[..., None].expand(*lead, m, 3))
-    guide0 = torch.where(guide_node_mask[..., None], picked, 0.0)
-    pre = em(
-        em_points, em_mask, guide0, guide_node_mask, state.sigma2,
-        CpdParams(
-            beta=params.beta_pre_proc, lam=params.lambda_pre_proc,
-            lle_weight=params.lle_weight, mu=params.mu, max_iter=params.max_iter,
-            tol=params.tol, include_lle=True, prune_radius=params.prune_radius,
-            visibility_threshold=params.visibility_threshold, solver=params.solver,
-        ),
-        point_min_sq=vis.point_min_sq_ext[..., shard],
-        axis_name=model_axis,
-    )
+    with profiling.device_span("em.pre", dev):
+        iota = torch.arange(m, device=dev)
+        guide_node_mask = iota < vis.vis_ext_count[..., None]
+        picked = state.y.gather(-2, vis.vis_ext_idx[..., None].expand(*lead, m, 3))
+        guide0 = torch.where(guide_node_mask[..., None], picked, 0.0)
+        pre = em(
+            em_points, em_mask, guide0, guide_node_mask, state.sigma2,
+            CpdParams(
+                beta=params.beta_pre_proc, lam=params.lambda_pre_proc,
+                lle_weight=params.lle_weight, mu=params.mu, max_iter=params.max_iter,
+                tol=params.tol, include_lle=True, prune_radius=params.prune_radius,
+                visibility_threshold=params.visibility_threshold, solver=params.solver,
+            ),
+            point_min_sq=vis.point_min_sq_ext[..., shard],
+            axis_name=model_axis,
+        )
     guide_nodes = pre.y
-    priors = correspondence_priors(
-        state.y, state.geodesic_coord, guide_nodes, vis.vis_ext_idx,
-        vis.vis_ext_count, vis.vis_idx, vis.vis_count,
-    )
-    main = em(
-        em_points, em_mask, state.y, torch.ones((*lead, m), dtype=torch.bool, device=dev),
-        state.sigma2,
-        CpdParams(
-            beta=params.beta, lam=params.lam, lle_weight=params.lle_weight,
-            mu=params.mu, max_iter=params.max_iter, tol=params.tol,
-            include_lle=False, alpha=params.alpha, k_vis=params.k_vis,
-            visibility_threshold=params.visibility_threshold,
-            prune_radius=params.prune_radius, use_priors=True,
-            use_visibility=True, solver=params.solver,
-        ),
-        prior_pos=priors.prior_pos,
-        prior_mask=priors.prior_mask,
-        visible_count=vis.vis_ext_count,
-        point_min_sq=vis.point_min_sq_all[..., shard],
-        axis_name=model_axis,
-    )
+    with profiling.device_span("priors", dev):
+        priors = correspondence_priors(
+            state.y, state.geodesic_coord, guide_nodes, vis.vis_ext_idx,
+            vis.vis_ext_count, vis.vis_idx, vis.vis_count,
+        )
+    with profiling.device_span("em.main", dev):
+        main = em(
+            em_points, em_mask, state.y, torch.ones((*lead, m), dtype=torch.bool, device=dev),
+            state.sigma2,
+            CpdParams(
+                beta=params.beta, lam=params.lam, lle_weight=params.lle_weight,
+                mu=params.mu, max_iter=params.max_iter, tol=params.tol,
+                include_lle=False, alpha=params.alpha, k_vis=params.k_vis,
+                visibility_threshold=params.visibility_threshold,
+                prune_radius=params.prune_radius, use_priors=True,
+                use_visibility=True, solver=params.solver,
+            ),
+            prior_pos=priors.prior_pos,
+            prior_mask=priors.prior_mask,
+            visible_count=vis.vis_ext_count,
+            point_min_sq=vis.point_min_sq_all[..., shard],
+            axis_name=model_axis,
+        )
     new_state = TrackerState(y=main.y, sigma2=main.sigma2, geodesic_coord=state.geodesic_coord)
     outputs = StepOutputs(
         y=main.y,
@@ -198,11 +208,12 @@ def _step_impl(state: TrackerState, rgb, depth, occ, *, params: TrackerParams,
     """The eager per-frame step on ``proj``'s device: the frame to the
     device, preprocessing, then :func:`_track_from_points`."""
     dev = proj.device
-    pc = preprocess_for_step(
-        host_to_device(rgb, dev), host_to_device(depth, dev),
-        host_to_device(occ, dev).contiguous(), params=params, intr=intr, cell_px=cell_px,
-    )
-    return _track_from_points(state, pc, proj, params=params, intr=intr)
+    with profiling.root():
+        pc = preprocess_for_step(
+            host_to_device(rgb, dev), host_to_device(depth, dev),
+            host_to_device(occ, dev).contiguous(), params=params, intr=intr, cell_px=cell_px,
+        )
+        return _track_from_points(state, pc, proj, params=params, intr=intr)
 
 
 def _tree_map(fn, tree):
@@ -239,7 +250,8 @@ def _copy_into(dst: torch.Tensor, src, name: str) -> None:
     if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
         raise ValueError(f"{name} must be {tuple(dst.shape)} {dst.dtype}, "
                          f"got {tuple(src.shape)} {src.dtype}")
-    dst.copy_(src, non_blocking=True)
+    with profiling.span("step.copy_in"):
+        dst.copy_(src, non_blocking=True)
 
 
 # Solvers whose M-step no CUDA graph holds, so that their step stays eager:
@@ -295,7 +307,15 @@ class CompiledStep:
     the launches of the loops' trips are counted on the card and reach the
     counters at ``_build.settle_counts()``. Nothing falls back: a capture
     that fails raises. Calls must not overlap (callers serialise them, as
-    the TCP server's device lock does)."""
+    the TCP server's device lock does).
+
+    Each call reports to the span recorder (:mod:`~trackdlo_tpu_torch.utils.profiling`)
+    as host spans ``step`` (the root), ``step.prepare``, ``step.pin``,
+    ``step.copy_in``, ``step.replay`` and ``step.copy_out``. The graph
+    holds device stamps (the ``replay`` span around the whole step and one
+    span a layer inside it) only if the recorder is on when the graph is
+    captured, at the first call: a graph captured while it is off has no
+    stamp node, and one captured while it is on stamps every replay."""
 
     def __init__(self, fn: Callable, device: torch.device, shapes: dict):
         self.fn, self.device = fn, device
@@ -303,6 +323,7 @@ class CompiledStep:
         self.graph = None
         self.counts = None
         self.loops = None
+        self.stamped = False
         self._inputs = None
         self._outputs = None
 
@@ -326,27 +347,34 @@ class CompiledStep:
         with torch.cuda.stream(side):
             self.fn(*self._args())
         torch.cuda.current_stream(dev).wait_stream(side)
+        stamped = profiling.prepare(dev)
         graph = torch.cuda.CUDAGraph()
         before = dict(_build.launch_counts)
         try:
             with graph_loop.recording(loops):
                 with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                    outputs = self.fn(*self._args())
+                    with profiling.device_span(profiling.REPLAY, dev):
+                        outputs = self.fn(*self._args())
         finally:
             after = dict(_build.launch_counts)
             counts = {k: after[k] - before[k] for k in after}
             _build.add_counts({k: -v for k, v in counts.items()})
         loops.captured()
         self.graph, self.counts, self.loops, self._outputs = graph, counts, loops, outputs
+        self.stamped = stamped
 
     def __call__(self, state, *inputs):
-        with torch.cuda.device(self.device):
+        with profiling.root(), torch.cuda.device(self.device):
             if self.graph is None:
                 self._capture(state, inputs)
             self._load(state, inputs)
-            self.graph.replay()
+            with profiling.span("step.replay"):
+                self.graph.replay()
+            if self.stamped:
+                profiling.replayed(self.device)
             _build.add_counts(self.counts)
-            return _copy_outputs(self._outputs)
+            with profiling.span("step.copy_out"):
+                return _copy_outputs(self._outputs)
 
 
 def build_step_fn(params: TrackerParams, intr: CameraIntrinsics, jit: bool = True,
@@ -378,9 +406,10 @@ def _points_step_impl(state: TrackerState, points, mask, *, params: TrackerParam
     """The step from a (max_points, 3) cloud and its (max_points,) mask on
     ``proj``'s device: :func:`_track_from_points`, no preprocessing."""
     dev = proj.device
-    pts, msk = host_to_device(points, dev), host_to_device(mask, dev)
-    pc = PointCloud(points=pts, mask=msk, count=msk.to(torch.int64).sum())
-    return _track_from_points(state, pc, proj, params=params, intr=intr)
+    with profiling.root():
+        pts, msk = host_to_device(points, dev), host_to_device(mask, dev)
+        pc = PointCloud(points=pts, mask=msk, count=msk.to(torch.int64).sum())
+        return _track_from_points(state, pc, proj, params=params, intr=intr)
 
 
 def build_points_step_fn(params: TrackerParams, intr: CameraIntrinsics, jit: bool = True,
@@ -444,24 +473,30 @@ class Tracker:
     def step(self, state: TrackerState, rgb, depth, occlusion_mask=None):
         """One tracking update: rgb (H, W, 3) u8, depth (H, W) u16 mm, an
         optional occlusion mask (nonzero = keep)."""
+        with profiling.root():
+            return self._step(state, rgb, depth, self._occ(state, rgb, depth, occlusion_mask))
+
+    def _occ(self, state, rgb, depth, occlusion_mask):
+        """The shapes checked; the occlusion mask on the device as (H, W) bool."""
         h, w = self.intrinsics.height, self.intrinsics.width
-        rgb_shape, depth_shape = tuple(np.shape(rgb)), tuple(np.shape(depth))
-        if rgb_shape != (h, w, 3):
-            raise ValueError(f"rgb must be ({h}, {w}, 3) u8 for these intrinsics, got {rgb_shape}")
-        if depth_shape != (h, w):
-            raise ValueError(f"depth must be ({h}, {w}) u16 millimetres, got {depth_shape}")
-        y_shape = tuple(np.shape(state.y))
-        if y_shape != (self.params.num_of_nodes, 3):
-            raise ValueError(f"state.y must be ({self.params.num_of_nodes}, 3), got {y_shape}")
-        if occlusion_mask is None:
-            if self._full_occ is None:
-                self._full_occ = torch.ones((h, w), dtype=torch.bool, device=self.device)
-            occ = self._full_occ
-        else:
-            occ = host_to_device(occlusion_mask, self.device) != 0
-            if occ.ndim == 3:
-                occ = occ.any(dim=-1)
-        return self._step(state, rgb, depth, occ)
+        with profiling.span("step.prepare"):
+            rgb_shape, depth_shape = tuple(np.shape(rgb)), tuple(np.shape(depth))
+            if rgb_shape != (h, w, 3):
+                raise ValueError(f"rgb must be ({h}, {w}, 3) u8 for these intrinsics, "
+                                 f"got {rgb_shape}")
+            if depth_shape != (h, w):
+                raise ValueError(f"depth must be ({h}, {w}) u16 millimetres, got {depth_shape}")
+            y_shape = tuple(np.shape(state.y))
+            if y_shape != (self.params.num_of_nodes, 3):
+                raise ValueError(f"state.y must be ({self.params.num_of_nodes}, 3), got {y_shape}")
+            if occlusion_mask is None:
+                if self._full_occ is None:
+                    self._full_occ = torch.ones((h, w), dtype=torch.bool, device=self.device)
+                return self._full_occ
+        occ = host_to_device(occlusion_mask, self.device)
+        with profiling.span("step.prepare"):
+            occ = occ != 0
+            return occ.any(dim=-1) if occ.ndim == 3 else occ
 
     def step_from_points(self, state: TrackerState, points):
         """One update from a caller-supplied (N, 3) cloud, skipping the RGB-D
@@ -471,10 +506,12 @@ class Tracker:
         if self._step_points is None:
             self._step_points = build_points_step_fn(self.params, self.intrinsics,
                                                      device=self.device)
-        cap = self.params.max_points
-        pts = np.zeros((cap, 3), np.float32)
-        msk = np.zeros((cap,), bool)
-        arr = np.asarray(points, np.float32)[:cap]
-        pts[: len(arr)] = arr
-        msk[: len(arr)] = True
-        return self._step_points(state, pts, msk)
+        with profiling.root():
+            with profiling.span("step.prepare"):
+                cap = self.params.max_points
+                pts = np.zeros((cap, 3), np.float32)
+                msk = np.zeros((cap,), bool)
+                arr = np.asarray(points, np.float32)[:cap]
+                pts[: len(arr)] = arr
+                msk[: len(arr)] = True
+            return self._step_points(state, pts, msk)

@@ -50,6 +50,7 @@ from trackdlo_tpu_torch.models.trackdlo import (
     step_shapes,
 )
 from trackdlo_tpu_torch.ops.preprocess import default_cell_px
+from trackdlo_tpu_torch.utils import profiling
 
 
 def replicate_state(state: TrackerState, batch: int) -> TrackerState:
@@ -127,8 +128,9 @@ def _make_step(params: TrackerParams, intr: CameraIntrinsics, cohort_size, mesh,
         outs = []
         for i in range(0, rgb_t.shape[0], cs):
             sl = slice(i, i + cs)
-            outs.append(run(TrackerState(*(v[sl] for v in state)), rgb_t[sl], depth_t[sl],
-                            occ_t[sl]))
+            with profiling.cohort(i // cs):
+                outs.append(run(TrackerState(*(v[sl] for v in state)), rgb_t[sl], depth_t[sl],
+                                occ_t[sl]))
         if len(outs) == 1:
             return outs[0]
         states, results = zip(*outs)
@@ -136,6 +138,36 @@ def _make_step(params: TrackerParams, intr: CameraIntrinsics, cohort_size, mesh,
         return TrackerState(*cat(states)), StepOutputs(*cat(results))
 
     def step(state: TrackerState, rgb, depth, occ=None):
+        with profiling.root():
+            graph = (jit and dev.type == "cuda" and model_axis is None
+                     and params.solver not in BATCH_EAGER_SOLVERS)
+            with profiling.span("step.prepare"):
+                state, rgb, depth, occ, b = checked(state, rgb, depth, occ)
+                cs = b if cohort_size is None else cohort_size
+                if graph:
+                    if occ is None:
+                        if b not in ones:
+                            ones[b] = torch.ones((b, h, w), dtype=torch.bool, device=dev)
+                        occ = ones[b]
+                    if b not in compiled:
+                        compiled[b] = CompiledStep(functools.partial(run_cohorts, cs=cs), dev,
+                                                   step_shapes(params, intr, b))
+                    occ = _host_occ(occ, dev)
+            if graph:
+                return compiled[b](state, rgb, depth, occ)
+            rgb_t = host_to_device(rgb, dev)
+            depth_t = host_to_device(depth, dev)
+            if occ is None:
+                occ_t = torch.ones((b, h, w), dtype=torch.bool, device=dev)
+            else:
+                occ_t = host_to_device(occ, dev) != 0
+                if occ_t.ndim == 4:
+                    occ_t = occ_t.any(dim=-1)
+                occ_t = occ_t.contiguous()
+            return run_cohorts(state, rgb_t, depth_t, occ_t, cs)
+
+    def checked(state: TrackerState, rgb, depth, occ):
+        """The shapes checked, and with a mesh this rank's data slice."""
         b = int(np.shape(rgb)[0])
         if tuple(np.shape(rgb)) != (b, h, w, 3) or tuple(np.shape(depth)) != (b, h, w):
             raise ValueError(f"rgb must be ({b}, {h}, {w}, 3) u8 and depth ({b}, {h}, {w}) u16")
@@ -152,29 +184,9 @@ def _make_step(params: TrackerParams, intr: CameraIntrinsics, cohort_size, mesh,
         if tuple(state.y.shape) != (b, params.num_of_nodes, 3):
             raise ValueError(f"state.y must be ({b}, {params.num_of_nodes}, 3), "
                              f"got {tuple(state.y.shape)}")
-        cs = b if cohort_size is None else cohort_size
-        if b % cs:
-            raise ValueError(f"batch {b} not divisible by cohort_size={cs}")
-        if (jit and dev.type == "cuda" and model_axis is None
-                and params.solver not in BATCH_EAGER_SOLVERS):
-            if occ is None:
-                if b not in ones:
-                    ones[b] = torch.ones((b, h, w), dtype=torch.bool, device=dev)
-                occ = ones[b]
-            if b not in compiled:
-                compiled[b] = CompiledStep(functools.partial(run_cohorts, cs=cs), dev,
-                                           step_shapes(params, intr, b))
-            return compiled[b](state, rgb, depth, _host_occ(occ, dev))
-        rgb_t = host_to_device(rgb, dev)
-        depth_t = host_to_device(depth, dev)
-        if occ is None:
-            occ_t = torch.ones((b, h, w), dtype=torch.bool, device=dev)
-        else:
-            occ_t = host_to_device(occ, dev) != 0
-            if occ_t.ndim == 4:
-                occ_t = occ_t.any(dim=-1)
-            occ_t = occ_t.contiguous()
-        return run_cohorts(state, rgb_t, depth_t, occ_t, cs)
+        if b % (b if cohort_size is None else cohort_size):
+            raise ValueError(f"batch {b} not divisible by cohort_size={cohort_size}")
+        return state, rgb, depth, occ, b
 
     return step
 
