@@ -20,10 +20,14 @@ events). Prints one JSON line.
 Readings, per call of the untraced calls:
 
 - ``api.stage_in_ms``: host ms in ``step.prepare`` + ``step.pin`` +
-  ``step.copy_in``; ``api.pin_gb_per_s``: the ``pinned_bytes`` counter over
-  the time in ``step.pin``; ``api.replay_ms``, ``api.copy_out_ms``: host ms
-  in ``step.replay``, ``step.copy_out``; ``readback_ms``: the host's wait
-  for y and sigma^2;
+  ``step.copy_in``; ``api.pin_gb_per_s``: the bytes that went through
+  ``step.pin`` (the ``pinned_bytes`` an eager step pins afresh plus the
+  ``staged_bytes`` a graph step writes into its persistent pinned buffers)
+  over the time in ``step.pin``; ``counters_per_call``: ``pinned_bytes``,
+  ``staged_bytes`` and ``staging_waits`` a call, beside
+  ``handed_bytes_per_call``, the bytes of the frame arrays a call hands
+  over; ``api.replay_ms``, ``api.copy_out_ms``: host ms in ``step.replay``,
+  ``step.copy_out``; ``readback_ms``: the host's wait for y and sigma^2;
 - ``<layer>.device_ms``: device ms between the stamps of ``preprocess``,
   ``visibility``, ``em.pre`` + ``em.main`` (``em``) and ``priors``, every
   cohort summed;
@@ -52,6 +56,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 STAGE_IN = ("step.prepare", "step.pin", "step.copy_in")
+COUNTERS = ("pinned_bytes", "staged_bytes", "staging_waits")
 LAYERS = {"preprocess": ("preprocess",), "visibility": ("visibility",),
           "em": ("em.pre", "em.main"), "priors": ("priors",)}
 STAMP_KERNEL = "stamp_kernel"
@@ -66,17 +71,21 @@ def readings(drained, calls: int, host_s: float, readback_ms: float) -> dict:
     for s in drained.spans:
         host[s.name] += s.end_ns - s.start_ns
     ms = lambda names: sum(host[n] for n in names) / calls / 1e6  # noqa: E731
+    counters = {k: drained.counters.get(k, 0) for k in COUNTERS}
     out = {"calls": calls, "host_ms_per_call": 1e3 * host_s / calls, "readback_ms": readback_ms,
            "api.stage_in_ms": ms(STAGE_IN), "api.replay_ms": ms(("step.replay",)),
            "api.copy_out_ms": ms(("step.copy_out",)),
-           "api.pin_gb_per_s": drained.counters.get("pinned_bytes", 0) / host["step.pin"]
-           if host["step.pin"] else None,
+           "api.pin_gb_per_s": (counters["pinned_bytes"] + counters["staged_bytes"])
+           / host["step.pin"] if host["step.pin"] else None,
+           "counters_per_call": {k: v / calls for k, v in counters.items()},
            "host_span_ms": {k: v / calls / 1e6 for k, v in sorted(host.items())},
            "stamps_lost": drained.lost, "calibration": drained.calibration}
     out["closure_host"] = (out["api.stage_in_ms"] + out["api.replay_ms"] + out["api.copy_out_ms"]
                            + readback_ms) / out["host_ms_per_call"]
     # each name's spans a call in the order they ran: "step.pin#1" is the
-    # second array a call pinned (Tracker.step pins its mask before the frame)
+    # second array a call wrote or pinned (a graph step: state, rgb, depth,
+    # mask, those that are not on the card; the eager Tracker.step pins its
+    # mask before the frame)
     nth, seen = defaultdict(int), defaultdict(int)
     for s in sorted(drained.spans, key=lambda s: s.start_ns):
         key = (s.call, s.name)
@@ -152,8 +161,9 @@ def split(args) -> dict:
     torch.cuda.synchronize()
     profiling.drain()
     host_s, readback_ms = _loop(step, start(), traffic, calls)
+    handed = sum(a.nbytes for k in range(calls) for a in traffic.frame_set(k)) / calls
     result = {"cell": args.workload, "seed": args.seed,
-              "device": torch.cuda.get_device_name(0),
+              "device": torch.cuda.get_device_name(0), "handed_bytes_per_call": handed,
               **readings(profiling.drain(), calls, host_s, readback_ms)}
     if args.profile:
         result["traced"] = _profiled(step, start(), traffic, calls)

@@ -1721,3 +1721,102 @@ def test_preprocess_span_brackets_kernels_p_and_c_under_the_profiler(cuda, recor
         shift = replays[i][0] - stamps[per_call * i][0]
         assert s - shift <= p[0] + tol and e - shift >= c[1] - tol, (s - shift - p[0],
                                                                      c[1] - e + shift, tol)
+
+
+# -- the graph step's stage-in: persistent pinned host buffers (models/trackdlo.py) --
+
+
+def _staged_step(kind, cuda):
+    """A graph path of the quarter camera: the step, its start state and
+    frames ``k`` → the arrays of call ``k`` (numpy, as callers hand them
+    over; each stream of a batched set at another frame)."""
+    from trackdlo_tpu_torch.models.trackdlo import Tracker, TrackerState
+    from trackdlo_tpu_torch.parallel import build_batched_step_fn
+
+    params = live_params(max_points=512, dlo_pixel_width=10)
+    tracker = Tracker(params, QUARTER, device=cuda)
+    frames = _quarter_frames(8)
+    rope = SyntheticRope()
+    if kind == "single":
+        return tracker.step, tracker.init_from_nodes(rope.nodes(0.0, M)), lambda k: frames[k]
+    if kind == "points":
+        clouds = [np.asarray(rope.nodes(0.03 * k, 400), np.float32) for k in range(8)]
+        return (tracker.step_from_points, tracker.init_from_nodes(rope.nodes(0.0, M)),
+                lambda k: (clouds[k],))
+    step = build_batched_step_fn(params, QUARTER, cohort_size=2, device=cuda)
+    start = TrackerState(*(torch.stack(f) for f in zip(*(
+        tracker.init_from_nodes(rope.nodes(0.01 * b, M)) for b in range(4)))))
+    return step, start, lambda k: tuple(np.stack([frames[(k + b) % 8][i] for b in range(4)])
+                                        for i in range(3))
+
+
+def _on_card(arrays, cuda):
+    """The same arrays as tensors on the card (u16 depth as its int16 bits)."""
+    return tuple(torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a).to(cuda)
+                 for a in arrays)
+
+
+@pytest.mark.parametrize("kind", ["single", "batched"])
+def test_numpy_frames_through_the_staging_buffers_equal_frames_on_the_card(cuda, kind):
+    """A graph step fed numpy frames (written into its pinned host buffers)
+    against the same step fed the same frames as tensors on the card, over
+    4 calls: every state and output bit for bit."""
+    runs = []
+    for on_card in (False, True):
+        step, state, frames = _staged_step(kind, cuda)
+        got = []
+        for k in range(4):
+            f = _on_card(frames(k), cuda) if on_card else frames(k)
+            state, out = step(state, *f)
+            got.append((*state, *out))
+        runs.append(got)
+    for a, b in zip(*runs):
+        for x, y in zip(a, b, strict=True):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["single", "batched"])
+def test_back_to_back_calls_wait_for_the_staging_buffers(cuda, kind):
+    """Calls made back to back with other frames, no host read between them
+    (each call's writes into the host buffers may find the last call's
+    copies out of them not yet run), end where the same calls with a
+    synchronisation after each end: the reuse event holds each write back."""
+    runs = []
+    for sync in (True, False):
+        step, state, frames = _staged_step(kind, cuda)
+        state, _ = step(state, *frames(0))  # capture
+        torch.cuda.synchronize()
+        got = []
+        for k in range(1, 6):
+            state, out = step(state, *frames(k))
+            got.append((*state, *out))
+            if sync:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        runs.append(got)
+    for a, b in zip(*runs):
+        for x, y in zip(a, b, strict=True):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["single", "batched", "points"])
+def test_graph_paths_stage_the_frames_and_pin_nothing(cuda, recorder, kind):
+    """After the warm-up, a graph path pins nothing afresh (``pinned_bytes``
+    0): its ``staged_bytes`` are the bytes of the arrays handed over (a
+    points step: its padded cloud and mask)."""
+    step, state, frames = _staged_step(kind, cuda)
+    state, _ = step(state, *frames(0))  # warm-up and capture
+    torch.cuda.synchronize()
+    recorder.enable()
+    recorder.drain()
+    for k in range(1, 4):
+        state, out = step(state, *frames(k))
+        out.y.cpu()
+    counters = recorder.drain().counters
+    if kind == "points":
+        handed = 3 * 512 * (3 * 4 + 1)  # (max_points, 3) float32 and (max_points,) bool
+    else:
+        handed = sum(a.nbytes for k in range(1, 4) for a in frames(k))
+    assert counters.get("pinned_bytes", 0) == 0
+    assert counters["staged_bytes"] == handed
+    assert counters.get("staging_waits", 0) >= 0  # counted; its value is the host's timing

@@ -18,7 +18,7 @@ from trackdlo_tpu_torch.models import Tracker, TrackerState, build_step_fn
 from trackdlo_tpu_torch.models.cpd import register_gmm
 from trackdlo_tpu_torch.models.gltp import GltpTracker
 from trackdlo_tpu_torch.models.trackdlo import (
-    CompiledStep, StepOutputs, _copy_into, _copy_outputs,
+    CompiledStep, StepOutputs, _copy_into, _copy_outputs, _host_tensor, _stage,
 )
 
 SMALL = CameraIntrinsics(fx=120.0, fy=120.0, cx=80.0, cy=60.0, width=160, height=120)
@@ -81,15 +81,22 @@ def test_build_step_fn_on_the_cpu_is_the_trackers_eager_step():
 
 def test_compiled_step_helpers(monkeypatch):
     """The graph step's input copies check shape and dtype (u16 depth as its
-    int16 bits); its output copies keep the outputs' aliasing (the state's y
-    and the outputs' y stay one tensor, cloned once)."""
-    dst = torch.empty((2, 3), dtype=torch.int16)
-    _copy_into(dst, np.arange(6, dtype=np.uint16).reshape(2, 3) + 65530, "depth")
+    int16 bits; a bool buffer takes a mask of its shape or with one channel
+    axis more), through the host staging buffer (a plain CPU tensor here,
+    pinned on the card); its output copies keep the outputs' aliasing (the
+    state's y and the outputs' y stay one tensor, cloned once)."""
+    dst, staging = torch.empty((2, 3), dtype=torch.int16), torch.empty((2, 3), dtype=torch.int16)
+    _copy_into(dst, np.arange(6, dtype=np.uint16).reshape(2, 3) + 65530, "depth", staging)
     assert dst.view(torch.uint16).tolist() == [[65530, 65531, 65532], [65533, 65534, 65535]]
+    assert torch.equal(staging, dst)
     with pytest.raises(ValueError, match="depth must be"):
-        _copy_into(dst, np.zeros((2, 3), np.int32), "depth")
+        _copy_into(dst, np.zeros((2, 3), np.int32), "depth", staging)
     with pytest.raises(ValueError, match="depth must be"):
-        _copy_into(dst, np.zeros((1, 3), np.uint16), "depth")
+        _copy_into(dst, np.zeros((1, 3), np.uint16), "depth", staging)
+    occ = torch.empty((2, 3), dtype=torch.bool)
+    for bad in (np.ones((3, 2), bool), np.ones((2, 3, 1, 1), bool), np.ones((2,), bool)):
+        with pytest.raises(ValueError, match="occ must be"):
+            _copy_into(occ, bad, "occ", torch.empty((2, 3), dtype=torch.bool))
     y = torch.zeros(3)
     tree = (TrackerState(y, torch.ones(()), torch.arange(3.0)), (y, torch.zeros(2)))
     clones = []
@@ -99,6 +106,57 @@ def test_compiled_step_helpers(monkeypatch):
     assert isinstance(out[0], TrackerState)
     assert out[0].y is out[1][0] and out[0].y is not y
     assert len(clones) == 4
+
+
+def _staging_cases():
+    """Frame arrays as callers hand them over: (name, array, kind), kind
+    "mask" for the occlusion mask, else the static buffer's name."""
+    rng = np.random.default_rng(7)
+    h, w = SMALL.height, SMALL.width
+    keep = rng.random((h, w)) > 0.3
+    wide = rng.integers(0, 256, (h + 8, w + 16, 4), dtype=np.uint8)
+    return [
+        ("bool", keep, "mask"),
+        ("uint8_0_255", keep.astype(np.uint8) * 255, "mask"),
+        ("int32", rng.integers(-2, 3, (h, w), dtype=np.int32), "mask"),
+        ("float32", rng.standard_normal((h, w)).astype(np.float32) * keep, "mask"),
+        ("bool_bytes_0_255", (keep.astype(np.uint8) * 255).view(bool), "mask"),
+        ("channel_axis", rng.integers(0, 2, (h, w, 3), dtype=np.uint8), "mask"),
+        ("channel_axis_bool", rng.random((h, w, 3)) > 0.8, "mask"),
+        ("mask_slice", wide[4:4 + h, 8:8 + w, 1], "mask"),
+        ("mask_reversed", keep[::-1], "mask"),
+        ("mask_cpu_tensor", torch.from_numpy(wide[4:4 + h, 8:8 + w, 2]), "mask"),
+        ("depth_u16", rng.integers(0, 65536, (h, w), dtype=np.uint16), "depth"),
+        ("depth_slice", rng.integers(0, 65536, (h, w + 5), dtype=np.uint16)[:, 5:], "depth"),
+        ("rgb", rng.integers(0, 256, (h, w, 3), dtype=np.uint8), "rgb"),
+        ("rgb_slice", wide[4:4 + h, 8:8 + w, :3], "rgb"),
+        ("rgb_bgr_reversed", wide[:h, :w, 2::-1], "rgb"),
+    ]
+
+
+@pytest.mark.parametrize("case", _staging_cases(), ids=lambda c: c[0])
+def test_staging_write_gives_the_eager_paths_bytes(case):
+    """The graph step's one-pass write into its host staging buffer (a plain
+    CPU tensor here) gives, byte for byte, what the eager path hands the
+    card: the occlusion mask of ``Tracker._occ`` (nonzero keeps a pixel, a
+    trailing channel axis any-reduced, as canonical bools), the frames'
+    ``_host_tensor`` bits (u16 depth as int16), whatever the strides."""
+    _, src, kind = case
+    shapes = {"mask": ((SMALL.height, SMALL.width), torch.bool),
+              "depth": ((SMALL.height, SMALL.width), torch.int16),
+              "rgb": ((SMALL.height, SMALL.width, 3), torch.uint8)}
+    shape, dtype = shapes[kind]
+    buf = torch.empty(shape, dtype=dtype)
+    _stage(buf, src, kind)
+    if kind == "mask":
+        tracker = Tracker(TORCH_PARAMS, SMALL, device="cpu")
+        state = tracker.init_from_nodes(SyntheticRope().nodes(0.0, TORCH_PARAMS.M))
+        rgb, depth = np.zeros((*shape, 3), np.uint8), np.zeros(shape, np.uint16)
+        want = tracker._occ(state, rgb, depth, src)
+        assert torch.equal(buf.view(torch.uint8), want.view(torch.uint8))
+    else:
+        want = _host_tensor(src, torch.device("cpu"))
+        assert want.dtype == buf.dtype and torch.equal(buf, want)
 
 
 def test_gltp_tracker_matches_jax():

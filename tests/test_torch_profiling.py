@@ -1,8 +1,9 @@
 """The port's span recorder (trackdlo_tpu_torch.utils.profiling) on the CPU:
 off records nothing, the eager step's spans (one call id a call, parents,
 self times), the spans as user annotations of a torch.profiler trace, the
-pinned-bytes counter, outputs unchanged by tracing, and the grouping of
-device stamps into replays. The stamps themselves run only on the card
+pinned-bytes and staged-bytes counters, ``perf/step_spans.py``'s pin rate,
+outputs unchanged by tracing, and the grouping of device stamps into
+replays. The stamps themselves run only on the card
 (tests/test_torch_cuda.py)."""
 
 import gc
@@ -173,6 +174,55 @@ def test_batched_eager_step_opens_one_root_a_frame_set(recorder):
     assert drained.spans[-1].name == "step" and drained.spans[-1].parent is None
     assert {s.name for s in drained.spans[:-1]} == STEP_SPANS
     assert drained.counters["pinned_bytes"] == sum(a.nbytes for a in frames)
+
+
+def test_staging_write_counts_staged_bytes_under_step_pin(recorder):
+    """The graph step's write into a host staging buffer (a plain CPU
+    tensor here) is the span ``step.pin`` and counts the buffer's bytes as
+    ``staged_bytes``; it pins nothing afresh."""
+    from trackdlo_tpu_torch.models.trackdlo import _stage
+
+    buf = torch.empty((SMALL.height, SMALL.width), dtype=torch.bool)
+    mask = np.ones((SMALL.height, SMALL.width, 3), np.uint8)
+    recorder.enable()
+    with recorder.root():
+        _stage(buf, mask, "occ")
+    drained = recorder.drain()
+    assert drained.counters == {"staged_bytes": buf.nbytes}
+    assert [(s.name, s.parent) for s in drained.spans] == [("step.pin", "step"), ("step", None)]
+
+
+def _step_spans():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "perf" / "step_spans.py"
+    spec = importlib.util.spec_from_file_location("step_spans", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("counters", [{"pinned_bytes": 6_000_000},
+                                      {"staged_bytes": 6_000_000, "staging_waits": 1},
+                                      {"pinned_bytes": 2_000_000, "staged_bytes": 4_000_000}],
+                         ids=["eager", "graph", "both"])
+def test_step_spans_pin_rate_reads_pinned_and_staged_bytes(counters):
+    """``perf/step_spans.py``'s ``api.pin_gb_per_s``: the bytes through
+    ``step.pin`` (pinned afresh by an eager step, staged by a graph step)
+    over its time; the three counters a call, 0 where never counted."""
+    spans = []
+    for call in (1, 2):
+        t = 10_000_000 * call
+        spans += [profiling.Span("step.pin", t, t + 500_000, "step", call),
+                  profiling.Span("step.replay", t + 600_000, t + 700_000, "step", call),
+                  profiling.Span("step", t, t + 1_000_000, None, call)]
+    drained = profiling.Drained(spans, counters, [], 0, {})
+    got = _step_spans().readings(drained, 2, 0.004, 0.5)
+    assert got["api.pin_gb_per_s"] == pytest.approx(6.0)  # 6 MB in 1 ms
+    want = {k: counters.get(k, 0) / 2 for k in ("pinned_bytes", "staged_bytes", "staging_waits")}
+    assert got["counters_per_call"] == want
+    assert got["api.stage_in_ms"] == pytest.approx(0.5) and got["api.replay_ms"] == pytest.approx(0.1)
 
 
 def test_stamps_group_into_the_replays_of_their_calls():

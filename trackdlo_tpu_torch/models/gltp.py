@@ -77,6 +77,8 @@ class GltpTracker:
             if self._full_occ is None:
                 self._full_occ = torch.ones((h, w), dtype=torch.bool, device=self.device)
             occ = self._full_occ
+        elif isinstance(self._step, CompiledStep):
+            occ = occlusion_mask  # made bool in the graph step's copy
         else:
             occ = host_to_device(occlusion_mask, self.device) != 0
             if occ.ndim == 3:

@@ -239,17 +239,79 @@ def _copy_outputs(tree):
     return _tree_map(copy_once, tree)
 
 
-def _copy_into(dst: torch.Tensor, src, name: str) -> None:
-    """``src`` (a tensor, or a numpy array through pinned memory) into the
-    static buffer ``dst``: same shape and dtype (u16 depth as its int16
-    bits), copied without a host synchronisation."""
-    if not isinstance(src, torch.Tensor):
-        src = _host_tensor(src, dst.device)
-    if src.dtype == torch.uint16 and dst.dtype == torch.int16:
-        src = src.view(torch.int16)
-    if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
-        raise ValueError(f"{name} must be {tuple(dst.shape)} {dst.dtype}, "
-                         f"got {tuple(src.shape)} {src.dtype}")
+def _is_mask(buf: torch.Tensor, shape: tuple) -> bool:
+    """Whether an input of ``shape`` goes into ``buf`` as a mask: ``buf`` is
+    bool (nonzero keeps), and the input has its shape or one trailing
+    channel axis more (any channel nonzero keeps)."""
+    return buf.dtype == torch.bool and shape[:buf.ndim] == tuple(buf.shape) and (
+        len(shape) - buf.ndim in (0, 1))
+
+
+def _shape_error(name: str, buf: torch.Tensor, shape, dtype) -> ValueError:
+    return ValueError(f"{name} must be {tuple(buf.shape)} {buf.dtype}, got {tuple(shape)} {dtype}")
+
+
+def _stage(buf: torch.Tensor, src, name: str) -> None:
+    """Write a host input (a numpy array or a CPU tensor) into the host
+    buffer ``buf`` in one pass, at the strides it comes with: of the same
+    shape and dtype (u16 depth as its int16 bits), or for a bool ``buf`` a
+    mask of any dtype (:func:`_is_mask`), written as canonical bools
+    (0 or 1) without a widened temporary. The span ``step.pin`` times the
+    write; its bytes count as ``staged_bytes``."""
+    arr = src.numpy() if isinstance(src, torch.Tensor) else np.asarray(src)
+    if arr.dtype == np.uint16:
+        arr = arr.view(np.int16)
+    out = buf.numpy()
+    mask = _is_mask(buf, arr.shape)
+    if not mask and (arr.shape != out.shape or arr.dtype != out.dtype):
+        raise _shape_error(name, buf, arr.shape, arr.dtype)
+    if mask and arr.dtype == np.bool_:
+        arr = arr.view(np.uint8)  # a bool's byte may be any nonzero value
+    with profiling.span("step.pin"):
+        profiling.count("staged_bytes", buf.nbytes)
+        if min(arr.strides, default=0) < 0:  # no torch tensor has a negative stride
+            if not mask:
+                np.copyto(out, arr)
+            elif arr.ndim > out.ndim:
+                np.any(arr, axis=-1, out=out)
+            else:
+                np.not_equal(arr, 0, out=out)
+            return
+        t = torch.from_numpy(arr)
+        if not mask:
+            buf.copy_(t)
+            return
+        out_t = buf.view(torch.uint8) if t.dtype == torch.uint8 else buf
+        if t.ndim > buf.ndim:
+            torch.any(t, dim=-1, out=out_t)  # 0 or 1, as uint8 for uint8 input
+        elif t.dtype == torch.uint8:
+            torch.clamp_max(t, 1, out=out_t)  # x != 0 as 0 or 1, vectorised
+        else:
+            torch.ne(t, 0, out=out_t)
+
+
+def _on_card(src) -> bool:
+    return isinstance(src, torch.Tensor) and src.device.type == "cuda"
+
+
+def _copy_into(dst: torch.Tensor, src, name: str, staging: torch.Tensor) -> None:
+    """``src`` into the static buffer ``dst`` without a host
+    synchronisation. A tensor on the card is copied directly (to a bool
+    ``dst``, a mask of another dtype or with a channel axis made bool on the
+    card first); anything else is written into the host buffer ``staging``
+    (:func:`_stage`), then copied from there."""
+    if _on_card(src):
+        if src.dtype == torch.uint16 and dst.dtype == torch.int16:
+            src = src.view(torch.int16)
+        if _is_mask(dst, tuple(src.shape)) and (src.dtype != torch.bool or src.ndim > dst.ndim):
+            src = src != 0
+            if src.ndim > dst.ndim:
+                src = src.any(dim=-1)
+        if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+            raise _shape_error(name, dst, src.shape, src.dtype)
+    else:
+        _stage(staging, src, name)
+        src = staging
     with profiling.span("step.copy_in"):
         dst.copy_(src, non_blocking=True)
 
@@ -297,11 +359,20 @@ class CompiledStep:
     then captures it into one ``torch.cuda.CUDAGraph``; an EM loop inside
     becomes a conditional WHILE node whose trips the card decides
     (:mod:`~trackdlo_tpu_torch.ops.graph_loop`). Each call copies the
-    inputs into the static buffers (numpy arrays through pinned memory, u16
-    depth as its int16 bits) and the state into the static state, replays
-    the graph, and returns copies of the outputs taken out of the graph's
-    memory pool: what one call returns is never overwritten by the next, so
-    streams can interleave their states through one step. The kernel
+    state and the inputs into the static buffers, replays the graph, and
+    returns copies of the outputs taken out of the graph's memory pool: what
+    one call returns is never overwritten by the next, so streams can
+    interleave their states through one step.
+
+    A tensor on the card is copied from where it is. Any other input (a
+    numpy array or a CPU tensor) is written in one pass into a pinned host
+    buffer of the static buffer's shape and dtype, allocated at the capture
+    and held as long as the step (:func:`_stage`: u16 depth as its int16
+    bits; into a bool buffer, a mask of any dtype, nonzero keeping, a
+    trailing channel axis any-reduced), then copied from there. A call may
+    return before its copies have run, so the next call waits for an event
+    recorded after them before it writes a host buffer again (counted as
+    ``staging_waits`` where it had to wait). The kernel
     wrappers count their launches in Python, so once while capturing: that
     count is recorded and added to ``_build``'s counters at each replay;
     the launches of the loops' trips are counted on the card and reach the
@@ -310,8 +381,9 @@ class CompiledStep:
     the TCP server's device lock does).
 
     Each call reports to the span recorder (:mod:`~trackdlo_tpu_torch.utils.profiling`)
-    as host spans ``step`` (the root), ``step.prepare``, ``step.pin``,
-    ``step.copy_in``, ``step.replay`` and ``step.copy_out``. The graph
+    as host spans ``step`` (the root), ``step.pin`` (the writes into the
+    host buffers), ``step.copy_in``, ``step.replay`` and ``step.copy_out``,
+    and the counters ``staged_bytes`` and ``staging_waits``. The graph
     holds device stamps (the ``replay`` span around the whole step and one
     span a layer inside it) only if the recorder is on when the graph is
     captured, at the first call: a graph captured while it is off has no
@@ -325,11 +397,18 @@ class CompiledStep:
         self.loops = None
         self.stamped = False
         self._inputs = None
+        self._staging = None
+        self._staged = None  # recorded after the last call's copies
         self._outputs = None
 
     def _load(self, state, inputs) -> None:
-        for name, src in zip(self._inputs, (*state, *inputs)):
-            _copy_into(self._inputs[name], src, name)
+        srcs = (*state, *inputs)
+        if not all(map(_on_card, srcs)) and not self._staged.query():
+            profiling.count("staging_waits", 1)
+            self._staged.synchronize()
+        for name, src in zip(self._inputs, srcs):
+            _copy_into(self._inputs[name], src, name, self._staging[name])
+        self._staged.record()
 
     def _args(self):
         b = list(self._inputs.values())
@@ -339,6 +418,9 @@ class CompiledStep:
         dev = self.device
         self._inputs = {k: torch.empty(shape, dtype=dt, device=dev)
                         for k, (shape, dt) in self._shapes.items()}
+        self._staging = {k: torch.empty(shape, dtype=dt, pin_memory=True)
+                         for k, (shape, dt) in self._shapes.items()}
+        self._staged = torch.cuda.Event()
         self._load(state, inputs)
         graph_loop.warm(dev)
         loops = graph_loop.GraphLoops(dev)
@@ -477,7 +559,9 @@ class Tracker:
             return self._step(state, rgb, depth, self._occ(state, rgb, depth, occlusion_mask))
 
     def _occ(self, state, rgb, depth, occlusion_mask):
-        """The shapes checked; the occlusion mask on the device as (H, W) bool."""
+        """The shapes checked; the occlusion mask as the step takes it: the
+        graph step as given (:class:`CompiledStep` makes it bool in its
+        copy), the eager step on the device as (H, W) bool."""
         h, w = self.intrinsics.height, self.intrinsics.width
         with profiling.span("step.prepare"):
             rgb_shape, depth_shape = tuple(np.shape(rgb)), tuple(np.shape(depth))
@@ -493,6 +577,8 @@ class Tracker:
                 if self._full_occ is None:
                     self._full_occ = torch.ones((h, w), dtype=torch.bool, device=self.device)
                 return self._full_occ
+        if isinstance(self._step, CompiledStep):
+            return occlusion_mask
         occ = host_to_device(occlusion_mask, self.device)
         with profiling.span("step.prepare"):
             occ = occ != 0

@@ -92,16 +92,6 @@ def make_tracking_mesh(n_devices: int | None = None, model_parallel: int = 1) ->
                         rank % model_parallel, model_group)
 
 
-def _host_occ(occ, dev):
-    """The occlusion masks as (B, H, W) bool (nonzero keeps a pixel; a
-    trailing channel axis is any-reduced), numpy or on ``dev``."""
-    if isinstance(occ, torch.Tensor):
-        occ = occ.to(dev) != 0
-        return occ.any(dim=-1) if occ.ndim == 4 else occ
-    occ = np.asarray(occ) != 0
-    return occ.any(axis=-1) if occ.ndim == 4 else occ
-
-
 def _make_step(params: TrackerParams, intr: CameraIntrinsics, cohort_size, mesh, model_axis,
                device, jit=False):
     dev = resolve_device(device)
@@ -152,8 +142,7 @@ def _make_step(params: TrackerParams, intr: CameraIntrinsics, cohort_size, mesh,
                     if b not in compiled:
                         compiled[b] = CompiledStep(functools.partial(run_cohorts, cs=cs), dev,
                                                    step_shapes(params, intr, b))
-                    occ = _host_occ(occ, dev)
-            if graph:
+            if graph:  # the masks as given: made bool in the graph step's copy
                 return compiled[b](state, rgb, depth, occ)
             rgb_t = host_to_device(rgb, dev)
             depth_t = host_to_device(depth, dev)

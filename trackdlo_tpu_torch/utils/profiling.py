@@ -20,8 +20,12 @@ call. :func:`enable` turns it on:
   among the trace's host events (a user annotation) and names the
   device's idle gaps.
 - **Counters** (:func:`count`): ``pinned_bytes``, the bytes of numpy inputs
-  a step stages for its copy to the device (through pinned memory on the
-  card). The kernels' launch counters stay in ``_build.launch_counts``.
+  an eager step pins afresh for its copy to the device (``_host_tensor``;
+  none on a graph step); ``staged_bytes``, the bytes a graph step
+  (``CompiledStep``) writes into its persistent pinned host buffers;
+  ``staging_waits``, the graph steps' calls whose writes had to wait for the
+  previous call's copies out of those buffers. The kernels' launch counters
+  stay in ``_build.launch_counts``.
 - **Device stamps.** While a CUDA graph is captured with the recorder on,
   each ``with device_span(name, device):`` puts a stamp kernel
   (``csrc/stamp.cu``) before and after the work it encloses: the kernel
