@@ -8,7 +8,7 @@ Run from the repository root on a machine with a CUDA GPU:
 Phases, in order (any failure exits nonzero and prints no result line):
 
 1. toolchain: the card's name and power limit, torch's CUDA version, nvcc;
-2. build: compile the eleven CUDA sources (thirteen kernels and modes) from
+2. build: compile the twelve CUDA sources (fifteen kernels and modes) from
    ``trackdlo_tpu_torch/csrc``, one ``nvcc`` per source, all started
    together;
 3. check: kernels E and S's cluster launches (size, rows per CTA, clusters
@@ -25,7 +25,13 @@ Phases, in order (any failure exits nonzero and prints no result line):
    by phase through a probe build of kernel E (ROADMAP §C fault 1); kernel C
    with explicit kept cells and in its derived mode (the overflow thinning
    and the centroid division in the launch), at the live slots and at 16
-   slots a channel, where the thinning fires; kernel
+   slots a channel, where the thinning fires; the exact route (the step's
+   parity preprocessing) at the evaluation preset's 720p shape on a frame
+   with 2 mm depth noise, 5% dropout and a box over the rope: kernel P's
+   exact build against its plain version (counts bit-equal, sums within
+   2e-6, the same split channel-cells and pixels without depth), kernel X
+   after kernel C against the plain route's cloud (the same voxels, each
+   centroid within 1e-6 m); kernel
    P's one-channel modes (floor votes, no leaf) and kernel F (one EM
    iteration with its one-hot M-step solve): F's route against the plain
    per-iteration route, a live tolerance run through F (its trips the plain
@@ -127,6 +133,16 @@ BOUNDS = {
     "parity_z_mismatch": 0,
     "parity_xy_mismatch": 0,
     "compact_mismatch": 0,
+    # The exact route on the noisy 720p frame: kernel P's exact build
+    # against its plain version (counts, split channel-cells and pixels
+    # without depth exact; sums a few float32 ulps at ~1 m), then the cloud
+    # after kernel X and the snap against the plain route's (kernel X sums a
+    # voxel's pixels in another order).
+    "exact_p_count_mismatch": 0,
+    "exact_p_sums_max": 2e-6,
+    "exact_split_mismatch": 0,
+    "exact_cloud_count_delta": 0,
+    "exact_cloud_max_m": 1e-6,
     "visibility_idx_mismatch": 0,
     "visibility_dist_max_m": 1e-6,
     "visibility_pointmin_max": 1e-6,
@@ -318,17 +334,23 @@ JAX_NAMES = {
     "preprocess_parity_p95_m": "preprocess_parity_vs_xla_p95_m",
 }
 N_STREAMS, COHORT = 16, 8
-EXPECTED_LAUNCHES = {"cell_sums": 30, "compact": 30, "visibility": 30, "walks": 30, "em_loop": 60,
-                     "estep": 0, "estep_batch": 0, "gj_solve": 0, "cell_sums_votes": 0,
-                     "cell_sums_cells": 0, "em_iteration": 0, "nearest": 0, "loop_flag": 0}
+EXPECTED_LAUNCHES = {"cell_sums": 30, "compact": 30, "split_cells": 30, "visibility": 30,
+                     "walks": 30, "em_loop": 60, "estep": 0, "estep_batch": 0, "gj_solve": 0,
+                     "cell_sums_votes": 0, "cell_sums_cells": 0, "em_iteration": 0, "nearest": 0,
+                     "loop_flag": 0}
 # Per frame of the coarse (votes) and cells-only loops: kernel P's mode,
-# V, W, and kernel E twice; neither C nor the parity mode.
+# V, W, and kernel E twice; neither C, X nor the parity mode.
 COARSE_LAUNCHES = {"visibility": 1, "walks": 1, "em_loop": 2, "cell_sums": 0, "compact": 0,
+                   "split_cells": 0,
                    "em_iteration": 0, "estep": 0, "estep_batch": 0, "gj_solve": 0, "nearest": 0,
                    "loop_flag": 0}
 KERNELS = {
     "cell_sums": ("trackdlo_tpu_torch/csrc/cell_sums.cu", "trackdlo_tpu/ops/preprocess_kernel.py:470"),
     "compact": ("trackdlo_tpu_torch/csrc/compact.cu", "trackdlo_tpu/ops/preprocess_kernel.py:617"),
+    # Kernel X replaces no pallas_call: the JAX package merges the voxels
+    # of a split channel-cell (ROADMAP §C fault 6).
+    "split_cells": ("trackdlo_tpu_torch/csrc/split_cells.cu",
+                    "none; the parity split of trackdlo_tpu/ops/preprocess.py, which merges them"),
     "visibility": ("trackdlo_tpu_torch/csrc/visibility.cu", "trackdlo_tpu/ops/visibility_kernel.py:292"),
     "walks": ("trackdlo_tpu_torch/csrc/walks.cu", "trackdlo_tpu/ops/pallas_kernels.py:1685"),
     "em_loop": ("trackdlo_tpu_torch/csrc/em_loop.cu", "trackdlo_tpu/ops/pallas_kernels.py:1441"),
@@ -346,6 +368,7 @@ KERNELS = {
 }
 # Each launch counter's CUDA kernel, by the name a profiler trace shows.
 KERNEL_FUNCS = {"cell_sums": "cell_sums_kernel", "compact": "compact_kernel",
+                "split_cells": "split_cells_kernel",
                 "visibility": "visibility_kernel", "walks": "walks_kernel",
                 "em_loop": "em_loop_kernel", "estep": "estep_kernel", "gj_solve": "gj_solve_kernel",
                 "em_iteration": "em_iter_kernel", "nearest": "nearest_kernel",
@@ -402,6 +425,12 @@ def spd_systems(m: int):
     a = rng.standard_normal((8, m, m)).astype(np.float32)
     a = a @ a.transpose(0, 2, 1) + m * np.eye(m, dtype=np.float32)
     return a, rng.standard_normal((8, m, 3)).astype(np.float32)
+
+
+def launches_only(counts: dict) -> dict:
+    """The launch counters of ``_build``'s counts, without kernel X's work
+    tally (``split_cells.*``: what it regrouped, which the frames decide)."""
+    return {k: v for k, v in counts.items() if "." not in k}
 
 
 def quantile_ratio(got, ref) -> float:
@@ -766,7 +795,7 @@ class Smoke:
         np, torch = self.np, self.torch
         from trackdlo_tpu_torch.ops.preprocess import (
             cell_sums_plain, compact_channels, compact_channels_plain, compact_occupied_channels,
-            compact_occupied_channels_plain, compact_parity_channels, default_cell_px, kept_cells,
+            compact_occupied_channels_plain, compact_sums, default_cell_px, exact_frame, kept_cells,
         )
         from trackdlo_tpu_torch.ops.preprocess_kernel import cell_sums
 
@@ -776,11 +805,18 @@ class Smoke:
         rgb, depth, occ = self.frame(1 / 15.0)
         args = (*self.to_dev(rgb, depth, occ), intr.fx, intr.fy, intr.cx, intr.cy,
                 p.hsv_lower, p.hsv_upper, p.multi_color_dlo, cell, leaf)
-        k_out = cell_sums(*args)
-        p_out = cell_sums_plain(*args)
-        self.kernel_err["cell_sums"] = max(float((a - b).abs().max()) for a, b in zip(k_out, p_out))
-        pcs = [compact_parity_channels(*o, p.max_points, leaf, p.candidate_cap(), inputs_are_sums=True)
-               for o in (k_out, p_out)]
+        # Kernel P in the build the step runs (the exact route).
+        k_out = cell_sums(*args, exact=True)
+        p_out = cell_sums_plain(*args, exact=True)
+        self.kernel_err["cell_sums"] = max(float((a - b).abs().max())
+                                           for a, b in zip(k_out[:4], p_out[:4]))
+        # The live frame has no split channel-cell and no pixel without depth,
+        # so the plain sums' cloud is the one kernel C alone packs.
+        if bool((p_out[4].counts != 0).any()) or bool((k_out[4].counts != 0).any()):
+            self.failures.append("preprocess_live_frame_split")
+        pcs = [compact_sums(k_out, p.max_points, leaf, p.candidate_cap(), True,
+                            exact_frame(args, k_out)),
+               compact_sums(p_out[:4], p.max_points, leaf, p.candidate_cap(), True)]
         kp = pcs[0].points[pcs[0].mask].cpu().numpy()
         pp = pcs[1].points[pcs[1].mask].cpu().numpy()
         log(f"  cell grid {tuple(k_out[3].shape)}, cloud {len(kp)} points (plain {len(pp)})")
@@ -789,6 +825,7 @@ class Smoke:
         self.bound("preprocess_parity_p95_m", float(np.percentile(d, 95)))
         self.cloud = pcs[1]
         self.p_args = args
+        k_out = k_out[:4]
 
         # Kernel C on the same cell sums: the live slots, then 16 slots per
         # channel so that the occupied cells overflow them and the thinning
@@ -830,6 +867,70 @@ class Smoke:
         truth_z = (d_all // 8) & 1
         self.bound("parity_z_mismatch", int(((ch_k & 1) != truth_z)[have].sum() + (~have[1:]).sum()))
         self.bound("parity_xy_mismatch", int(((ch_k >> 1) != (ch_p >> 1))[have].sum()))
+
+    def check_exact_route(self):
+        """The exact route at the evaluation preset's 720p shape on a frame
+        with 2 mm depth noise, 5% dropout and a box over the rope: kernel P's
+        exact build against its plain version (on the CPU), and the cloud
+        after kernels C and X and the snap against the plain route's. Keeps
+        kernel X's inputs and least time for the timing phase."""
+        np, torch = self.np, self.torch
+        from trackdlo_tpu_torch import _build
+        from trackdlo_tpu_torch.config import eval_params
+        from trackdlo_tpu_torch.ops.preprocess import (
+            cell_sums_plain, compact_occupied_channels, compact_sums, default_cell_px, exact_frame,
+            preprocess_frame,
+        )
+        from trackdlo_tpu_torch.ops.preprocess_kernel import cell_sums, strip_grid
+
+        p, intr = eval_params(), self.intr
+        leaf, cap = p.downsample_leaf_size, p.candidate_cap()
+        cell = default_cell_px(leaf, intr.fx)
+        rgb, depth = self.render(self.rope, 0.3, intr, depth_noise_mm=2.0, seed=11, markers=12,
+                                 dropout_frac=0.05)
+        occ = np.ones((intr.height, intr.width), np.uint8)
+        occ[200:520, 300:700] = 0
+        dev_args = (*self.to_dev(rgb, depth, occ), intr.fx, intr.fy, intr.cx, intr.cy,
+                    p.hsv_lower, p.hsv_upper, p.multi_color_dlo, cell, leaf)
+        cpu_args = tuple(a.cpu() if torch.is_tensor(a) else a for a in dev_args)
+        got = cell_sums(*dev_args, exact=True)
+        ref = cell_sums_plain(*cpu_args, exact=True)
+        self.bound("exact_p_count_mismatch", int((got[3].cpu() != ref[3]).sum()))
+        self.bound("exact_p_sums_max", max(float((g.cpu() - r).abs().max())
+                                           for g, r in zip(got[:3], ref[:3])))
+        marked = ref[4].mask != 0
+        split_mismatch = int((got[4].mask.cpu()[marked] != ref[4].mask[marked]).sum()) + int(
+            (got[4].counts.sum(0).cpu() != ref[4].counts.sum(0)).sum())
+        self.bound("exact_split_mismatch", split_mismatch)
+        n_split, n_no_depth = (int(v) for v in ref[4].counts.sum(0))
+        if n_split == 0 or n_no_depth == 0:
+            self.failures.append("exact_frame_without_work")
+        _build.settle_counts()
+        before = dict(_build.launch_counts)
+        pc = compact_sums(got, p.max_points, leaf, cap, True, exact_frame(dev_args, got))
+        torch.cuda.synchronize()
+        after = _build.settle_counts()
+        work = {k.split(".")[1]: after[k] - before[k] for k in _build.SPLIT_WORK}
+        want = preprocess_frame(*cpu_args[:11], p.max_points, leaf, cap, exact=True)
+        g = pc.points[pc.mask].cpu().double()
+        w = want.points[want.mask].double()
+        self.bound("exact_cloud_count_delta", len(g) - len(w))
+        d = torch.cdist(g, w) if len(g) == len(w) else None
+        err = float("inf") if d is None else max(float(d.min(1).values.max()),
+                                                  float(d.min(0).values.max()))
+        self.bound("exact_cloud_max_m", err)
+        self.kernel_err["split_cells"] = err
+        log(f"  exact route: {n_split} split channel-cells, {n_no_depth} masked pixels without "
+            f"depth; cloud {len(g)} voxels (plain {len(w)}); kernel X's work {work}")
+        # Kernel X's least time on this frame, portbench/roofline_exact.py's
+        # count: P's per-block counts read, the split cells' bytes and
+        # pixels, the rows' slots scanned and the groups written.
+        blocks = strip_grid(intr.height, intr.width, cell, "parity")[1]
+        self.bounds_ms["split_cells"] = bound(
+            blocks * 8 + work["cells"] + work["pixels"] * 6 + work["slots"] + work["groups"] * 17,
+            work["pixels"] * OPS_PER_PIXEL)
+        self.x_args = (exact_frame(dev_args, got),
+                       compact_occupied_channels(*got[:4], cap // 8, True))
 
     def check_visibility(self):
         np, torch = self.np, self.torch
@@ -1833,7 +1934,7 @@ class Smoke:
                     "calls": len(ms)}
             key = f"nodes{m}"
             for name in ("graph", "eager"):
-                if self.path_launches[f"{key}_{name}"] != want:
+                if launches_only(self.path_launches[f"{key}_{name}"]) != want:
                     self.failures.append(f"{key}_{name}_launches")
                     log(f"  {key} {name}: launches {self.path_launches[f'{key}_{name}']} != {want}  FAIL")
             self.bound(f"{key}_graph_vs_eager_mismatch", sum(
@@ -1922,7 +2023,7 @@ class Smoke:
 
             self.count_path(f"{key}_{name}", run)
             runs[name] = outs
-            if self.path_launches[f"{key}_{name}"] != want:
+            if launches_only(self.path_launches[f"{key}_{name}"]) != want:
                 self.failures.append(f"{key}_{name}_launches")
                 log(f"  {key} {name}: launches {self.path_launches[f'{key}_{name}']} != {want}  FAIL")
         self.bound(f"{key}_graph_vs_eager_mismatch", sum(
@@ -2364,7 +2465,7 @@ class Smoke:
         got = self.path_launches["batched"]
         n_cohorts = N_STREAMS // COHORT
         want = {k: 0 for k in got}
-        for k in ("cell_sums", "compact", "visibility", "walks"):
+        for k in ("cell_sums", "compact", "split_cells", "visibility", "walks"):
             want[k] = n_cohorts * self.frames
         trips = 0
         for out in outs:
@@ -2774,7 +2875,7 @@ class Smoke:
         log(f"  launches in the sharded run (rank 0): {r0['launches']}")
         trips = int(r0["iterations"].sum() + r0["guide_iterations"].sum())
         want = {k: 0 for k in r0["launches"]}
-        for k in ("cell_sums", "compact", "visibility", "walks"):
+        for k in ("cell_sums", "compact", "split_cells", "visibility", "walks"):
             want[k] = self.frames
         want["estep"] = want["gj_solve"] = trips
         want["nearest"] = int(r0["iterations"].sum())
@@ -2954,7 +3055,8 @@ class Smoke:
             nearest_point_sq_plain, pursuit_walks, pursuit_walks_plain,
         )
         from trackdlo_tpu_torch.ops.preprocess import (
-            cell_sums_plain, compact_occupied_channels, compact_occupied_channels_plain,
+            cell_sums_plain, compact_occupied_channels, compact_occupied_channels_plain, split_groups,
+            split_groups_plain,
         )
         from trackdlo_tpu_torch.ops.preprocess_kernel import cell_sums
         from trackdlo_tpu_torch.ops.visibility import compute_visibility
@@ -3084,13 +3186,21 @@ class Smoke:
         a_l, b_l = self.prereg_system()
         self.g_args = (a_l.expand(COHORT, m, m).contiguous(), b_l.expand(COHORT, m, 3).contiguous())
         self.kernel_bounds()
-        self.time_pair("cell_sums", lambda: cell_sums(*self.p_args), lambda: cell_sums_plain(*self.p_args))
-        self.times["cell_sums"]["cold_l2"] = self.cold_l2(lambda: cell_sums(*self.p_args), "cell_sums")
+        self.time_pair("cell_sums", lambda: cell_sums(*self.p_args, exact=True),
+                       lambda: cell_sums_plain(*self.p_args, exact=True))
+        self.times["cell_sums"]["note"] = "the exact route's build (the step's), live 720p frame"
+        self.times["cell_sums"]["cold_l2"] = self.cold_l2(lambda: cell_sums(*self.p_args, exact=True),
+                                                          "cell_sums")
         log(f"  cell_sums with the L2 flushed before each launch: device "
             f"{ms_or_not(self.times['cell_sums']['cold_l2']['device_ms'])}")
         self.time_pair("compact", lambda: compact_occupied_channels(*self.c_args),
                        lambda: compact_occupied_channels_plain(*self.c_args))
         self.times["compact"]["note"] = "the derived mode: thinning, pack and centroid division"
+        ex, rows = self.x_args
+        self.time_pair("split_cells", lambda: split_groups(ex, *(t.clone() for t in rows)),
+                       lambda: split_groups_plain(ex, *rows))
+        self.times["split_cells"]["note"] = ("the noisy 720p frame of check_exact_route, on fresh "
+                                             "copies of kernel C's rows (X appends in place)")
         self.time_pair("visibility", lambda: fused_visibility(*self.v_args),
                        lambda: compute_visibility(*self.v_args))
         self.time_pair("walks", lambda: pursuit_walks(*self.w_args), lambda: pursuit_walks_plain(*self.w_args))
@@ -3231,6 +3341,7 @@ def main() -> int:
         t0 = time.perf_counter()
         smoke.cluster_launches()
         smoke.check_preprocess()
+        smoke.check_exact_route()
         smoke.check_visibility()
         smoke.check_walks()
         smoke.check_em()

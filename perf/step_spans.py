@@ -30,7 +30,11 @@ Readings, per call of the untraced calls:
   ``step.copy_out``; ``readback_ms``: the host's wait for y and sigma^2;
 - ``<layer>.device_ms``: device ms between the stamps of ``preprocess``,
   ``visibility``, ``em.pre`` + ``em.main`` (``em``) and ``priors``, every
-  cohort summed;
+  cohort summed; ``preprocess.split_cells.device_ms``: kernel X's stamps,
+  inside the preprocessing's;
+- ``device_counters_per_call``: the recorder's device counters a call
+  (``dropout_points``, ``split_cells``, ``occlusion_states.<s>``; those
+  that moved);
 - ``device.replay_idle_pct``: 100 (1 - the replays' device spans over the
   calls' host seconds), a lower bound on the idle share (gaps inside a
   replay count as busy);
@@ -78,6 +82,8 @@ def readings(drained, calls: int, host_s: float, readback_ms: float) -> dict:
            "api.pin_gb_per_s": (counters["pinned_bytes"] + counters["staged_bytes"])
            / host["step.pin"] if host["step.pin"] else None,
            "counters_per_call": {k: v / calls for k, v in counters.items()},
+           "device_counters_per_call": {k: v / calls for k, v in sorted(drained.counters.items())
+                                        if k not in COUNTERS},
            "host_span_ms": {k: v / calls / 1e6 for k, v in sorted(host.items())},
            "stamps_lost": drained.lost, "calibration": drained.calibration}
     out["closure_host"] = (out["api.stage_in_ms"] + out["api.replay_ms"] + out["api.copy_out_ms"]
@@ -101,6 +107,7 @@ def readings(drained, calls: int, host_s: float, readback_ms: float) -> dict:
                 "device.replay_idle_pct": None, "closure_device": None}
     for k, names in LAYERS.items():
         out[f"{k}.device_ms"] = sum(dev[n] for n in names) / calls / 1e6
+    out["preprocess.split_cells.device_ms"] = dev["preprocess.split_cells"] / calls / 1e6
     out["replay_device_ms"] = dev["replay"] / calls / 1e6
     out["device.replay_idle_pct"] = 100.0 * (1.0 - dev["replay"] / 1e9 / host_s)
     out["closure_device"] = sum(dev[n] for names in LAYERS.values() for n in names) / dev["replay"]

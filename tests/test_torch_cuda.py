@@ -1551,6 +1551,8 @@ def recorder():
 
 
 LAYERS = ("preprocess", "visibility", "em.pre", "priors", "em.main")
+# Spans inside a layer's: kernel X's, inside the preprocessing's.
+NESTED = {"preprocess.split_cells": "preprocess"}
 
 
 def _stamped_trackers(recorder, cuda, frames):
@@ -1590,7 +1592,8 @@ def test_graph_captured_with_tracing_off_has_no_stamp_node(cuda, recorder):
         _stamped_trackers(recorder, cuda, frames)
     assert not off._step.stamped and on._step.stamped
     assert counts_off.pop("stamps") == 0 and drained_off.device == []
-    assert counts_on.pop("stamps") == 12 * len(frames)  # the replay's and 5 layers' pairs
+    # the replay's, the 5 layers' and kernel X's pairs
+    assert counts_on.pop("stamps") == 14 * len(frames)
     assert len({s.call for s in drained_on.device}) == len(frames)
     assert counts_off == counts_on
     assert counts_off["em_loop"] == 2 * len(frames) and counts_off["cell_sums"] == len(frames)
@@ -1649,7 +1652,7 @@ def test_stamped_batched_graph_is_bit_equal_and_times_its_loops(cuda, recorder):
     for call in calls:
         spans = [s for s in drained.device if s.call == call]
         assert sorted((s.name, s.cohort) for s in spans) == sorted(
-            [("replay", None)] + [(n, c) for n in LAYERS for c in (0, 1)])
+            [("replay", None)] + [(n, c) for n in LAYERS + tuple(NESTED) for c in (0, 1)])
     em_ms = sum(s.end_ns - s.start_ns for s in drained.device if s.name.startswith("em.")) / 1e6
     trips = counts_on["loop_flag"] - 2 * 2 * len(got_on)  # less one opening launch a loop
     assert trips > 0 and em_ms / len(calls) / trips > 0
@@ -1657,14 +1660,18 @@ def test_stamped_batched_graph_is_bit_equal_and_times_its_loops(cuda, recorder):
 
 def test_stamps_are_ordered_and_the_layers_cover_the_replay(cuda, recorder):
     """Within each replay the layers follow one another in the step's order,
-    inside the replay's span; together they cover 80-100% of it."""
+    inside the replay's span; together they cover 80-100% of it. Kernel X's
+    span lies inside the preprocessing's."""
     frames = _quarter_frames(5)
     (_, _, _, _), (_, _, _, drained) = _stamped_trackers(recorder, cuda, frames)
     calib = next(iter(drained.calibration.values()))
     assert calib["error_ns"] > 0 and calib["timer_step_ns"] > 0
     for call in sorted({s.call for s in drained.device}):
         spans = {s.name: s for s in drained.device if s.call == call}
-        assert sorted(spans) == sorted(("replay",) + LAYERS)
+        assert sorted(spans) == sorted(("replay",) + LAYERS + tuple(NESTED))
+        for inner, outer in NESTED.items():
+            assert spans[outer].start_ns <= spans[inner].start_ns <= spans[inner].end_ns \
+                <= spans[outer].end_ns
         replay, layers = spans["replay"], [spans[n] for n in LAYERS]
         assert replay.start_ns <= layers[0].start_ns
         for a, b in zip(layers, layers[1:]):
@@ -1820,3 +1827,134 @@ def test_graph_paths_stage_the_frames_and_pin_nothing(cuda, recorder, kind):
     assert counters.get("pinned_bytes", 0) == 0
     assert counters["staged_bytes"] == handed
     assert counters.get("staging_waits", 0) >= 0  # counted; its value is the host's timing
+
+
+# The exact route (the step's parity preprocessing): kernel P in exact mode,
+# kernel C and kernel X against their plain versions on the same frames.
+
+EXACT_CASES = {
+    # name: (camera, params, depth noise mm, dropout, streams, box over the rope)
+    "eval_720p_noisy": (LIVE, "eval", 2.0, 0.05, 1, True),
+    "eval_720p_noisy_b2": (LIVE, "eval", 2.0, 0.05, 2, False),
+    "live_quarter_clean": (QUARTER, "live", 0.0, 0.0, 1, False),
+}
+
+
+def _exact_frames(name):
+    from trackdlo_tpu_torch.config import eval_params
+
+    intr, which, noise, dropout, streams, box = EXACT_CASES[name]
+    params = eval_params() if which == "eval" else PARAMS
+    frames = []
+    for b in range(streams):
+        rgb, depth = render_frame(SyntheticRope(), 0.3 + 0.4 * b, intr,
+                                  rope_pixel_radius=9 if intr is LIVE else 3,
+                                  depth_noise_mm=noise, seed=11 + b, markers=12,
+                                  dropout_frac=dropout)
+        occ = np.ones((intr.height, intr.width), bool)
+        if box:
+            occ[200:520, 300:700] = False
+        frames.append((rgb, depth, occ))
+    cell = default_cell_px(params.downsample_leaf_size, intr.fx)
+    stacked = [np.stack(a) if streams > 1 else a[0] for a in zip(*frames)]
+    return intr, params, cell, stacked
+
+
+def _exact_args(intr, params, cell, stacked, dev):
+    rgb, depth, occ = stacked
+    return (torch.from_numpy(rgb).to(dev), torch.from_numpy(depth.view(np.int16)).to(dev),
+            torch.from_numpy(occ).to(dev), intr.fx, intr.fy, intr.cx, intr.cy, params.hsv_lower,
+            params.hsv_upper, params.multi_color_dlo, cell, params.downsample_leaf_size)
+
+
+@pytest.mark.parametrize("name", sorted(EXACT_CASES))
+def test_exact_route_kernels_match_plain(cuda, name):
+    """Kernel P's exact mode: the counts bit-equal, the sums within a few
+    ulps, the same split channel-cells and pixels without depth as the plain
+    version. Kernel X: on the clean frame it leaves kernel C's rows as they
+    are and counts no work; on the noisy ones the cloud after the snap has
+    the plain route's voxels, each centroid within 1e-6 m (X sums a voxel's
+    pixels in another order)."""
+    from trackdlo_tpu_torch.ops.preprocess import (
+        compact_sums,
+        exact_frame,
+        preprocess_frame,
+        split_groups,
+    )
+
+    intr, params, cell, stacked = _exact_frames(name)
+    leaf, cap = params.downsample_leaf_size, params.candidate_cap()
+    args = _exact_args(intr, params, cell, stacked, cuda)
+    cpu_args = _exact_args(intr, params, cell, stacked, "cpu")
+    got = cell_sums(*args, exact=True)
+    torch.cuda.synchronize()
+    ref = cell_sums_plain(*cpu_args, exact=True)
+    assert torch.equal(got[3].cpu(), ref[3]) and float(ref[3].sum()) > 0
+    for g, r in zip(got[:3], ref[:3]):
+        torch.testing.assert_close(g.cpu(), r, rtol=2e-6, atol=2e-6)
+    assert torch.equal(got[4].counts.sum(-2).cpu(), ref[4].counts.sum(-2))
+    marked = ref[4].mask != 0
+    assert torch.equal(got[4].mask.cpu()[marked], ref[4].mask[marked])
+    noisy = EXACT_CASES[name][2] > 0
+    assert bool(marked.any()) == noisy and bool((ref[4].counts[..., 1] > 0).any()) == noisy
+
+    _build.settle_counts()
+    before = _build.launch_counts["split_cells.frames"]
+    rows = compact_occupied_channels(*(t.reshape(-1, t.shape[-1]) for t in got[:4]), cap // 8,
+                                     True)
+    kept = [t.clone() for t in rows]
+    split_groups(exact_frame(args, got), *rows)
+    torch.cuda.synchronize()
+    frames_worked = _build.settle_counts()["split_cells.frames"] - before
+    streams = EXACT_CASES[name][4]
+    if not noisy:
+        assert frames_worked == 0
+        assert all(torch.equal(a, b) for a, b in zip(rows, kept))
+    else:
+        assert frames_worked == streams
+        pc = compact_sums(got, params.max_points, leaf, cap, True, exact_frame(args, got))
+        want = preprocess_frame(*cpu_args[:11], params.max_points, leaf, cap, exact=True)
+        for b in range(streams):
+            pick = (lambda t: t[b]) if streams > 1 else (lambda t: t)  # noqa: E731
+            g = pick(pc.points)[pick(pc.mask)].cpu().double()
+            w = pick(want.points)[pick(want.mask)].double()
+            assert len(g) == len(w) > 500
+            d = torch.cdist(g, w)
+            assert float(d.min(1).values.max()) <= 1e-6 and float(d.min(0).values.max()) <= 1e-6
+
+
+def test_exact_route_graph_step_is_bit_equal_to_eager_and_counts(cuda, recorder):
+    """``Tracker.step`` at the evaluation preset on noisy quarter frames with
+    dropout and a box over the head: the graph (kernel X inside it) bit for
+    bit the eager step; captured with the recorder on, the device counters
+    read the pixels without depth, the split cells and one occlusion state
+    a frame."""
+    from trackdlo_tpu_torch.config import eval_params
+    from trackdlo_tpu_torch.models.trackdlo import StepOutputs, Tracker, build_step_fn
+
+    params = eval_params(max_points=1024)
+    frames = []
+    for i in range(6):
+        rgb, depth = render_frame(SyntheticRope(), i / 30.0, QUARTER, rope_pixel_radius=3,
+                                  depth_noise_mm=2.0, seed=i, markers=12, dropout_frac=0.05)
+        occ = np.ones((QUARTER.height, QUARTER.width), bool)
+        occ[:, : QUARTER.width // 2] = i < 2  # the head half boxed from frame 2
+        frames.append((rgb, depth, occ))
+    recorder.enable()
+    tracker = Tracker(params, QUARTER, device=cuda)
+    eager = build_step_fn(params, QUARTER, jit=False, device=cuda)
+    nodes = SyntheticRope().nodes(-1 / 30.0, params.num_of_nodes)
+    s_graph = s_eager = tracker.init_from_nodes(nodes)
+    s_graph, _ = tracker.step(s_graph, *frames[0])  # warm-up and capture
+    s_eager, _ = eager(s_eager, frames[0][0], frames[0][1], torch.from_numpy(frames[0][2]).to(cuda))
+    torch.cuda.synchronize()
+    recorder.drain()
+    for rgb, depth, occ in frames[1:]:
+        s_graph, o_graph = tracker.step(s_graph, rgb, depth, occ)
+        s_eager, o_eager = eager(s_eager, rgb, depth, torch.from_numpy(occ).to(cuda))
+        for f in StepOutputs._fields:
+            assert torch.equal(getattr(o_graph, f), getattr(o_eager, f)), f
+    counters = recorder.drain().counters
+    assert counters["dropout_points"] > 0 and counters["split_cells"] > 0
+    states = {k: v for k, v in counters.items() if k.startswith("occlusion_states.")}
+    assert sum(states.values()) == len(frames) - 1

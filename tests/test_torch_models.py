@@ -25,6 +25,14 @@ SMALL = CameraIntrinsics(fx=120.0, fy=120.0, cx=80.0, cy=60.0, width=160, height
 SMALL_KW = dict(max_points=256, downsample_cell_px=4, dlo_pixel_width=5)
 PARAMS = live_params(**SMALL_KW)
 TORCH_PARAMS = torch_live_params(**SMALL_KW)
+# The JAX package's parity route merges voxels k and k+2 of one parity
+# where an image cell's pixels span them (ROADMAP §C fault 6); the port's
+# step keeps both. At this camera a 4 px cell spans ~22 mm at the rope,
+# under a 24 mm leaf, so no cell spans two voxels of one parity there and
+# both routes take the same voxels: the leaf of the tests that hold the
+# port's step to the JAX package's.
+JAX_KW = dict(SMALL_KW, downsample_leaf_size=0.024)
+JAX_PARAMS, JAX_TORCH_PARAMS = live_params(**JAX_KW), torch_live_params(**JAX_KW)
 # Per frame from one state: the open-loop step bound of
 # tests/test_torch_tracker.py (two float32 realisations of the same step).
 STEP_TOL_M = 5e-4
@@ -54,9 +62,9 @@ def test_build_step_fn_matches_jax():
     from trackdlo_tpu.models.trackdlo import build_step_fn as jax_build_step_fn
     from trackdlo_tpu.models.trackdlo import init_state as jax_init_state
 
-    jstep = jax_build_step_fn(PARAMS, SMALL, jit=True)
-    tstep = build_step_fn(TORCH_PARAMS, SMALL, jit=True, device="cpu")
-    js = jax_init_state(SyntheticRope().nodes(0.0, PARAMS.M), PARAMS)
+    jstep = jax_build_step_fn(JAX_PARAMS, SMALL, jit=True)
+    tstep = build_step_fn(JAX_TORCH_PARAMS, SMALL, jit=True, device="cpu")
+    js = jax_init_state(SyntheticRope().nodes(0.0, JAX_PARAMS.M), JAX_PARAMS)
     for rgb, depth, occ in _frames(SMALL):
         ts = _to_torch(js)
         js, jo = jstep(js, jnp.asarray(rgb), jnp.asarray(depth), jnp.asarray(occ))
@@ -168,9 +176,9 @@ def test_gltp_tracker_matches_jax():
 
     from trackdlo_tpu.models.gltp import GltpTracker as JaxGltpTracker
 
-    jt = JaxGltpTracker(dataclasses.replace(PARAMS, use_pallas_estep=True), SMALL)
-    tt = GltpTracker(TORCH_PARAMS, SMALL, device="cpu")
-    js = jt.init_from_nodes(SyntheticRope().nodes(0.0, PARAMS.M))
+    jt = JaxGltpTracker(dataclasses.replace(JAX_PARAMS, use_pallas_estep=True), SMALL)
+    tt = GltpTracker(JAX_TORCH_PARAMS, SMALL, device="cpu")
+    js = jt.init_from_nodes(SyntheticRope().nodes(0.0, JAX_PARAMS.M))
     for rgb, depth, occ in _frames(SMALL):
         ts = _to_torch(js)
         js, jres = jt.step(js, rgb, depth, occ)

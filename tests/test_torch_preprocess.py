@@ -250,6 +250,8 @@ def test_card_route_runs_no_op_between_p_and_c(monkeypatch):
     only views of P's outputs and C's output allocations run, no operation
     with device work; C takes the derived mode (no kept flags) with the
     centroid division."""
+    import ctypes
+
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from trackdlo_tpu_torch import _build
@@ -267,6 +269,11 @@ def test_card_route_runs_no_op_between_p_and_c(monkeypatch):
         pass
 
     class Lib:
+        def trackdlo_cell_sums_grid(self, h, w, cell_px, mode, out):
+            grid = (ctypes.c_int * 2).from_address(out)
+            grid[0], grid[1] = 32, -(-(-(-w // cell_px)) // 32) * -(-h // cell_px)
+            return 0
+
         def trackdlo_cell_sums(self, *args):
             launches.append(("P", len(ops), args))
             return 0

@@ -8,6 +8,8 @@ replays. The stamps themselves run only on the card
 
 import gc
 import os
+import statistics
+import time
 
 import numpy as np
 import pytest
@@ -99,13 +101,24 @@ def test_self_time_is_the_duration_less_the_children(recorder, eager):
     assert self_ns[id(root)] < root.end_ns - root.start_ns
 
 
-def _annotation_offsets(recorder) -> list:
+# A span's host bracket (a clock read before entering it, one inside) holds
+# both clock reads an offset compares. Brackets run 5-10 µs at the median
+# on a quiet host; one the scheduler preempted ran 16-26 µs, its offset 5-6
+# µs off the others (measured on the CPU test host). An offset whose bracket
+# passes the window's median by more than PREEMPTED_US is left out.
+PREEMPTED_US = 10.0
+MIN_OFFSETS = 90
+
+
+def _annotation_offsets(recorder) -> tuple[list, list]:
     """100 spans under a CPU torch.profiler: each one's start on the
-    recorder's clock less its user annotation's on the trace's (µs)."""
+    recorder's clock less its user annotation's on the trace's (µs), and
+    each one's host bracket (µs)."""
     from torch.profiler import ProfilerActivity, profile
 
     gc.collect()
     gc.disable()  # a collection inside a span would delay one clock read
+    brackets = []
     try:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             for i in range(3):  # the first annotations of a profile pay its set-up
@@ -113,31 +126,38 @@ def _annotation_offsets(recorder) -> list:
                     pass
             os.sched_yield()
             for i in range(100):
+                t0 = time.perf_counter_ns()
                 with recorder.span(f"span{i}"):
-                    pass
+                    t1 = time.perf_counter_ns()
+                brackets.append((t1 - t0) / 1e3)
     finally:
         gc.enable()
     spans = {s.name: s for s in recorder.drain().spans}
     events = {e.name: e for e in prof.events() if e.name.startswith("span")}
     assert len(events) == 100
     assert all(e.is_user_annotation for e in events.values())
-    return [spans[k].start_ns / 1e3 - e.time_range.start for k, e in events.items()]
+    offsets = [spans[f"span{i}"].start_ns / 1e3 - events[f"span{i}"].time_range.start
+               for i in range(100)]
+    return offsets, brackets
 
 
 def test_spans_are_user_annotations_on_one_offset(recorder):
-    """One constant offset between the two clocks: the spread of the 100
+    """One constant offset between the two clocks: the spread of the
     offsets is at most 20 µs. The host's scheduler can preempt the process
     between the trace's clock read and the recorder's (tens of µs on a
-    loaded machine), so a window it spoiled is measured again, at most
-    twice."""
+    loaded machine); such a span's own host bracket shows it
+    (:data:`PREEMPTED_US`), and its offset is left out. At least
+    :data:`MIN_OFFSETS` of 100 must remain; a window with fewer is measured
+    again, at most twice."""
     recorder.enable()
-    spreads = []
     for _ in range(3):
-        offsets = _annotation_offsets(recorder)
-        spreads.append(max(offsets) - min(offsets))
-        if spreads[-1] <= 20.0:
+        offsets, brackets = _annotation_offsets(recorder)
+        cut = statistics.median(brackets) + PREEMPTED_US
+        kept = [o for o, b in zip(offsets, brackets) if b <= cut]
+        if len(kept) >= MIN_OFFSETS:
             break
-    assert min(spreads) <= 20.0, spreads
+    assert len(kept) >= MIN_OFFSETS, (len(kept), sorted(brackets)[-10:])
+    assert max(kept) - min(kept) <= 20.0, (max(kept) - min(kept), len(kept))
 
 
 def test_pinned_bytes_count_the_frames_handed_over(recorder, eager):

@@ -17,6 +17,14 @@ SMALL = CameraIntrinsics(fx=120.0, fy=120.0, cx=80.0, cy=60.0, width=160, height
 # tests/test_torch_tracker.py's small-camera profile and per-step bound: the
 # painter's line scaled to the small camera, so some nodes stay visible.
 SMALL_PARAMS = live_params(max_points=256, downsample_cell_px=4, dlo_pixel_width=5)
+# The JAX package's parity route merges voxels k and k+2 of one parity
+# where an image cell's pixels span them (ROADMAP §C fault 6); the port's
+# step keeps both. At this camera a 4 px cell spans ~22 mm at the rope,
+# under a 24 mm leaf, so no cell spans two voxels of one parity there and
+# both routes take the same voxels: the leaf of the tests that hold the
+# port's step to the JAX package's.
+JAX_PARAMS = live_params(max_points=256, downsample_cell_px=4, dlo_pixel_width=5,
+                         downsample_leaf_size=0.024)
 STEP_TOL_M = 5e-4
 
 
@@ -114,7 +122,7 @@ def test_port_node_publishes_what_the_jax_node_publishes(ros, occluded):
     from trackdlo_tpu.io.ros_adapter import RosTrackerNode as JaxNode
     from trackdlo_tpu_torch.io.ros_adapter import RosTrackerNode
 
-    params = SMALL_PARAMS
+    params = JAX_PARAMS
     occ = None
     if occluded:
         occ = np.full((SMALL.height, SMALL.width), 255, np.uint8)

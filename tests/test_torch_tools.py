@@ -214,10 +214,18 @@ def test_camera_preset_copy_and_the_d435_regime_step(tmp_path):
 def test_pseudo_depth_copy_and_its_step():
     """A pseudo-real D435 depth frame (tilted desk, rope bump, mixed pixels,
     shadows, speckle) from the port's copy, equal to the JAX package's for
-    the same seed, stepped by both trackers at the quarter camera."""
+    the same seed, stepped at the quarter camera by the port's tracker and
+    the float64 oracle. Its shadows leave masked pixels without depth, which
+    the JAX package drops (ROADMAP §C fault 7) and the reference keeps at
+    the origin, so the step is held to the oracle; at a candidate capacity
+    that thins nothing, as the oracle thins nothing."""
+    import dataclasses
+
     import trackdlo_tpu.io.pseudo_depth as jpd
     import trackdlo_tpu_torch.io.pseudo_depth as tpd
     from trackdlo_tpu.oracle.preprocess import segment_dlo
+    from trackdlo_tpu_torch.models.trackdlo import Tracker
+    from trackdlo_tpu_torch.oracle.pipeline import init_state, step_frame
 
     params = QUARTER_PARAMS
     rgb, _ = render_frame(SyntheticRope(), 1 / 15.0, QUARTER)
@@ -225,4 +233,11 @@ def test_pseudo_depth_copy_and_its_step():
     depth = tpd.pseudo_depth_from_photo(rgb, mask, seed=3)
     assert depth.dtype == np.uint16
     assert np.array_equal(depth, jpd.pseudo_depth_from_photo(rgb, mask, seed=3))
-    assert _step_pair(params, QUARTER, rgb, depth) <= STEP_TOL_M
+    assert ((depth == 0) & mask).any()
+    params = dataclasses.replace(params, max_points=2048, parity_candidate_cap=16384)
+    nodes = SyntheticRope().nodes(0.0, params.M)
+    tracker = Tracker(params, QUARTER, device="cpu")
+    state, out = tracker.step(tracker.init_from_nodes(nodes), rgb, depth)
+    o_state, _, aux = step_frame(init_state(nodes, params), rgb, depth, params, QUARTER)
+    assert int(out.n_points) == len(aux["points"]) > 0
+    assert np.abs(state.y.numpy() - o_state.y).max() <= STEP_TOL_M

@@ -71,8 +71,24 @@ SIGNATURES = {
         _F, _F, _F, _F, _I,  # kx ky k_zq kz z_from_mm
         _I,  # mode: 0 parity, 1 one channel, 2 one channel with the floor votes
         _P,  # out
+        _I, _P, _P, _P,  # exact route; split_mask, split_count, tally (null or two u64)
         _P,
     ],
+    "trackdlo_cell_sums_grid": [_I, _I, _I, _I, _P],  # h, w, cell_px, mode; out (tile, blocks)
+    # Kernel X, the exact route's split channel-cells (csrc/split_cells.cu).
+    "trackdlo_split_cells": [
+        _P, _P, _P,  # rgb, depth, occ
+        _I, _I, _I, _I,  # n_streams, h, w, cell_px
+        _P, _I,  # hsv bands, n_bands
+        _F, _F, _F, _F,  # fx fy cx cy
+        _F, _F, _F, _F, _I,  # kx ky k_zq kz z_from_mm
+        _I, _P, _P,  # kernel P's tile_cells, split_mask, split_count
+        _P, _P, _P,  # kernel C's pts, cnt, valid (updated in place)
+        _I, _I,  # cap_per, list_cap
+        _P, _P,  # scratch_i, scratch_f
+        _P,
+    ],
+    "trackdlo_split_cells_work": [_P, _I, _P],  # out (six u64), reset, stream
     "trackdlo_compact": [
         _P, _P, _P, _P, _P,  # xs, ys, zs, counts, kept (null: derived from the counts)
         _I, _I, _I, _I,  # n_channels, n_per, cap_per, divide
@@ -190,14 +206,20 @@ launch_counts = {
     "cell_sums": 0, "compact": 0, "visibility": 0, "walks": 0, "em_loop": 0,
     "estep": 0, "estep_batch": 0, "gj_solve": 0,
     "cell_sums_votes": 0, "cell_sums_cells": 0, "em_iteration": 0, "nearest": 0,
-    "loop_flag": 0,
+    "loop_flag": 0, "split_cells": 0,
 }
+# Kernel X's work, from its device tally (ops/preprocess_kernel._SplitWork):
+# stream-frames it regrouped, split cells, their pixels, split channel-cells,
+# groups written, row slots scanned.
+SPLIT_WORK = tuple(f"split_cells.{k}"
+                   for k in ("frames", "cells", "pixels", "entries", "groups", "slots"))
+launch_counts.update(dict.fromkeys(SPLIT_WORK, 0))
 
 
-# Launches that only the card can count: the trips of an EM loop inside a
-# CUDA graph (ops/graph_loop.py). Each counter has a ``settle()`` that reads
-# its device tally (a host synchronisation), zeroes it and returns the
-# launches since its last call.
+# Counts that only the card can make: the trips of an EM loop inside a
+# CUDA graph (ops/graph_loop.py), kernel X's work (ops/preprocess_kernel.py).
+# Each counter has a ``settle()`` that reads its device tally (a host
+# synchronisation), zeroes it and returns the counts since its last call.
 _device_counters: weakref.WeakSet = weakref.WeakSet()
 
 

@@ -28,7 +28,12 @@ from trackdlo_tpu_torch.ops import graph_loop
 from trackdlo_tpu_torch.ops.collectives import shard_slice
 from trackdlo_tpu_torch.ops.cpd_lle import CpdParams, cpd_lle, cpd_lle_batched
 from trackdlo_tpu_torch.ops.kernels import geodesic_coords
-from trackdlo_tpu_torch.ops.preprocess import PointCloud, compact_sums, default_cell_px
+from trackdlo_tpu_torch.ops.preprocess import (
+    PointCloud,
+    compact_sums,
+    default_cell_px,
+    exact_frame,
+)
 from trackdlo_tpu_torch.ops.preprocess_kernel import cell_sums
 from trackdlo_tpu_torch.ops.priors import correspondence_priors
 from trackdlo_tpu_torch.ops.visibility_kernel import fused_visibility
@@ -97,8 +102,10 @@ def preprocess_for_step(rgb, depth, occlusion_mask, *, params: TrackerParams,
     """Kernel P's raw cell sums, then the compaction, in the JAX package's
     three branches:
 
-    - parity split (the default profile): kernel C's channel compaction,
-      divide-after-pack and the channel-batched voxel snap;
+    - parity split (the default profile), on its exact route: kernel C's
+      channel compaction, divide-after-pack, kernel X's voxels of the split
+      channel-cells (exits at once on a frame without any) and the
+      channel-batched voxel snap;
     - coarse two-stage (``parity_split=False``): one channel with the floor
       votes, the sort compaction and the vote-keyed snap;
     - cells only (``exact_voxels=False``): one channel, the sort compaction
@@ -109,12 +116,12 @@ def preprocess_for_step(rgb, depth, occlusion_mask, *, params: TrackerParams,
     voxel_leaf = params.downsample_leaf_size if params.exact_voxels else None
     parity = params.parity_split and voxel_leaf is not None
     with profiling.device_span("preprocess", rgb.device):
-        sums = cell_sums(
-            rgb, depth, occlusion_mask, intr.fx, intr.fy, intr.cx, intr.cy,
-            params.hsv_lower, params.hsv_upper, params.multi_color_dlo, cell_px, voxel_leaf,
-            parity_split=parity, with_votes=not parity and voxel_leaf is not None,
-        )
-        return compact_sums(sums, params.max_points, voxel_leaf, params.candidate_cap(), parity)
+        args = (rgb, depth, occlusion_mask, intr.fx, intr.fy, intr.cx, intr.cy,
+                params.hsv_lower, params.hsv_upper, params.multi_color_dlo, cell_px, voxel_leaf)
+        sums = cell_sums(*args, parity_split=parity,
+                         with_votes=not parity and voxel_leaf is not None, exact=parity)
+        return compact_sums(sums, params.max_points, voxel_leaf, params.candidate_cap(), parity,
+                            exact_frame(args, sums) if parity else None)
 
 
 def _track_from_points(state: TrackerState, pc: PointCloud, proj: torch.Tensor, *,
@@ -163,6 +170,7 @@ def _track_from_points(state: TrackerState, pc: PointCloud, proj: torch.Tensor, 
             state.y, state.geodesic_coord, guide_nodes, vis.vis_ext_idx,
             vis.vis_ext_count, vis.vis_idx, vis.vis_count,
         )
+    profiling.count_occlusion_states(priors.state)
     with profiling.device_span("em.main", dev):
         main = em(
             em_points, em_mask, state.y, torch.ones((*lead, m), dtype=torch.bool, device=dev),

@@ -27,6 +27,21 @@ parity pooling:
 Under a stream batch (the batched step) the cell sums carry a leading stream
 axis, the B·8 channel rows compact in one launch of kernel C and snap
 together (every step is row-local), and the cap thins each stream alone.
+
+The parity split keeps PCL's VoxelGrid only while each channel's pixels in
+an image cell share one voxel. Depth noise (a millimetre or more at a 5 mm
+leaf) or a cell wider than the leaf puts voxels k and k+2 of one parity in
+one cell, and the JAX package's route merges them. The exact route
+(``exact=True``, the step's) repairs that and keeps masked zero-depth
+pixels as points at the origin, as the reference does: kernel P leaves a
+split channel-cell's sums at zero and marks it (:class:`SplitCells`), and
+counts the masked pixels without depth; after kernel C, kernel X
+(csrc/split_cells.cu; :func:`split_groups`, plain version
+:func:`split_groups_plain`) sums each marked channel-cell's pixels voxel by
+voxel and appends those groups, and one candidate at the origin weighing
+the pixels without depth, to their channels' candidates, which the snap
+merges like any other. On a frame with neither, X reads kernel P's block
+counts and exits.
 """
 
 from __future__ import annotations
@@ -37,6 +52,7 @@ import numpy as np
 import torch
 
 from trackdlo_tpu_torch import _build
+from trackdlo_tpu_torch.utils import profiling
 
 _CNT_BITS = 14
 _INT32_MAX = 2**31 - 1
@@ -52,6 +68,36 @@ class PointCloud(NamedTuple):
     points: torch.Tensor  # (N_cap, 3)
     mask: torch.Tensor  # (N_cap,)
     count: torch.Tensor  # ()
+
+
+class SplitCells(NamedTuple):
+    """Kernel P's exact-route outputs beside the parity sums: ``mask``
+    (..., n_cells) uint8, bit c set where channel c's pixels in the cell
+    span more than one voxel (its sums are left at zero); ``counts``
+    (..., n_blocks, 2) int32, each block of kernel P's split channel-cells
+    and masked pixels without depth (the plain version is one block)."""
+
+    mask: torch.Tensor
+    counts: torch.Tensor
+
+
+class ExactFrame(NamedTuple):
+    """What kernel X reads again of a frame: the frame(s) as kernel P
+    took them, P's :class:`SplitCells` and P's constants."""
+
+    rgb: torch.Tensor
+    depth: torch.Tensor
+    occlusion_mask: torch.Tensor
+    split: SplitCells
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    hsv_lower: tuple
+    hsv_upper: tuple
+    multi_color_dlo: bool
+    cell_px: int
+    voxel_leaf: float
 
 
 def exact_leaf_mm(voxel_leaf: float) -> int | None:
@@ -178,7 +224,7 @@ def cell_sums_mode(parity_split: bool, voxel_leaf, with_votes: bool) -> str:
 
 def cell_sums_plain(rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower,
                     hsv_upper, multi_color_dlo, cell_px, voxel_leaf,
-                    parity_split: bool = True, with_votes: bool = False):
+                    parity_split: bool = True, with_votes: bool = False, exact: bool = False):
     """Kernel P's plain version, the pooling of the JAX ``preprocess_frame``.
 
     Parity mode: raw (Σx, Σy, Σz, count) per (parity channel, image cell),
@@ -187,18 +233,29 @@ def cell_sums_plain(rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower,
     cell, four (n_rows·n_cols,) tensors, and with ``with_votes`` three more,
     the sums of the per-pixel voxel floors (Σfkx, Σfky, Σfkz): integers, so
     exact in any order. Frames with a leading stream axis (B, H, W) give a
-    leading B on every output, one stream at a time."""
+    leading B on every output, one stream at a time.
+
+    ``exact`` (parity mode; the step's route): a channel-cell whose pixels
+    span more than one voxel keeps zero sums, and a fifth output,
+    :class:`SplitCells`, marks it and counts the masked pixels with no
+    depth (the reference's points at the origin) for :func:`split_groups`."""
     mode = cell_sums_mode(parity_split, voxel_leaf, with_votes)
+    exact = exact and mode == "parity"
     if depth.ndim == 3:
         per = [cell_sums_plain(rgb[i], depth[i], occlusion_mask[i], fx, fy, cx, cy, hsv_lower,
                                hsv_upper, multi_color_dlo, cell_px, voxel_leaf, parity_split,
-                               with_votes)
+                               with_votes, exact)
                for i in range(depth.shape[0])]
-        return tuple(torch.stack(q) for q in zip(*per))
+        out = tuple(torch.stack(q) for q in zip(*(p[:4] if exact else p for p in per)))
+        if exact:
+            out += (SplitCells(*(torch.stack(q) for q in zip(*(p[4] for p in per)))),)
+        return out
     h, w = depth.shape
     dev = depth.device
     dmm = depth_mm_f32(depth)
-    mask = segment_mask(rgb, hsv_lower, hsv_upper, multi_color_dlo) & occlusion_mask & (dmm > 0)
+    mask = segment_mask(rgb, hsv_lower, hsv_upper, multi_color_dlo) & occlusion_mask
+    no_depth = (mask & (dmm == 0)).sum() if exact else None
+    mask = mask & (dmm > 0)
     z = dmm / 1000.0
     us = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
     vs = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
@@ -226,7 +283,123 @@ def cell_sums_plain(rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower,
         out[1, c] = pool(py * wgt)
         out[2, c] = pool(z * wgt)
         out[3, c] = pool(wgt)
-    return out[0], out[1], out[2], out[3]
+    if not exact:
+        return out[0], out[1], out[2], out[3]
+    split = _split_channel_cells(mask, ch, voxel_floor_keys(us, vs, dmm, fx, fy, cx, cy, voxel_leaf),
+                                 cell_px, n_cols, n_rows * n_cols)
+    out = torch.where(split, 0.0, out)
+    bits = (split.to(torch.int32) << torch.arange(8, dtype=torch.int32, device=dev)[:, None]).sum(0)
+    counts = torch.stack([split.sum(), no_depth]).to(torch.int32).reshape(1, 2)
+    return out[0], out[1], out[2], out[3], SplitCells(bits.to(torch.uint8), counts)
+
+
+def _cell_index(h: int, w: int, cell_px: int, n_cols: int, device) -> torch.Tensor:
+    """Each pixel's image cell in raster order, (h, w) int64."""
+    rows = torch.arange(h, device=device)[:, None] // cell_px
+    return rows * n_cols + torch.arange(w, device=device)[None, :] // cell_px
+
+
+def _split_channel_cells(mask, ch, keys, cell_px, n_cols, n_cells) -> torch.Tensor:
+    """(8, n_cells) bool: the (parity channel, cell) pairs whose masked
+    pixels carry more than one voxel index, from each axis' least and
+    greatest floor over them."""
+    h, w = mask.shape
+    slot = (ch.to(torch.int64) * n_cells + _cell_index(h, w, cell_px, n_cols, mask.device))[mask]
+    split = torch.zeros(8 * n_cells, dtype=torch.bool, device=mask.device)
+    for k in keys:
+        k = k.to(torch.int32).expand(h, w)[mask]
+        lo = torch.zeros_like(split, dtype=torch.int32).scatter_reduce(0, slot, k, "amin",
+                                                                       include_self=False)
+        hi = torch.zeros_like(split, dtype=torch.int32).scatter_reduce(0, slot, k, "amax",
+                                                                       include_self=False)
+        split |= lo != hi
+    return split.reshape(8, n_cells)
+
+
+def split_groups_plain(frame: ExactFrame, pts, cnt, valid):
+    """Kernel X's plain version: the masked pixels of each split
+    channel-cell of ``frame.split`` summed voxel by voxel, each voxel's
+    centroid and count appended to its channel's row of kernel C's output
+    (``pts`` (B·8, cap_per, 3), ``cnt`` and ``valid`` (B·8, cap_per)) after
+    the row's packed cells: a channel's groups in ascending cell order, a
+    cell's in ascending voxel (x, then y, then z). After channel 0's groups,
+    one candidate at the origin whose count is the masked pixels without
+    depth, where there are any. Groups past a row's ``cap_per`` slots are
+    dropped. Returns new tensors; reads nothing on the host (the selections
+    are index tensors)."""
+    rgb, depth, occ = frame.rgb, frame.depth, frame.occlusion_mask
+    if depth.ndim == 2:
+        rgb, depth, occ = rgb[None], depth[None], occ[None]
+    n_streams = depth.shape[0]
+    cap_per = pts.shape[-2]
+    n_cols = -(-depth.shape[-1] // frame.cell_px)
+    bits = frame.split.mask.reshape(n_streams, -1)
+    pts, cnt, valid = (a.reshape(n_streams, 8 * cap_per, *a.shape[2:]) for a in (pts, cnt, valid))
+    out = [_split_groups_stream(rgb[b], depth[b], occ[b], bits[b], frame, n_cols, pts[b], cnt[b],
+                                valid[b]) for b in range(n_streams)]
+    return tuple(torch.stack(q).reshape(n_streams * 8, cap_per, *q[0].shape[1:])
+                 for q in zip(*out))
+
+
+def split_groups(frame: ExactFrame, pts, cnt, valid):
+    """Kernel X (csrc/split_cells.cu; ``ops.preprocess_kernel.split_cells``)
+    on kernel C's rows in place for CUDA tensors; for CPU tensors its plain
+    version, :func:`split_groups_plain`."""
+    if pts.device.type == "cpu":
+        return split_groups_plain(frame, pts, cnt, valid)
+    from trackdlo_tpu_torch.ops.preprocess_kernel import split_cells
+
+    return split_cells(frame, pts, cnt, valid)
+
+
+def _split_groups_stream(rgb, depth, occ, bits, frame: ExactFrame, n_cols, pts, cnt, valid):
+    """:func:`split_groups_plain` for one stream: rows (8·cap_per, ...)."""
+    dev = depth.device
+    cap_per = pts.shape[0] // 8
+    dmm = depth_mm_f32(depth)
+    mask = segment_mask(rgb, frame.hsv_lower, frame.hsv_upper, frame.multi_color_dlo) & occ
+    no_depth = (mask & (dmm == 0)).sum()
+    vi, ui = torch.nonzero(mask & (dmm > 0), as_tuple=True)  # raster order
+    d = dmm[vi, ui]
+    us, vs = ui.to(torch.float32), vi.to(torch.float32)
+    keys = [k.to(torch.int32) for k in voxel_floor_keys(us, vs, d, frame.fx, frame.fy, frame.cx,
+                                                        frame.cy, frame.voxel_leaf)]
+    ch = (keys[0] & 1) * 4 + (keys[1] & 1) * 2 + (keys[2] & 1)
+    cell = (vi // frame.cell_px) * n_cols + ui // frame.cell_px
+    sel = ((bits[cell].to(torch.int32) >> ch) & 1) == 1
+    z = d[sel] / 1000.0
+    vals = torch.stack([(us[sel] - frame.cx) * z / frame.fx, (vs[sel] - frame.cy) * z / frame.fy,
+                        z, torch.ones_like(z)], dim=-1)
+    fields = torch.stack([ch, cell.to(torch.int32), *keys], dim=-1)[sel]
+    # Ordered by (channel, cell, kx, ky, kz), in raster order within a
+    # voxel: stable sorts, least significant first.
+    order = torch.arange(len(fields), device=dev)
+    for col in (4, 3, 2, 1, 0):
+        order = order[torch.sort(fields[order, col], stable=True).indices]
+    fields, vals = fields[order], vals[order]
+    new = torch.ones(len(fields), dtype=torch.bool, device=dev)
+    new[1:] = (fields[1:] != fields[:-1]).any(-1)
+    gid = torch.cumsum(new.to(torch.int64), 0) - 1
+    first = torch.nonzero(new).reshape(-1)
+    sums = torch.zeros((len(first) + 1, 4), dtype=torch.float32, device=dev).index_add_(0, gid, vals)
+    g_ch = torch.cat([fields[first, 0].to(torch.int64), torch.zeros(1, dtype=torch.int64,
+                                                                     device=dev)])
+    per_ch = torch.zeros(8, dtype=torch.int64, device=dev).index_add_(
+        0, g_ch[:-1], torch.ones_like(g_ch[:-1]))
+    rank = torch.arange(len(g_ch), device=dev) - (torch.cumsum(per_ch, 0) - per_ch)[g_ch]
+    slot = valid.reshape(8, cap_per).sum(-1)[g_ch] + rank
+    # The origin's candidate rides in the last group, after channel 0's.
+    slot[-1] = valid[:cap_per].sum() + per_ch[0]
+    sums[-1, 3] = no_depth.to(torch.float32)
+    ok = (sums[:, 3] > 0) & (slot < cap_per)
+    dest = torch.where(ok, g_ch * cap_per + slot, 8 * cap_per)
+    centroid = sums[:, :3] / torch.clamp_min(sums[:, 3:], 1.0)
+    spare = lambda a, v: torch.cat([a, torch.full((1, *a.shape[1:]), v, dtype=a.dtype,  # noqa: E731
+                                                  device=dev)])
+    pts = spare(pts, 0.0).index_put_((dest,), centroid)[:-1]
+    cnt = spare(cnt, 0.0).index_put_((dest,), sums[:, 3])[:-1]
+    valid = spare(valid, False).index_put_((dest,), ok)[:-1]
+    return pts, cnt, valid
 
 
 def kept_cells(counts, cap_per):
@@ -474,11 +647,15 @@ def compact_cells(xs, ys, zs, counts, max_points, voxel_leaf, candidate_cap=4096
 
 
 def compact_parity_channels(xs, ys, zs, counts, max_points, voxel_leaf,
-                            candidate_cap, inputs_are_sums: bool = False) -> PointCloud:
+                            candidate_cap, inputs_are_sums: bool = False,
+                            exact: ExactFrame | None = None) -> PointCloud:
     """Parity-channel compaction from (n_channels, n_per) cell arrays (raw
     sums when ``inputs_are_sums``), then the channel-batched voxel snap.
     Arrays with a leading stream axis (B, n_channels, n_per) give a batched
-    cloud: points (B, max_points, 3), mask (B, max_points), count (B,)."""
+    cloud: points (B, max_points, 3), mask (B, max_points), count (B,).
+    ``exact``: the sums are kernel P's exact route's, and the split
+    channel-cells' voxels join their rows before the snap
+    (:func:`split_groups`)."""
     lead = counts.shape[:-2]
     n_channels, n_per = counts.shape[-2:]
     rows = lambda a: a.reshape(-1, n_per)
@@ -488,6 +665,9 @@ def compact_parity_channels(xs, ys, zs, counts, max_points, voxel_leaf,
     cap = candidate_cap if voxel_leaf is not None else max_points
     cap_per = cap // n_channels
     pts_ch, cnt_s, valid_ch = compact_occupied_channels(xs, ys, zs, counts, cap_per, inputs_are_sums)
+    if exact is not None:
+        with profiling.device_span("preprocess.split_cells", dev):
+            pts_ch, cnt_s, valid_ch = split_groups(exact, pts_ch, cnt_s, valid_ch)
     if voxel_leaf is not None:
         w_ch = torch.where(valid_ch, cnt_s, 0.0)
         parities = None
@@ -517,30 +697,40 @@ def default_cell_px(leaf_size: float, fx: float, z_ref: float = 0.65) -> int:
 def preprocess_frame(rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower,
                      hsv_upper, multi_color_dlo, cell_px, max_points,
                      voxel_leaf=None, candidate_cap=4096,
-                     parity_split=True) -> PointCloud:
+                     parity_split=True, exact: bool = False) -> PointCloud:
     """The plain preprocessing: kernel P's plain version, then the shared
     compaction. Three paths, as in the JAX package: the parity split with a
     voxel leaf; one channel with the floor votes and the snap (the coarse
     two-stage path, ``parity_split=False``); one channel of cell centroids
-    (``voxel_leaf=None``)."""
+    (``voxel_leaf=None``). ``exact``: the parity split's exact route (the
+    step's), PCL's VoxelGrid of the masked cloud at any depth noise, with
+    masked pixels without depth at the origin."""
     assert cell_px * cell_px <= (1 << _CNT_BITS) - 1, "cell counts overflow the packed key"
     parity = parity_split and voxel_leaf is not None
-    sums = cell_sums_plain(
-        rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower, hsv_upper,
-        multi_color_dlo, cell_px, voxel_leaf, parity_split=parity,
-        with_votes=not parity and voxel_leaf is not None,
-    )
-    return compact_sums(sums, max_points, voxel_leaf, candidate_cap, parity)
+    args = (rgb, depth, occlusion_mask, fx, fy, cx, cy, hsv_lower, hsv_upper, multi_color_dlo,
+            cell_px, voxel_leaf)
+    sums = cell_sums_plain(*args, parity_split=parity,
+                           with_votes=not parity and voxel_leaf is not None, exact=exact)
+    return compact_sums(sums, max_points, voxel_leaf, candidate_cap, parity,
+                        exact_frame(args, sums) if exact and parity else None)
 
 
-def compact_sums(sums, max_points, voxel_leaf, candidate_cap, parity: bool) -> PointCloud:
+def exact_frame(args: tuple, sums: tuple) -> ExactFrame:
+    """Kernel X's inputs from kernel P's arguments (frames, camera, bands,
+    cell size, leaf) and its exact route's outputs."""
+    return ExactFrame(*args[:3], sums[4], *args[3:])
+
+
+def compact_sums(sums, max_points, voxel_leaf, candidate_cap, parity: bool,
+                 exact: ExactFrame | None = None) -> PointCloud:
     """The cloud from kernel P's raw sums: the four parity grids
-    (``parity``), or the four single-channel sums and, on the coarse
-    two-stage path, the three floor-vote sums after them."""
+    (``parity``; with ``exact``, the exact route's), or the four
+    single-channel sums and, on the coarse two-stage path, the three
+    floor-vote sums after them."""
     sx, sy, sz, cnt = sums[:4]
     if parity:
         return compact_parity_channels(sx, sy, sz, cnt, max_points, voxel_leaf, candidate_cap,
-                                       inputs_are_sums=True)
+                                       inputs_are_sums=True, exact=exact)
     key_sums = torch.stack(sums[4:], dim=-1) if len(sums) == 7 else None
     return compact_cells(sx, sy, sz, cnt, max_points, voxel_leaf, candidate_cap,
                          key_sums=key_sums, inputs_are_sums=True)

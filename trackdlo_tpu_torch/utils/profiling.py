@@ -26,6 +26,14 @@ call. :func:`enable` turns it on:
   ``staging_waits``, the graph steps' calls whose writes had to wait for the
   previous call's copies out of those buffers. The kernels' launch counters
   stay in ``_build.launch_counts``.
+- **Device counters** (:func:`device_counters`, :data:`DEVICE_COUNTERS`),
+  added on the card by a graph captured with the recorder on and read at
+  :func:`drain` (no read a call): ``dropout_points``, the masked pixels
+  without depth that kernel P's exact route kept as the point at the
+  origin; ``split_cells``, the image cells in which a parity channel's
+  pixels spanned more than one voxel (kernel X regroups them);
+  ``occlusion_states.<s>``, the frames (stream-frames) whose step ended in
+  occlusion state ``s`` (:func:`count_occlusion_states`).
 - **Device stamps.** While a CUDA graph is captured with the recorder on,
   each ``with device_span(name, device):`` puts a stamp kernel
   (``csrc/stamp.cu``) before and after the work it encloses: the kernel
@@ -67,6 +75,9 @@ STAMP_CAPACITY = 1 << 20
 CALIBRATION_STAMPS = 20
 # The root device span of every replay of a graph captured with stamps.
 REPLAY = "replay"
+# The device counters' slots, in order (kernel P adds to the first two).
+DEVICE_COUNTERS = ("dropout_points", "split_cells") + tuple(
+    f"occlusion_states.{s}" for s in range(6))
 
 
 class Span(NamedTuple):
@@ -130,6 +141,7 @@ class _Ring:
         self.device = device
         self.lib = _build.lib()
         self.header = torch.zeros(2, dtype=torch.int64, device=device)
+        self.counters = torch.zeros(len(DEVICE_COUNTERS), dtype=torch.int64, device=device)
         self.times = torch.zeros(STAMP_CAPACITY, dtype=torch.int64, device=device)
         self.tags = torch.zeros(STAMP_CAPACITY, dtype=torch.int32, device=device)
         self._cal = [torch.zeros(n, dtype=dt, device=device)
@@ -180,15 +192,19 @@ class _Ring:
         off = o0 if d1 == d0 else o0 + (o1 - o0) * (d - d0) / (d1 - d0)
         return int(round(d + off))
 
-    def drain(self, tag_names: list) -> tuple[list, int]:
-        """The device spans since the last reset, and the stamps dropped."""
+    def drain(self, tag_names: list) -> tuple[list, int, dict]:
+        """The device spans since the last reset, the stamps dropped, and the
+        device counters that moved (zeroed)."""
         torch.cuda.synchronize(self.device)
+        counts = dict(zip(DEVICE_COUNTERS, self.counters.tolist()))
+        self.counters.zero_()
         cursor, lost = self.header.tolist()
         n = min(cursor, STAMP_CAPACITY)
         times, tags = self.times[:n].tolist(), self.tags[:n].tolist()
         replays = self.replays
         self.reset()
-        return group_stamps(times, tags, tag_names, replays, self.to_host), lost
+        return (group_stamps(times, tags, tag_names, replays, self.to_host), lost,
+                {k: v for k, v in counts.items() if v})
 
 
 def group_stamps(times: list, tags: list, tag_names: list, replays: list, to_host) -> list:
@@ -352,6 +368,26 @@ def device_span(name: str, device: torch.device):
     return _DeviceSpan(_recorder.rings[index], name)
 
 
+def device_counters(device: torch.device):
+    """The device counters on ``device`` (int64, :data:`DEVICE_COUNTERS`'s
+    slots) while a graph is captured there with the recorder on (after
+    :func:`prepare`); None otherwise, and nothing is counted."""
+    if not _on or device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+        return None
+    ring = _recorder.rings.get(torch.cuda._get_device_index(device, optional=True))
+    return None if ring is None else ring.counters
+
+
+def count_occlusion_states(state: torch.Tensor) -> None:
+    """Add each stream-frame's occlusion state (``state``, () or (B,)
+    integers 0-5) to the ``occlusion_states.<s>`` device counters, in a
+    graph captured with the recorder on."""
+    counters = device_counters(state.device)
+    if counters is not None:
+        s = state.reshape(-1).to(torch.int64)
+        counters[2:].index_add_(0, s, torch.ones_like(s))
+
+
 def cohort(index: int):
     """Mark the device spans captured in the block as lockstep cohort
     ``index``'s."""
@@ -414,9 +450,11 @@ def drain() -> Drained:
     for index, ring in rec.rings.items():
         if _on:
             ring.calibrate()
-        got, dropped = ring.drain(rec.tag_names)
+        got, dropped, moved = ring.drain(rec.tag_names)
         device += got
         lost += dropped
+        for k, v in moved.items():
+            counters[k] = counters.get(k, 0) + v
         if ring.calibrations:
             calibration[index] = dict(offset_ns=ring.calibrations[-1][1],
                                       error_ns=max(c[2] for c in ring.calibrations),
