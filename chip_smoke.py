@@ -59,7 +59,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
    trips, and the evaluation profile (``eval_params()``) beside the JAX
    package's CPU run of the same frames (perf/eval_profile_jax_cpu.json);
 5. batch: the batched step over 16 streams in cohorts of 8 for 30 frames,
-   each frame set one CUDA graph (every cohort's EM loops conditional WHILE
+   one CUDA graph a cohort (every cohort's EM loops conditional WHILE
    nodes whose trips kernel L decides on the card), each frame held against
    the single-stream step from the same state and against a lockstep batch
    of 16, streams 0 and 15 against the oracle, the exact lockstep launch
@@ -2451,7 +2451,7 @@ class Smoke:
         frames = [self.batch_frames(i) for i in range(1, self.frames + 1)]
         befores, outs = [], []
         state0 = state
-        fn_c8(state, *frames[0])  # the first call captures the frame set's graph
+        fn_c8(state, *frames[0])  # the first call captures the cohorts' graphs
 
         def run():
             nonlocal state
@@ -3100,7 +3100,7 @@ class Smoke:
         log(f"  Tracker.step, parity_split=False, per frame: median {rec['median_ms']:.3f} ms "
             f"(p90 {rec['p90_ms']:.3f}, host wall median {rec['wall_median_ms']:.3f})")
 
-        # The batched step: each frame set one CUDA graph, and eagerly
+        # The batched step: one CUDA graph a cohort, and eagerly
         # (build_batched_step_fn(jit=False)), in the same call.
         from trackdlo_tpu_torch.parallel import build_batched_step_fn
 

@@ -28,6 +28,12 @@ Readings, per call of the untraced calls:
   ``handed_bytes_per_call``, the bytes of the frame arrays a call hands
   over; ``api.replay_ms``, ``api.copy_out_ms``: host ms in ``step.replay``,
   ``step.copy_out``; ``readback_ms``: the host's wait for y and sigma^2;
+- ``api.overlap_share``: ``overlap_staged_bytes`` over ``staged_bytes``,
+  the share of the host's writes made while an earlier cohort of the call
+  had its replay enqueued (a batched step of several cohorts; 0 on one
+  cohort or one stream); ``overlap_writes_per_call``: those writes that
+  ended with that replay still running (``hidden``) or already done
+  (``exposed``: the card waited for the host);
 - ``<layer>.device_ms``: device ms between the stamps of ``preprocess``,
   ``visibility``, ``em.pre`` + ``em.main`` (``em``) and ``priors``, every
   cohort summed; ``preprocess.split_cells.device_ms``: kernel X's stamps,
@@ -35,9 +41,10 @@ Readings, per call of the untraced calls:
 - ``device_counters_per_call``: the recorder's device counters a call
   (``dropout_points``, ``split_cells``, ``occlusion_states.<s>``; those
   that moved);
-- ``device.replay_idle_pct``: 100 (1 - the replays' device spans over the
-  calls' host seconds), a lower bound on the idle share (gaps inside a
-  replay count as busy);
+- ``replay_device_ms``: the union of each call's ``replay`` spans (one a
+  graph: one a cohort in a batched step); ``device.replay_idle_pct``: 100
+  (1 - that union over the calls' host seconds), a lower bound on the idle
+  share (gaps inside a replay count as busy);
 - closure: the host spans and the readback over the calls' mean host ms,
   and the layers' device ms over the replays'.
 
@@ -61,6 +68,7 @@ sys.path.insert(0, ROOT)
 
 STAGE_IN = ("step.prepare", "step.pin", "step.copy_in")
 COUNTERS = ("pinned_bytes", "staged_bytes", "staging_waits")
+OVERLAP = ("overlap_staged_bytes", "overlap_hidden_writes", "overlap_exposed_writes")
 LAYERS = {"preprocess": ("preprocess",), "visibility": ("visibility",),
           "em": ("em.pre", "em.main"), "priors": ("priors",)}
 STAMP_KERNEL = "stamp_kernel"
@@ -71,6 +79,8 @@ def readings(drained, calls: int, host_s: float, readback_ms: float) -> dict:
     them (``host_s``: their host seconds; ``readback_ms``: the host's mean
     wait for the outputs a call). None where the spans are missing or the
     device buffer dropped stamps."""
+    from trackdlo_tpu_torch.utils import profiling
+
     host = defaultdict(int)
     for s in drained.spans:
         host[s.name] += s.end_ns - s.start_ns
@@ -82,8 +92,12 @@ def readings(drained, calls: int, host_s: float, readback_ms: float) -> dict:
            "api.pin_gb_per_s": (counters["pinned_bytes"] + counters["staged_bytes"])
            / host["step.pin"] if host["step.pin"] else None,
            "counters_per_call": {k: v / calls for k, v in counters.items()},
+           "api.overlap_share": drained.counters.get("overlap_staged_bytes", 0)
+           / counters["staged_bytes"] if counters["staged_bytes"] else None,
+           "overlap_writes_per_call": {k: drained.counters.get(f"overlap_{k}_writes", 0) / calls
+                                       for k in ("hidden", "exposed")},
            "device_counters_per_call": {k: v / calls for k, v in sorted(drained.counters.items())
-                                        if k not in COUNTERS},
+                                        if k not in COUNTERS + OVERLAP},
            "host_span_ms": {k: v / calls / 1e6 for k, v in sorted(host.items())},
            "stamps_lost": drained.lost, "calibration": drained.calibration}
     out["closure_host"] = (out["api.stage_in_ms"] + out["api.replay_ms"] + out["api.copy_out_ms"]
@@ -99,18 +113,21 @@ def readings(drained, calls: int, host_s: float, readback_ms: float) -> dict:
         seen[key] += 1
     out["host_span_ms_in_order"] = {k: v / calls / 1e6 for k, v in sorted(nth.items())}
     dev = defaultdict(int)
+    replays = defaultdict(list)
     for s in drained.device:
         dev[s.name] += s.end_ns - s.start_ns
-    replays = {s.call for s in drained.device if s.name == "replay"}
+        if s.name == "replay":
+            replays[s.call].append((s.start_ns, s.end_ns))
     if drained.lost or len(replays) != calls:
         return {**out, **{f"{k}.device_ms": None for k in LAYERS},
                 "device.replay_idle_pct": None, "closure_device": None}
     for k, names in LAYERS.items():
         out[f"{k}.device_ms"] = sum(dev[n] for n in names) / calls / 1e6
     out["preprocess.split_cells.device_ms"] = dev["preprocess.split_cells"] / calls / 1e6
-    out["replay_device_ms"] = dev["replay"] / calls / 1e6
-    out["device.replay_idle_pct"] = 100.0 * (1.0 - dev["replay"] / 1e9 / host_s)
-    out["closure_device"] = sum(dev[n] for names in LAYERS.values() for n in names) / dev["replay"]
+    replay_ns = sum(map(profiling.union_ns, replays.values()))
+    out["replay_device_ms"] = replay_ns / calls / 1e6
+    out["device.replay_idle_pct"] = 100.0 * (1.0 - replay_ns / 1e9 / host_s)
+    out["closure_device"] = sum(dev[n] for names in LAYERS.values() for n in names) / replay_ns
     cohorts = defaultdict(int)
     for s in drained.device:
         if s.cohort is not None:

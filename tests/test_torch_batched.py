@@ -6,7 +6,10 @@ CPU, where every kernel wrapper takes its plain version:
 - against the port's single-stream ``Tracker.step``, stream by stream;
 - convergence cohorts: bit-equal to the lockstep batch, a cohort of one
   bit-equal to ``Tracker.step``;
-- ``MultiTracker``, ``replicate_state`` and batched state conversion."""
+- ``MultiTracker``, ``replicate_state`` and batched state conversion;
+- the graph path's cohort sequencing (``parallel.sharding.replay_cohorts``)
+  with stand-in cohort steps: each cohort written after the last one's
+  replay is enqueued, the results in stream order, the overlap counters."""
 
 import dataclasses
 
@@ -19,13 +22,15 @@ from trackdlo_tpu_torch.config import CameraIntrinsics, live_params
 from trackdlo_tpu_torch.convert import state_from_numpy, state_to_numpy
 from trackdlo_tpu_torch.io.sequence import SyntheticRope, render_frame
 from trackdlo_tpu_torch.models.multi import MultiTracker
-from trackdlo_tpu_torch.models.trackdlo import Tracker
+from trackdlo_tpu_torch.models.trackdlo import Tracker, TrackerState
 from trackdlo_tpu_torch.parallel import (
     build_batched_step_fn,
     build_parallel_step_fn,
     make_tracking_mesh,
     replicate_state,
 )
+from trackdlo_tpu_torch.parallel.sharding import replay_cohorts
+from trackdlo_tpu_torch.utils import profiling
 
 SMALL = CameraIntrinsics(fx=120.0, fy=120.0, cx=80.0, cy=60.0, width=160, height=120)
 # The small camera sees the rope at 1/7.65 of the live scale: the painter's
@@ -220,3 +225,136 @@ def test_multitracker_add_step_remove():
     assert set(mt.states) == {"cam1"} and set(mt.last_outputs) == {"cam1"}
     out = mt.step("cam1", rgb[1], depth[1])
     assert np.isfinite(mt.nodes("cam1")).all() and int(out.n_points) > 0
+
+
+# -- the graph path's cohort sequencing, with stand-in cohort steps --
+
+
+class _Event:
+    """A stand-in for the batched step's replay event: logs what is asked
+    of it; ``running``: whether the replay it follows is still running."""
+
+    def __init__(self, log, running):
+        self.log, self.running = log, running
+
+    def record(self):
+        self.log.append(("record",))
+
+    def query(self):
+        self.log.append(("query",))
+        return not self.running
+
+    def synchronize(self):
+        self.log.append(("synchronize",))
+
+
+class _CohortStep:
+    """A stand-in for one cohort's ``CompiledStep``: logs its calls; its
+    outputs are its state with y moved by 1 and the stream index each of
+    its frames holds (as a pool's outputs: the state's y is the outputs'
+    y). It writes every array it is handed, as numpy frames are."""
+
+    def __init__(self, k, log):
+        self.k, self.log = k, log
+
+    def load(self, state, rgb, depth, occ):
+        self.log.append(("load", self.k))
+        self.state, self.streams = state, torch.from_numpy(rgb[:, 0, 0, 0].astype(np.int64))
+        return rgb.nbytes + depth.nbytes + occ.nbytes
+
+    def replay(self):
+        self.log.append(("replay", self.k))
+        y = self.state.y + 1
+        return TrackerState(y, self.state.sigma2, self.state.geodesic_coord), (y, self.streams)
+
+    def release(self):
+        self.log.append(("release", self.k))
+
+
+def _cohort_call(cohorts, running=True, streams=8):
+    """``replay_cohorts`` over ``cohorts`` stand-in steps and a frame set of
+    ``streams`` tiny frames, stream b's pixels and nodes holding b: the log
+    of calls, the result, the start state and the bytes a cohort wrote."""
+    log = []
+    steps = [_CohortStep(k, log) for k in range(cohorts)]
+    ids = np.arange(streams)
+    rgb = np.broadcast_to(ids[:, None, None, None], (streams, 2, 3, 3)).astype(np.uint8)
+    depth = np.broadcast_to(ids[:, None, None], (streams, 2, 3)).astype(np.uint16)
+    occ = np.ones((streams, 2, 3), bool)
+    state = TrackerState(torch.arange(streams, dtype=torch.float32)[:, None, None].expand(
+        streams, 4, 3).contiguous(), torch.full((streams,), 0.5), torch.zeros(streams, 4))
+    result = replay_cohorts(steps, state, rgb, depth, occ, _Event(log, running))
+    per_cohort = (rgb.nbytes + depth.nbytes + occ.nbytes) // cohorts
+    return log, result, state, per_cohort
+
+
+@pytest.fixture
+def recorder():
+    """The span recorder, off and empty before and after the test."""
+    profiling.disable()
+    profiling.drain()
+    yield profiling
+    profiling.disable()
+    profiling.drain()
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["recorder_off", "recorder_on"])
+@pytest.mark.parametrize("cohorts", [2, 4])
+def test_each_cohort_is_written_after_the_last_replay_is_enqueued(recorder, cohorts, on):
+    """Cohort k+1's write (its ``load``) starts after cohort k's replay is
+    enqueued and before anything waits for that replay: nothing
+    synchronises, and the event is only recorded after each replay and
+    queried after each later write, while the recorder is on. Every step is
+    released after the results are copied."""
+    if on:
+        recorder.enable()
+    log, *_ = _cohort_call(cohorts)
+    want = []
+    for k in range(cohorts):
+        want += [("load", k)] + [("query",)] * (on and k > 0) + [("replay", k)]
+        want += [("record",)] * on
+    want += [("release", k) for k in range(cohorts)]
+    assert log == want
+
+
+@pytest.mark.parametrize("cohorts", [1, 2, 4])
+def test_cohort_results_concatenate_in_stream_order(cohorts):
+    """The states and outputs of the cohorts come back concatenated along
+    the stream axis in stream order, copies of the pools' tensors (one
+    cohort's cloned), the state's y and the outputs' y one tensor."""
+    _, (state, (y, streams)), start, _ = _cohort_call(cohorts)
+    assert torch.equal(streams, torch.arange(8))
+    assert torch.equal(state.y, start.y + 1) and state.y is y
+    assert torch.equal(state.sigma2, start.sigma2)
+    assert state.geodesic_coord.data_ptr() != start.geodesic_coord.data_ptr()
+    assert torch.equal(state.geodesic_coord, start.geodesic_coord)
+
+
+@pytest.mark.parametrize("running", [True, False], ids=["replay_running", "replay_done"])
+@pytest.mark.parametrize("cohorts", [1, 2, 4])
+def test_overlap_counters_count_every_cohort_after_the_first(recorder, cohorts, running):
+    """``overlap_staged_bytes``: the bytes of every cohort after the first
+    (none with one cohort); each such write counts as hidden where the last
+    replay was still running when it ended, else as exposed."""
+    recorder.enable()
+    _, _, _, per_cohort = _cohort_call(cohorts, running)
+    counters = recorder.drain().counters
+    later = cohorts - 1
+    want = {"overlap_staged_bytes": later * per_cohort,
+            "overlap_hidden_writes": later if running else 0,
+            "overlap_exposed_writes": 0 if running else later}
+    assert {k: counters.get(k, 0) for k in want} == want
+
+
+def test_overlap_counts_nothing_while_off_or_without_a_write(recorder):
+    """The overlap counters read nothing and touch no event while the
+    recorder is off, for a call's first cohort, or where a cohort wrote no
+    host bytes (its frames on the card)."""
+    log = []
+    event = _Event(log, True)
+    profiling.overlap(100, event)
+    recorder.enable()
+    profiling.overlap(100, None)
+    profiling.overlap(0, event)
+    assert log == [] and recorder.drain().counters == {}
+    assert profiling.mark(event) is event and log == [("record",)]

@@ -1535,6 +1535,54 @@ def test_batched_graph_matches_eager_over_three_frame_sets(cuda):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("on_card", [False, True], ids=["numpy_frames", "frames_on_card"])
+def test_cohort_graphs_of_b16c8_match_eager_and_overlap_the_second_write(cuda, recorder, on_card):
+    """16 streams in cohorts of 8 at the quarter camera, one graph a
+    cohort: four calls back to back (no host read between them), the frames
+    as numpy arrays or already on the card, bit-equal to the eager batched
+    step fed the numpy frames. Then two calls in a closed loop (y read back
+    each call, as the benchmark's window), the recorder on: no write waits
+    for the staging buffers, and the second cohort's write, half of the
+    staged bytes, is made while the first cohort's replay is enqueued (one
+    hidden or exposed write a call); frames on the card stage nothing."""
+    from trackdlo_tpu_torch.models.trackdlo import Tracker, TrackerState
+    from trackdlo_tpu_torch.parallel import build_batched_step_fn
+
+    params, bsz = live_params(max_points=512, dlo_pixel_width=10), 16
+    tracker = Tracker(params, QUARTER, device=cuda)
+    start = TrackerState(*(torch.stack(f) for f in zip(*(
+        tracker.init_from_nodes(SyntheticRope().nodes(0.01 * b, M)) for b in range(bsz)))))
+    quarter = _quarter_frames(8)
+    sets = [tuple(np.stack([quarter[(k + b) % 8][i] for b in range(bsz)]) for i in range(3))
+            for k in range(6)]
+    fed = [_on_card(s, cuda) if on_card else s for s in sets]
+    graph = build_batched_step_fn(params, QUARTER, cohort_size=8, device=cuda)
+    eager = build_batched_step_fn(params, QUARTER, cohort_size=8, device=cuda, jit=False)
+    sg = se = start
+    got = []
+    for s in fed[:4]:
+        sg, og = graph(sg, *s)
+        got.append((sg, og))
+    for (s_g, o_g), s in zip(got, sets):
+        se, oe = eager(se, *s)
+        for a, b in zip((*s_g, *o_g), (*se, *oe), strict=True):
+            assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    recorder.enable()
+    for s in fed[4:]:
+        sg, og = graph(sg, *s)
+        og.y.cpu()
+    counters = recorder.drain().counters
+    assert counters.get("staging_waits", 0) == 0
+    if on_card:
+        assert not any(k in counters for k in ("staged_bytes", "overlap_staged_bytes"))
+        return
+    assert counters["staged_bytes"] == sum(a.nbytes for s in sets[4:] for a in s)
+    assert 2 * counters["overlap_staged_bytes"] == counters["staged_bytes"]
+    assert counters.get("overlap_hidden_writes", 0) + counters.get(
+        "overlap_exposed_writes", 0) == len(sets[4:])
+
+
 # -- the span recorder's device stamps (utils/profiling.py, csrc/stamp.cu) --
 
 
@@ -1638,9 +1686,10 @@ def _batched_runs(recorder, cuda, n_sets=2, bsz=16, cohort=8):
 
 
 def test_stamped_batched_graph_is_bit_equal_and_times_its_loops(cuda, recorder):
-    """b16/c8: the stamped graph's outputs are the unstamped one's bit for
-    bit, with the same launches; each cohort's EM spans (em.pre + em.main)
-    take device time, so em.device_ms over kernel L's trips is positive."""
+    """b16/c8: the stamped graphs' outputs are the unstamped ones' bit for
+    bit, with the same launches; each cohort's graph has its own replay
+    span, and each cohort's EM spans (em.pre + em.main) take device time,
+    so em.device_ms over kernel L's trips is positive."""
     (got_off, counts_off, _), (got_on, counts_on, drained) = _batched_runs(recorder, cuda)
     for (s_off, o_off), (s_on, o_on) in zip(got_off, got_on):
         for a, b in zip((*s_off, *o_off), (*s_on, *o_on)):
@@ -1652,7 +1701,7 @@ def test_stamped_batched_graph_is_bit_equal_and_times_its_loops(cuda, recorder):
     for call in calls:
         spans = [s for s in drained.device if s.call == call]
         assert sorted((s.name, s.cohort) for s in spans) == sorted(
-            [("replay", None)] + [(n, c) for n in LAYERS + tuple(NESTED) for c in (0, 1)])
+            [(n, c) for n in ("replay",) + LAYERS + tuple(NESTED) for c in (0, 1)])
     em_ms = sum(s.end_ns - s.start_ns for s in drained.device if s.name.startswith("em.")) / 1e6
     trips = counts_on["loop_flag"] - 2 * 2 * len(got_on)  # less one opening launch a loop
     assert trips > 0 and em_ms / len(calls) / trips > 0

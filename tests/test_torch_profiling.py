@@ -245,6 +245,34 @@ def test_step_spans_pin_rate_reads_pinned_and_staged_bytes(counters):
     assert got["api.stage_in_ms"] == pytest.approx(0.5) and got["api.replay_ms"] == pytest.approx(0.1)
 
 
+@pytest.mark.parametrize("cohorts", [1, 2])
+def test_step_spans_read_the_replays_union_and_the_overlap_share(cohorts):
+    """``perf/step_spans.py`` with one ``replay`` device span a cohort:
+    ``replay_device_ms`` is the union of a call's replay spans (an overlap
+    counted once), ``device.replay_idle_pct`` one less it over the calls'
+    host time; ``api.overlap_share`` the overlap bytes over the staged
+    bytes (0 with one cohort), beside the hidden and exposed writes a
+    call."""
+    spans, device = [], []
+    for call in (1, 2):
+        t = 10_000_000 * call
+        spans.append(profiling.Span("step", t, t + 4_000_000, None, call))
+        cohort_replays = [(1_000_000, 2_000_000), (1_500_000, 3_000_000)][:cohorts]
+        device += [profiling.DeviceSpan("replay", t + a, t + b, call, k)
+                   for k, (a, b) in enumerate(cohort_replays)]
+    counters = {"staged_bytes": 8_000_000}
+    if cohorts > 1:
+        counters.update(overlap_staged_bytes=4_000_000, overlap_hidden_writes=2)
+    got = _step_spans().readings(profiling.Drained(spans, counters, device, 0, {}), 2, 0.008, 0.5)
+    replay_ms = 1.0 if cohorts == 1 else 2.0
+    assert got["replay_device_ms"] == pytest.approx(replay_ms)
+    assert got["device.replay_idle_pct"] == pytest.approx(100 * (1 - replay_ms / 4))
+    assert got["api.overlap_share"] == (0.5 if cohorts > 1 else 0.0)
+    assert got["overlap_writes_per_call"] == {"hidden": 1.0 if cohorts > 1 else 0.0,
+                                              "exposed": 0.0}
+    assert got["device_counters_per_call"] == {}
+
+
 def test_stamps_group_into_the_replays_of_their_calls():
     names = [("replay", None, False), ("preprocess", 0, False), ("preprocess", 0, True),
              ("preprocess", 1, False), ("preprocess", 1, True), ("replay", None, True)]

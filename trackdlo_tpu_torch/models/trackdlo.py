@@ -224,27 +224,32 @@ def _step_impl(state: TrackerState, rgb, depth, occ, *, params: TrackerParams,
         return _track_from_points(state, pc, proj, params=params, intr=intr)
 
 
-def _tree_map(fn, tree):
-    """``fn`` of every tensor in nested (named) tuples."""
+def _tree_map(fn, *trees):
+    """``fn`` of the tensors at each place of nested (named) tuples of one
+    structure."""
+    tree = trees[0]
     if isinstance(tree, torch.Tensor):
-        return fn(tree)
+        return fn(*trees)
     if isinstance(tree, tuple):
-        parts = [_tree_map(fn, v) for v in tree]
+        parts = [_tree_map(fn, *vs) for vs in zip(*trees)]
         return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
     return tree
 
 
-def _copy_outputs(tree):
-    """A copy of every tensor of ``tree``; a tensor that appears twice (the
-    state's y and the outputs' y) is copied once and stays one tensor."""
+def _copy_outputs(*trees):
+    """A copy of every tensor of ``trees``, the outputs of one step (cloned)
+    or of one step a cohort (concatenated along the leading stream axis, in
+    order); a tensor that appears twice (the state's y and the outputs' y)
+    is copied once and stays one tensor."""
     copies: dict = {}
 
-    def copy_once(t):
-        if id(t) not in copies:
-            copies[id(t)] = t.clone()
-        return copies[id(t)]
+    def copy_once(*ts):
+        key = tuple(map(id, ts))
+        if key not in copies:
+            copies[key] = ts[0].clone() if len(ts) == 1 else torch.cat(ts)
+        return copies[key]
 
-    return _tree_map(copy_once, tree)
+    return _tree_map(copy_once, *trees)
 
 
 def _is_mask(buf: torch.Tensor, shape: tuple) -> bool:
@@ -302,12 +307,14 @@ def _on_card(src) -> bool:
     return isinstance(src, torch.Tensor) and src.device.type == "cuda"
 
 
-def _copy_into(dst: torch.Tensor, src, name: str, staging: torch.Tensor) -> None:
+def _copy_into(dst: torch.Tensor, src, name: str, staging: torch.Tensor, stream=None) -> int:
     """``src`` into the static buffer ``dst`` without a host
-    synchronisation. A tensor on the card is copied directly (to a bool
-    ``dst``, a mask of another dtype or with a channel axis made bool on the
-    card first); anything else is written into the host buffer ``staging``
-    (:func:`_stage`), then copied from there."""
+    synchronisation; returns the bytes written on the host. A tensor on the
+    card is copied directly, on the current stream (to a bool ``dst``, a
+    mask of another dtype or with a channel axis made bool on the card
+    first); anything else is written into the host buffer ``staging``
+    (:func:`_stage`), then copied from there on ``stream`` (the current
+    stream where None)."""
     if _on_card(src):
         if src.dtype == torch.uint16 and dst.dtype == torch.int16:
             src = src.view(torch.int16)
@@ -317,11 +324,13 @@ def _copy_into(dst: torch.Tensor, src, name: str, staging: torch.Tensor) -> None
                 src = src.any(dim=-1)
         if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
             raise _shape_error(name, dst, src.shape, src.dtype)
-    else:
-        _stage(staging, src, name)
-        src = staging
-    with profiling.span("step.copy_in"):
-        dst.copy_(src, non_blocking=True)
+        with profiling.span("step.copy_in"):
+            dst.copy_(src, non_blocking=True)
+        return 0
+    _stage(staging, src, name)
+    with profiling.span("step.copy_in"), torch.cuda.stream(stream):
+        dst.copy_(staging, non_blocking=True)
+    return staging.nbytes
 
 
 # Solvers whose M-step no CUDA graph holds, so that their step stays eager:
@@ -367,20 +376,26 @@ class CompiledStep:
     then captures it into one ``torch.cuda.CUDAGraph``; an EM loop inside
     becomes a conditional WHILE node whose trips the card decides
     (:mod:`~trackdlo_tpu_torch.ops.graph_loop`). Each call copies the
-    state and the inputs into the static buffers, replays the graph, and
-    returns copies of the outputs taken out of the graph's memory pool: what
-    one call returns is never overwritten by the next, so streams can
-    interleave their states through one step.
+    state and the inputs into the static buffers (:meth:`load`), replays
+    the graph (:meth:`replay`), and returns copies of the outputs taken out
+    of the graph's memory pool: what one call returns is never overwritten
+    by the next, so streams can interleave their states through one step.
+    A caller that copies the outputs itself (the batched step, one
+    ``CompiledStep`` a cohort) calls the three parts and :meth:`release`.
 
-    A tensor on the card is copied from where it is. Any other input (a
-    numpy array or a CPU tensor) is written in one pass into a pinned host
-    buffer of the static buffer's shape and dtype, allocated at the capture
-    and held as long as the step (:func:`_stage`: u16 depth as its int16
-    bits; into a bool buffer, a mask of any dtype, nonzero keeping, a
-    trailing channel axis any-reduced), then copied from there. A call may
+    A tensor on the card is copied from where it is, on the current stream.
+    Any other input (a numpy array or a CPU tensor) is written in one pass
+    into a pinned host buffer of the static buffer's shape and dtype,
+    allocated at the capture and held as long as the step (:func:`_stage`:
+    u16 depth as its int16 bits; into a bool buffer, a mask of any dtype,
+    nonzero keeping, a trailing channel axis any-reduced), then copied from
+    there on ``copy_stream`` (the current stream where None). A call may
     return before its copies have run, so the next call waits for an event
     recorded after them before it writes a host buffer again (counted as
-    ``staging_waits`` where it had to wait). The kernel
+    ``staging_waits`` where it had to wait). On a ``copy_stream`` of its
+    own the copies run beside what the current stream has queued (another
+    cohort's replay); the replay waits for them, and they wait for the last
+    :meth:`release` before they overwrite the static buffers. The kernel
     wrappers count their launches in Python, so once while capturing: that
     count is recorded and added to ``_build``'s counters at each replay;
     the launches of the loops' trips are counted on the card and reach the
@@ -397,9 +412,10 @@ class CompiledStep:
     captured, at the first call: a graph captured while it is off has no
     stamp node, and one captured while it is on stamps every replay."""
 
-    def __init__(self, fn: Callable, device: torch.device, shapes: dict):
+    def __init__(self, fn: Callable, device: torch.device, shapes: dict, copy_stream=None):
         self.fn, self.device = fn, device
         self._shapes = shapes
+        self.copy_stream = copy_stream
         self.graph = None
         self.counts = None
         self.loops = None
@@ -407,16 +423,23 @@ class CompiledStep:
         self._inputs = None
         self._staging = None
         self._staged = None  # recorded after the last call's copies
+        self._released = None  # recorded once the last call's outputs were copied
         self._outputs = None
 
-    def _load(self, state, inputs) -> None:
+    def _load(self, state, inputs) -> int:
         srcs = (*state, *inputs)
         if not all(map(_on_card, srcs)) and not self._staged.query():
             profiling.count("staging_waits", 1)
             self._staged.synchronize()
-        for name, src in zip(self._inputs, srcs):
-            _copy_into(self._inputs[name], src, name, self._staging[name])
-        self._staged.record()
+        copy = self.copy_stream
+        if copy is not None:
+            copy.wait_event(self._released)
+        staged = sum(_copy_into(self._inputs[name], src, name, self._staging[name], copy)
+                     for name, src in zip(self._inputs, srcs))
+        self._staged.record(copy)
+        if copy is not None:
+            torch.cuda.current_stream(self.device).wait_event(self._staged)
+        return staged
 
     def _args(self):
         b = list(self._inputs.values())
@@ -428,7 +451,7 @@ class CompiledStep:
                         for k, (shape, dt) in self._shapes.items()}
         self._staging = {k: torch.empty(shape, dtype=dt, pin_memory=True)
                          for k, (shape, dt) in self._shapes.items()}
-        self._staged = torch.cuda.Event()
+        self._staged, self._released = torch.cuda.Event(), torch.cuda.Event()
         self._load(state, inputs)
         graph_loop.warm(dev)
         loops = graph_loop.GraphLoops(dev)
@@ -437,6 +460,7 @@ class CompiledStep:
         with torch.cuda.stream(side):
             self.fn(*self._args())
         torch.cuda.current_stream(dev).wait_stream(side)
+        self._released.record()  # the warm-up has read the static buffers
         stamped = profiling.prepare(dev)
         graph = torch.cuda.CUDAGraph()
         before = dict(_build.launch_counts)
@@ -453,18 +477,40 @@ class CompiledStep:
         self.graph, self.counts, self.loops, self._outputs = graph, counts, loops, outputs
         self.stamped = stamped
 
+    def load(self, state, *inputs) -> int:
+        """The state and the inputs into the static buffers, the graph
+        captured first at the first call; returns the bytes written into
+        the host buffers. Call on the step's device."""
+        if self.graph is None:
+            self._capture(state, inputs)
+        return self._load(state, inputs)
+
+    def replay(self):
+        """The graph replayed on the current stream over what :meth:`load`
+        put in; returns the outputs as they lie in the graph's pool, which
+        the next replay overwrites."""
+        with profiling.span("step.replay"):
+            self.graph.replay()
+        if self.stamped:
+            profiling.replayed(self.device)
+        _build.add_counts(self.counts)
+        return self._outputs
+
+    def release(self) -> None:
+        """The last replay's outputs are copied (on the current stream): the
+        next call's copies on a copy stream may overwrite the static buffers
+        once the current stream's work so far has run."""
+        if self.copy_stream is not None:
+            self._released.record()
+
     def __call__(self, state, *inputs):
         with profiling.root(), torch.cuda.device(self.device):
-            if self.graph is None:
-                self._capture(state, inputs)
-            self._load(state, inputs)
-            with profiling.span("step.replay"):
-                self.graph.replay()
-            if self.stamped:
-                profiling.replayed(self.device)
-            _build.add_counts(self.counts)
+            self.load(state, *inputs)
+            outputs = self.replay()
             with profiling.span("step.copy_out"):
-                return _copy_outputs(self._outputs)
+                outputs = _copy_outputs(outputs)
+            self.release()
+            return outputs
 
 
 def build_step_fn(params: TrackerParams, intr: CameraIntrinsics, jit: bool = True,

@@ -13,9 +13,11 @@ another, each with its own lockstep loops: a lockstep loop runs every stream
 of it to its slowest stream's trip count, and the cohorts bound that tax.
 A converged stream is frozen by select, so grouping changes no stream's
 math. A cohort of one takes the single-stream step (kernel E's whole loop),
-as the JAX package's axis-size-1 rule does. On the card the whole frame
-set is one CUDA graph, as the JAX package jits every cohort into one
-program.
+as the JAX package's axis-size-1 rule does. On the card each cohort is a
+CUDA graph of its own (the JAX package jits every cohort into one
+program): the cohorts share no data on the card, so cohort k's replay is
+enqueued before the host writes cohort k+1's frames, and the card runs the
+one while the host writes the other (:func:`replay_cohorts`).
 
 The mesh: one process per rank, ranks laid out data-major as the JAX
 package's device grid (rank r is data index r // model_parallel, model
@@ -31,7 +33,6 @@ ranks.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -44,6 +45,7 @@ from trackdlo_tpu_torch.models.trackdlo import (
     CompiledStep,
     StepOutputs,
     TrackerState,
+    _copy_outputs,
     _track_from_points,
     host_to_device,
     preprocess_for_step,
@@ -92,6 +94,36 @@ def make_tracking_mesh(n_devices: int | None = None, model_parallel: int = 1) ->
                         rank % model_parallel, model_group)
 
 
+def replay_cohorts(steps: list, state: TrackerState, rgb, depth, occ, replayed):
+    """A frame set through one captured step a cohort (``steps``: each a
+    :class:`~trackdlo_tpu_torch.models.trackdlo.CompiledStep` over B /
+    len(steps) streams), in stream order. Cohort k's replay is enqueued
+    before cohort k+1's frames are written into its host buffers, and
+    nothing waits for that replay meanwhile: the host writes while the card
+    runs. The states and outputs are copied out of the graphs' pools,
+    concatenated in stream order (cloned where there is one cohort), and
+    each step is then released. ``replayed``: an event that
+    :func:`~trackdlo_tpu_torch.utils.profiling.mark` records after each
+    replay while the span recorder is on, for its overlap counters
+    (:func:`~trackdlo_tpu_torch.utils.profiling.overlap`). Call on the
+    steps' device."""
+    cs = int(np.shape(rgb)[0]) // len(steps)
+    outs, behind = [], None
+    for k, cohort_step in enumerate(steps):
+        sl = slice(k * cs, (k + 1) * cs)
+        with profiling.cohort(k):  # a capture at the first call stamps cohort k
+            staged = cohort_step.load(TrackerState(*(v[sl] for v in state)), rgb[sl], depth[sl],
+                                      occ[sl])
+            profiling.overlap(staged, behind)
+            outs.append(cohort_step.replay())
+        behind = profiling.mark(replayed)
+    with profiling.span("step.copy_out"):
+        result = _copy_outputs(*outs)
+    for cohort_step in steps:
+        cohort_step.release()
+    return result
+
+
 def _make_step(params: TrackerParams, intr: CameraIntrinsics, cohort_size, mesh, model_axis,
                device, jit=False):
     dev = resolve_device(device)
@@ -100,7 +132,7 @@ def _make_step(params: TrackerParams, intr: CameraIntrinsics, cohort_size, mesh,
     proj = torch.as_tensor(np.array(intr.proj_matrix(), np.float32), device=dev)
     h, w = intr.height, intr.width
     kw = dict(params=params, intr=intr, model_axis=model_axis)
-    compiled: dict[int, CompiledStep] = {}
+    compiled: dict[int, tuple[list[CompiledStep], torch.cuda.Event]] = {}
     ones: dict[int, torch.Tensor] = {}
 
     def run(state: TrackerState, rgb, depth, occ):
@@ -121,11 +153,7 @@ def _make_step(params: TrackerParams, intr: CameraIntrinsics, cohort_size, mesh,
             with profiling.cohort(i // cs):
                 outs.append(run(TrackerState(*(v[sl] for v in state)), rgb_t[sl], depth_t[sl],
                                 occ_t[sl]))
-        if len(outs) == 1:
-            return outs[0]
-        states, results = zip(*outs)
-        cat = lambda parts: [torch.cat(f) for f in zip(*parts)]
-        return TrackerState(*cat(states)), StepOutputs(*cat(results))
+        return outs[0] if len(outs) == 1 else _copy_outputs(*outs)
 
     def step(state: TrackerState, rgb, depth, occ=None):
         with profiling.root():
@@ -139,11 +167,13 @@ def _make_step(params: TrackerParams, intr: CameraIntrinsics, cohort_size, mesh,
                         if b not in ones:
                             ones[b] = torch.ones((b, h, w), dtype=torch.bool, device=dev)
                         occ = ones[b]
-                    if b not in compiled:
-                        compiled[b] = CompiledStep(functools.partial(run_cohorts, cs=cs), dev,
-                                                   step_shapes(params, intr, b))
+                    if b not in compiled:  # one graph a cohort; their copies beside the replays
+                        copy = torch.cuda.Stream(dev) if b > cs else None
+                        compiled[b] = ([CompiledStep(run, dev, step_shapes(params, intr, cs), copy)
+                                        for _ in range(b // cs)], torch.cuda.Event())
             if graph:  # the masks as given: made bool in the graph step's copy
-                return compiled[b](state, rgb, depth, occ)
+                with torch.cuda.device(dev):
+                    return replay_cohorts(compiled[b][0], state, rgb, depth, occ, compiled[b][1])
             rgb_t = host_to_device(rgb, dev)
             depth_t = host_to_device(depth, dev)
             if occ is None:
@@ -195,14 +225,19 @@ def build_batched_step_fn(params: TrackerParams, intr: CameraIntrinsics,
     slice's. Ranks of one model group step the same streams.
 
     On a CUDA device with ``jit`` (the default, as the JAX package's
-    ``jax.jit``): the whole frame set, every cohort one after another, is
-    captured at the first call for each batch size as one CUDA graph
+    ``jax.jit``): each cohort is captured at the first call for each batch
+    size as a CUDA graph of its own
     (:class:`~trackdlo_tpu_torch.models.trackdlo.CompiledStep`, its EM loops
     conditional WHILE nodes whose trips the card decides) over static
-    (B, H, W, 3), (B, H, W) and (B, …) state buffers, and replayed; the
-    results are copies out of the graph's pool. With a mesh the slice is
-    taken on the host before the copy in. ``jit=False``, the CPU or a
-    solver of ``models.trackdlo.BATCH_EAGER_SOLVERS``: the eager step."""
+    (C, H, W, 3), (C, H, W) and (C, …) state buffers of the cohort's C
+    streams, and the cohorts are replayed one after another, each enqueued
+    before the host writes the next one's frames (:func:`replay_cohorts`;
+    with more than one cohort, the copies of the frames run on a stream of
+    their own, beside the previous cohort's replay); the results are copies
+    out of the graphs' pools, concatenated in stream order. One cohort is
+    one graph over the whole batch. With a mesh the slice is taken on the
+    host before the copy in. ``jit=False``, the CPU or a solver of
+    ``models.trackdlo.BATCH_EAGER_SOLVERS``: the eager step."""
     return _make_step(params, intr, cohort_size, mesh, None, device, jit)
 
 

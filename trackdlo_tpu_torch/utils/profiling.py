@@ -24,8 +24,12 @@ call. :func:`enable` turns it on:
   none on a graph step); ``staged_bytes``, the bytes a graph step
   (``CompiledStep``) writes into its persistent pinned host buffers;
   ``staging_waits``, the graph steps' calls whose writes had to wait for the
-  previous call's copies out of those buffers. The kernels' launch counters
-  stay in ``_build.launch_counts``.
+  previous call's copies out of those buffers; ``overlap_staged_bytes``,
+  ``overlap_hidden_writes`` and ``overlap_exposed_writes``
+  (:func:`overlap`), the batched step's writes made while an earlier
+  cohort of the same call had its replay enqueued, and whether that replay
+  was still running when each ended. The kernels' launch counters stay in
+  ``_build.launch_counts``.
 - **Device counters** (:func:`device_counters`, :data:`DEVICE_COUNTERS`),
   added on the card by a graph captured with the recorder on and read at
   :func:`drain` (no read a call): ``dropout_points``, the masked pixels
@@ -356,6 +360,33 @@ def count(name: str, n: int) -> None:
             _recorder.counters[name] += int(n)
 
 
+def mark(event):
+    """Record ``event`` on the current stream and return it while the
+    recorder is on (for :func:`overlap`); None while off, and nothing is
+    recorded."""
+    if not _on:
+        return None
+    event.record()
+    return event
+
+
+def overlap(staged_bytes: int, behind) -> None:
+    """A cohort's write into its host buffers has ended, ``staged_bytes`` of
+    it, after an earlier cohort of the same call had its replay enqueued
+    (``behind``: :func:`mark`'s event after that replay; None for a call's
+    first cohort). The bytes count as ``overlap_staged_bytes``; a
+    non-blocking query of ``behind`` counts the write as
+    ``overlap_hidden_writes`` where that replay was still running, else as
+    ``overlap_exposed_writes`` (the card had waited for the host). Nothing
+    while off, for a first cohort, or where nothing was written."""
+    if not _on or behind is None or not staged_bytes:
+        return
+    name = "overlap_exposed_writes" if behind.query() else "overlap_hidden_writes"
+    with _recorder.lock:
+        _recorder.counters["overlap_staged_bytes"] += int(staged_bytes)
+        _recorder.counters[name] += 1
+
+
 def device_span(name: str, device: torch.device):
     """Stamps on ``device`` before and after the block's work, while a graph
     is being captured with the recorder on (after :func:`prepare` for the
@@ -475,18 +506,22 @@ def self_ns(spans: list) -> list:
             kids[(s.call, s.parent)].append(s)
     out = []
     for s in spans:
-        inside = sorted((c.start_ns, c.end_ns) for c in kids[(s.call, s.name)]
-                        if c is not s and s.start_ns <= c.start_ns and c.end_ns <= s.end_ns)
-        covered, cur_s, cur_e = 0, None, None
-        for a, b in inside:
-            if cur_e is None or a > cur_e:
-                covered += 0 if cur_e is None else cur_e - cur_s
-                cur_s, cur_e = a, b
-            else:
-                cur_e = max(cur_e, b)
-        covered += 0 if cur_e is None else cur_e - cur_s
-        out.append(s.end_ns - s.start_ns - covered)
+        inside = [(c.start_ns, c.end_ns) for c in kids[(s.call, s.name)]
+                  if c is not s and s.start_ns <= c.start_ns and c.end_ns <= s.end_ns]
+        out.append(s.end_ns - s.start_ns - union_ns(inside))
     return out
+
+
+def union_ns(intervals) -> int:
+    """The time (ns) that the union of ``(start, end)`` intervals covers."""
+    total, cur_s, cur_e = 0, None, None
+    for a, b in sorted(intervals):
+        if cur_e is None or a > cur_e:
+            total += 0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    return total + (0 if cur_e is None else cur_e - cur_s)
 
 
 def report(spans: list | None = None) -> str:
